@@ -1,0 +1,99 @@
+"""Architecture and shape configs (port of ``repro/configs/base.py``; the
+port keeps its own copy — it imports nothing from the JAX package).
+
+Only the dense decoder family runs in the port so far, and only granite-8b
+is registered; any other name raises saying it is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | hybrid | ssm | vlm | encdec
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    window: Optional[int] = None  # sliding-window attention
+    rope_theta: float = 10000.0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    # MLA
+    kv_lora: int = 0
+    # hybrid / ssm
+    ssm_state: int = 0
+    attn_every: int = 0
+    # enc-dec
+    enc_layers: int = 0
+    dec_layers: int = 0
+    # modality frontend stub
+    frontend: Optional[str] = None
+    frontend_dim: int = 0
+    n_frontend_tokens: int = 0
+    tie_embeddings: bool = False
+    remat_policy: str = "full"
+    source: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+_ARCH_MODULES = {"granite-8b": "granite_8b"}
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name not in _ARCH_MODULES:
+        raise ValueError(
+            f"arch {name!r} is not ported yet; the port has {sorted(_ARCH_MODULES)}"
+        )
+    return importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[name]}"
+    ).CONFIG
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests (the JAX package's
+    reduction, field for field)."""
+    kw = dict(
+        name=cfg.name + "-smoke",
+        n_layers=min(cfg.n_layers, 4),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab=256,
+        head_dim=16,
+        kv_lora=32 if cfg.kv_lora else 0,
+        n_experts=4 if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        n_shared_experts=min(cfg.n_shared_experts, 1),
+        ssm_state=16 if cfg.ssm_state else 0,
+        attn_every=2 if cfg.attn_every else 0,
+        enc_layers=2 if cfg.enc_layers else 0,
+        dec_layers=2 if cfg.dec_layers else 0,
+        frontend_dim=32 if cfg.frontend_dim else 0,
+        n_frontend_tokens=8 if cfg.n_frontend_tokens else 0,
+        window=64 if cfg.window else None,
+    )
+    if cfg.family == "hybrid":
+        kw["n_layers"] = 4
+    if cfg.family == "ssm":
+        kw["n_layers"] = 3
+        kw["head_dim"] = 16
+    return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,77 @@
+"""Dispatching wrappers around the hand-written kernels, with launch counts.
+
+Port of ``repro/kernels/ops.py``. Each wrapper takes tensors of any shape
+(the kernels index the flat row-major view; the JAX wrappers' pad-at-end 2-D
+views exist only for the TPU's tiling, and pad-at-end is what keeps the
+encode's PRNG counter equal to the logical flat index on both).
+
+Dispatch is by the device of the first tensor:
+
+  * on the card the wrapper launches its CUDA kernel, or raises — there is
+    no fallback;
+  * on the CPU it runs the kernel's plain PyTorch version (the role Pallas
+    ``interpret=True`` plays in the JAX package).
+
+``launches`` on each wrapper counts the kernel launches, and only those, so
+a run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import fused_update as _fu
+from repro_torch.kernels import int_compress as _ic
+from repro_torch.kernels import wire_pack as _wp
+
+
+class KernelOp:
+    """One CUDA kernel behind a device-dispatching call."""
+
+    def __init__(self, name: str, cuda: Callable, plain: Callable, source: str):
+        self.name = name
+        self.cuda = cuda
+        self.plain = plain
+        self.source = source  # path of the CUDA source within the package
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor, *args, **kwargs):
+        if x.device.type == "cuda":
+            out = self.cuda(x, *args, **kwargs)
+            self.launches += 1
+            return out
+        if x.device.type == "cpu":
+            return self.plain(x, *args, **kwargs)
+        raise ValueError(f"{self.name}: no kernel for device {x.device}")
+
+    def __repr__(self):
+        return f"KernelOp({self.name!r}, launches={self.launches})"
+
+
+int_compress = KernelOp(
+    "int_compress", _ic.int_compress_cuda, _ic.int_compress_plain,
+    "csrc/int_compress.cu",
+)
+pack_words = KernelOp(
+    "pack_words", _wp.pack_words_cuda, _wp.pack_words_plain, "csrc/wire_pack.cu",
+)
+unpack_words = KernelOp(
+    "unpack_words", _wp.unpack_words_cuda, _wp.unpack_words_plain,
+    "csrc/wire_pack.cu",
+)
+fused_unpack_sgd = KernelOp(
+    "fused_unpack_sgd", _fu.fused_unpack_sgd_cuda, _fu.fused_unpack_sgd_plain,
+    "csrc/fused_update.cu",
+)
+
+KERNELS = (int_compress, pack_words, unpack_words, fused_unpack_sgd)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}

@@ -1,0 +1,74 @@
+"""Collectives of the local n-worker backend (port of the matching subset of
+``repro/parallel/collectives.py``).
+
+One process drives one card and simulates the n data-parallel workers in
+turn, the role ``vmap_workers`` plays in the JAX package: what would cross
+the wire between workers meets here instead. Every reduction the train step
+needs goes through this module, so a process-group backend (NCCL) can take
+its place later without touching the call sites.
+
+The integer-only guard carries over: gradient payloads summed here must be
+integer transport words — the paper's floatless wire is structural.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from repro_torch.kernels.ref import wrap_int32
+
+Tree = Dict[str, torch.Tensor]
+
+
+def check_wire_dtypes(words: Tree) -> None:
+    for name, v in words.items():
+        if v.is_floating_point() or v.is_complex():
+            raise TypeError(
+                f"wire payload {name!r} must be integer, got {v.dtype} — the "
+                "IntSGD wire carries no floats (float reductions go through "
+                "pmean_tree)"
+            )
+
+
+def add_wire_words(acc: Optional[Tree], words: Tree) -> Tree:
+    """Fold one worker's transport words into the running sum with int32
+    wrap-around (mod 2^32), which the packed-field arithmetic relies on.
+    The add runs in int64 and wraps explicitly: int32 overflow is not
+    defined behaviour in the elementwise kernels."""
+    check_wire_dtypes(words)
+    if acc is None:
+        return dict(words)
+    if acc.keys() != words.keys():
+        raise ValueError("workers sent payloads for different leaves")
+    return {
+        k: wrap_int32(acc[k].to(torch.int64) + words[k].to(torch.int64))
+        for k in acc
+    }
+
+
+def psum_wire_words(worker_words: Iterable[Tree]) -> Tree:
+    """The integer all-reduce of the n workers' word planes."""
+    acc = None
+    for words in worker_words:
+        acc = add_wire_words(acc, words)
+    if acc is None:
+        raise ValueError("psum over zero workers")
+    return acc
+
+
+def pmean_tree(worker_trees: Iterable[Tree], n: int) -> Tree:
+    """Float mean over the n workers (the exact step-0 aggregation), summed
+    in worker order in f32."""
+    acc = None
+    count = 0
+    for tree in worker_trees:
+        count += 1
+        if acc is None:
+            acc = {k: v.to(torch.float32).clone() for k, v in tree.items()}
+        else:
+            for k, v in tree.items():
+                acc[k].add_(v.to(torch.float32))
+    if count != n:
+        raise ValueError(f"pmean over {count} workers, expected {n}")
+    return {k: v / n for k, v in acc.items()}
