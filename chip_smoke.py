@@ -5,22 +5,37 @@
 
 Phases, each of which must pass for the exit code to be 0:
 
-  1. build  — compile the four hand-written kernels (src/repro_torch/csrc)
-              with nvcc for sm_90a, one nvcc per source, in parallel;
-  2. kernels — hold each kernel against its plain PyTorch version on the
-              card, at the slice's largest leaf (234,881,024 elements) and
-              at a ragged size: integer kernels bit-equal, the fused update
-              bit-equal too (built with --fmad=false; tolerance 0). Checks
-              the wrap-around psum law with saturated fields, and times each
-              kernel and its plain version with CUDA events;
-  3. train  — the port's main path through its user entry point
-              (launch.train.train_loop): granite-8b at full width, depth cut
-              to 4 layers, 4 data-parallel workers simulated on the card,
-              per-worker batch 1, seq 2048, packed8 wire, fused SGD, clip
-              1.0, 4 steps (step 0 exact). Launch counts are zeroed just
-              before and read just after; every kernel must have run;
-  4. wire   — step 1 replayed for one leaf: the unpacked word sum equals
-              the sum of the four workers' images.
+  1. build   — compile the seven hand-written kernels (three sources in
+               src/repro_torch/csrc) with nvcc for sm_90a, one nvcc per
+               source, in parallel;
+  2. kernels — hold each kernel and each of its variants against its plain
+               PyTorch version on the card, at the main path's largest leaf
+               (234,881,024 elements) and at a ragged size (1,000,003):
+               integer kernels bit-equal, the fused updates bit-equal too
+               (built with --fmad=false and IEEE sqrt/division; tolerance
+               0) — packed SGD with shift, packed AdamW with and without
+               shift, dense SGD and AdamW on int8/int16/int32 lanes with and
+               without shift. Checks the wrap-around psum law with saturated
+               fields (packed) and the lane-type sum at its extremes
+               (dense), and times each kernel variant and its plain version
+               with CUDA events;
+  3. train   — the headline path through the user entry point
+               (launch.train.train_loop): granite-8b at full width, depth
+               cut to 4 layers, 4 data-parallel workers simulated on the
+               card, per-worker batch 1, seq 2048, packed8 wire, IntSGD,
+               fused AdamW (wd 1e-4, lr 3e-4 with 5-step warmup), clip 1.0,
+               4 steps (step 0 exact);
+  4. train-sgd — slice 1's path, the same at 4 layers with fused
+               momentum SGD (lr 0.3);
+  5. family  — the six other corners of {SGD, AdamW} × {IntSGD, IntDIANA}
+               × {packed8, dense8} at full width, depth 2, 4 workers,
+               3 steps each.
+               In phases 3-5 the launch counts are zeroed just before each
+               path and read just after: every kernel's count (and count
+               of launches with an IntDIANA shift) must equal what that
+               path implies, losses must be finite and max_int <= 4·31;
+  6. wire    — step 1 of the headline path replayed for one leaf: the
+               unpacked word sum equals the sum of the four workers' images.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then {"ok": true, "device": {...}} as the last line.
@@ -50,12 +65,24 @@ REPLACES = {
     "pack_words": "src/repro/kernels/wire_pack.py:43",
     "unpack_words": "src/repro/kernels/wire_pack.py:68",
     "fused_unpack_sgd": "src/repro/kernels/fused_update.py:219",
+    "fused_unpack_adamw": "src/repro/kernels/fused_update.py:219",
+    "fused_apply_sgd": "src/repro/kernels/fused_update.py:176",
+    "fused_apply_adamw": "src/repro/kernels/fused_update.py:176",
 }
 # float/integer operations per image element, counted from each kernel's
 # arithmetic (for the compute side of the bound)
 OPS_PER_ELEMENT = {
     "int_compress": 20, "pack_words": 3, "unpack_words": 3, "fused_unpack_sgd": 8,
+    "fused_unpack_adamw": 20, "fused_apply_sgd": 8, "fused_apply_adamw": 18,
 }
+# the variant of each kernel the headline numbers use: the main path's
+# (packed8, no shift) or, for the dense kernels, int8 lanes without shift
+MAIN_VARIANT = {
+    "int_compress": "stochastic", "pack_words": "packed8", "unpack_words": "packed8",
+    "fused_unpack_sgd": "packed8", "fused_unpack_adamw": "packed8",
+    "fused_apply_sgd": "int8", "fused_apply_adamw": "int8",
+}
+STATE_BYTES = {"sgd": 16, "adamw": 24}  # f32 p and state, read and written
 
 
 def fail(msg: str) -> None:
@@ -63,20 +90,24 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bytes_moved(name: str, d: int, bits: int) -> int:
+def bytes_moved(name: str, d: int, lane_bytes: float, shift: bool = False) -> int:
     """Bytes the function must move: each input read once, each output
-    written once."""
-    m = -(-d // (32 // bits))
-    return {
+    written once. ``lane_bytes`` is the integer payload per element (4/k
+    for packed words, 1, 2 or 4 for dense lanes)."""
+    payload = int(round(lane_bytes * d))
+    fixed = {
         "int_compress": 8 * d,
-        "pack_words": 4 * d + 4 * m,
-        "unpack_words": 4 * m + 4 * d,
-        "fused_unpack_sgd": 4 * m + 16 * d,
-    }[name]
+        "pack_words": 4 * d + payload,
+        "unpack_words": payload + 4 * d,
+    }
+    if name in fixed:
+        return fixed[name]
+    kernel = name.rsplit("_", 1)[1]
+    return payload + STATE_BYTES[kernel] * d + (8 * d if shift else 0)
 
 
-def bound(name: str, d: int, bits: int):
-    t_bytes = bytes_moved(name, d, bits) / HBM_BYTES_PER_S * 1e3
+def bound(name: str, nbytes: int, d: int):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = OPS_PER_ELEMENT[name] * d / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -117,14 +148,96 @@ class Checks:
             self.failed.append(what)
 
 
-def kernels_phase(torch, ops, checks: Checks, device):
-    """Each kernel against its plain version; returns per-kernel numbers at
-    the largest leaf (the main path's codec: packed8, 4 workers)."""
+class Timings:
+    """Each kernel variant's numbers: the largest error over every size and
+    variant checked, and, at the largest leaf, both versions' times."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.err = {}
+        self.rows = []  # one per (kernel, variant) at the largest leaf
+
+    def add(self, name, variant, d, nbytes, err, cuda_fn=None, plain_fn=None,
+            reps=(20, 3)):
+        self.err[name] = max(self.err.get(name, 0.0), err)
+        if cuda_fn is None:
+            return
+        ms = cuda_ms(self.torch, cuda_fn, reps[0])
+        plain_ms = cuda_ms(self.torch, plain_fn, reps[1])
+        bound_ms, bound_by = bound(name, nbytes, d)
+        self.rows.append(dict(name=name, variant=variant, d=d, bytes=nbytes, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+        print(f"  time {name} [{variant}]: {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms by {bound_by}, {nbytes} bytes)", flush=True)
+
+    def main_row(self, name):
+        for r in self.rows:
+            if r["name"] == name and r["variant"] == MAIN_VARIANT[name]:
+                return r
+        raise KeyError(name)
+
+
+def compare(checks, what, got, want, labels):
+    """Every output of a kernel against its plain version; the largest
+    error."""
+    if len(got) != len(want) or len(got) != len(labels):
+        checks.true(f"{what}: {len(got)} outputs, plain version {len(want)}", False)
+        return float("inf")
+    return max(checks.equal(f"{what} {lab}", g, w) for lab, g, w in zip(labels, got, want))
+
+
+def fused_inputs(torch, gen, device, d, kernel, shift):
+    """p, optimizer state, scalar vector and shift at the main path's
+    magnitudes."""
+    p = torch.randn(d, generator=gen, device=device) * 0.02
+    m = torch.randn(d, generator=gen, device=device) * 1e-3
+    inv_nalpha = 1.0 / (N_WORKERS * 9000.0)
+    if kernel == "sgd":
+        state = (m,)
+        sc = [inv_nalpha, 0.37, 0.3, 0.9, 1e-4]
+    else:
+        state = (m, torch.randn(d, generator=gen, device=device).abs() * 1e-5)
+        t = 3  # [inv_nalpha, clip, lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2]
+        sc = [inv_nalpha, 0.37, 3e-4, 0.9, 1.0 - 0.9, 0.95, 1.0 - 0.95, 1e-8, 1e-4,
+              1.0 - 0.9**t, 1.0 - 0.95**t]
+    sc = torch.tensor(sc, dtype=torch.float32, device=device)
+    h = torch.randn(d, generator=gen, device=device) * 0.01 if shift else None
+    return p, state, sc, h
+
+
+def fused_variants(torch, ops, checks, timings, gen, device, d, big, *, payload,
+                   lane_bytes, tag, ops_and_kw):
+    """Each fused kernel variant on one summed payload against its plain
+    version (and timed at the largest leaf)."""
+    for op, kw, shifts in ops_and_kw:
+        kernel = op.name.rsplit("_", 1)[1]
+        for shift in shifts:
+            p, state, sc, h = fused_inputs(torch, gen, device, d, kernel, shift)
+            variant = tag + ("+shift" if shift else "")
+            cuda = lambda: op.cuda(payload, p, *state, sc, shift=h, **kw)
+            plain = lambda: op.plain(payload, p, *state, sc, shift=h, **kw)
+            got, want = cuda(), plain()
+            labels = ("param'", "mom'") if kernel == "sgd" else ("param'", "mu'", "nu'")
+            err = compare(checks, f"{op.name} [{variant}]", got, want,
+                          labels + (("shift'",) if shift else ()))
+            del got, want
+            nbytes = bytes_moved(op.name, d, lane_bytes, shift)
+            if big:
+                timings.add(op.name, variant, d, nbytes, err, cuda, plain, reps=(10, 2))
+            else:
+                timings.add(op.name, variant, d, nbytes, err)
+            del p, state, sc, h
+
+
+def kernels_phase(torch, ops, checks, device):
+    """Each kernel and variant against its plain version; returns the
+    timings (the largest leaf) and largest errors."""
     from repro_torch.kernels.int_compress import clip_limit
     from repro_torch.parallel.collectives import psum_wire_words
+    from repro_torch.wire import DenseInt
 
     gen = torch.Generator(device=device).manual_seed(1234)
-    numbers = {}
+    timings = Timings(torch)
     for d in (LARGEST_LEAF, RAGGED):
         big = d == LARGEST_LEAF
         print(f"kernels at d = {d}", flush=True)
@@ -137,13 +250,14 @@ def kernels_phase(torch, ops, checks: Checks, device):
             got = ops.int_compress.cuda(x, alpha, seed, **kw)
             want = ops.int_compress.plain(x, alpha, seed, **kw)
             err = checks.equal(f"int_compress stochastic={stochastic}", got, want)
-            if big and stochastic:
-                numbers["int_compress"] = dict(
-                    max_abs_err=err, d=d, bits=8,
-                    ms=cuda_ms(torch, lambda: ops.int_compress.cuda(x, alpha, seed, **kw), 20),
-                    plain_ms=cuda_ms(torch, lambda: ops.int_compress.plain(x, alpha, seed, **kw), 3),
-                )
             del got, want
+            variant = "stochastic" if stochastic else "half-even"
+            if big and stochastic:
+                timings.add("int_compress", variant, d, bytes_moved("int_compress", d, 4), err,
+                            lambda: ops.int_compress.cuda(x, alpha, seed, **kw),
+                            lambda: ops.int_compress.plain(x, alpha, seed, **kw))
+            else:
+                timings.add("int_compress", variant, d, 0, err)
         del x
 
         for bits in (4, 8, 16):
@@ -168,14 +282,14 @@ def kernels_phase(torch, ops, checks: Checks, device):
                 want = ops.pack_words.plain(img, **kw)
                 err = checks.equal(f"pack_words bits={bits} worker {w}", got, want)
                 words.append(got)
+                timings.add("pack_words", f"packed{bits}", d, 0, err)
                 del want
+            tag = f"packed{bits}"
             if big and bits == 8:
                 img0 = images[0]
-                numbers["pack_words"] = dict(
-                    max_abs_err=err, d=d, bits=bits,
-                    ms=cuda_ms(torch, lambda: ops.pack_words.cuda(img0, **kw), 20),
-                    plain_ms=cuda_ms(torch, lambda: ops.pack_words.plain(img0, **kw), 3),
-                )
+                timings.add("pack_words", tag, d, bytes_moved("pack_words", d, 4 / (32 // bits)),
+                            err, lambda: ops.pack_words.cuda(img0, **kw),
+                            lambda: ops.pack_words.plain(img0, **kw))
             wsum = psum_wire_words({"w": wds} for wds in words)["w"]
             del words
             ukw = dict(bits=bits, n_summed=N_WORKERS)
@@ -189,124 +303,155 @@ def kernels_phase(torch, ops, checks: Checks, device):
                          got.to(torch.int64), isum)
             del images, isum, want, got
             if big and bits == 8:
-                numbers["unpack_words"] = dict(
-                    max_abs_err=err, d=d, bits=bits,
-                    ms=cuda_ms(torch, lambda: ops.unpack_words.cuda(wsum, (d,), **ukw), 20),
-                    plain_ms=cuda_ms(torch, lambda: ops.unpack_words.plain(wsum, (d,), **ukw), 3),
+                timings.add("unpack_words", tag, d, bytes_moved("unpack_words", d, 4 / (32 // bits)),
+                            err, lambda: ops.unpack_words.cuda(wsum, (d,), **ukw),
+                            lambda: ops.unpack_words.plain(wsum, (d,), **ukw))
+            else:
+                timings.add("unpack_words", tag, d, 0, err)
+            if bits == 8:  # the main path's codec: every packed fused variant
+                fused_variants(
+                    torch, ops, checks, timings, gen, device, d, big, payload=wsum,
+                    lane_bytes=4 / (32 // bits), tag=tag, ops_and_kw=(
+                        (ops.fused_unpack_sgd, dict(bits=8, n_summed=N_WORKERS), (False, True)),
+                        (ops.fused_unpack_adamw, dict(bits=8, n_summed=N_WORKERS), (False, True)),
+                    ),
                 )
-            if bits == 8:
-                p = torch.randn(d, generator=gen, device=device) * 0.02
-                m = torch.randn(d, generator=gen, device=device) * 1e-3
-                # [inv_nalpha, clip, lr, mu, wd] at the main path's magnitudes
-                sc = torch.tensor([1.0 / (4 * 9000.0), 0.37, 0.3, 0.9, 1e-4],
-                                  dtype=torch.float32, device=device)
-                fkw = dict(bits=8, n_summed=N_WORKERS)
-                gp, gm = ops.fused_unpack_sgd.cuda(wsum, p, m, sc, **fkw)
-                wp, wm = ops.fused_unpack_sgd.plain(wsum, p, m, sc, **fkw)
-                err = max(checks.equal("fused_unpack_sgd param'", gp, wp),
-                          checks.equal("fused_unpack_sgd mom'", gm, wm))
-                del gp, gm, wp, wm
-                if big:
-                    numbers["fused_unpack_sgd"] = dict(
-                        max_abs_err=err, d=d, bits=8,
-                        ms=cuda_ms(torch, lambda: ops.fused_unpack_sgd.cuda(wsum, p, m, sc, **fkw), 20),
-                        plain_ms=cuda_ms(torch, lambda: ops.fused_unpack_sgd.plain(wsum, p, m, sc, **fkw), 3),
-                    )
-                del p, m
             del wsum
+            torch.cuda.empty_cache()
+
+        # dense lanes: four workers' images summed in the lane type, with
+        # sums at the lane's extremes ±n·lim in the first and second quarter
+        for bits in (8, 16, 32):
+            wf = DenseInt(bits)
+            lim = wf.clip_limit(N_WORKERS)
+            q = d // 4
+            lanes = None
+            for _ in range(N_WORKERS):
+                img = torch.randint(-lim, lim + 1, (d,), generator=gen, device=device,
+                                    dtype=torch.int32)
+                img[:q] = lim
+                img[q:2 * q] = -lim
+                packed = {"w": wf.pack(img, n_workers=N_WORKERS)}
+                lanes = psum_wire_words([packed] if lanes is None else [{"w": lanes}, packed])["w"]
+                del img, packed
+            tag = f"int{bits}"
+            checks.true(f"dense {tag} word sum keeps the lane type and reaches ±n·lim",
+                        lanes.dtype == wf.lane_dtype
+                        and int(lanes[:q].min()) == N_WORKERS * lim
+                        and int(lanes[q:2 * q].max()) == -N_WORKERS * lim)
+            fused_variants(
+                torch, ops, checks, timings, gen, device, d, big, payload=lanes,
+                lane_bytes=wf.lane_dtype.itemsize, tag=tag, ops_and_kw=(
+                    (ops.fused_apply_sgd, {}, (False, True)),
+                    (ops.fused_apply_adamw, {}, (False, True)),
+                ),
+            )
+            del lanes
+            torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    return numbers
+    return timings
 
 
-def main() -> None:
-    import torch
+def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire: str):
+    """Launch counts (all, and with an IntDIANA shift) a path implies: per
+    compressed step, encode for every (worker, leaf); pack for every
+    (worker, leaf) and unpack for every leaf on a packed wire (none on a
+    dense one: pack is the narrowing cast, unpack the widening one); one
+    fused update per leaf."""
+    c = steps - 1  # step 0 is exact: no kernel
+    want = {k.name: 0 for k in ops.KERNELS}
+    want_shift = dict(want)
+    want["int_compress"] = N_WORKERS * n_leaves * c
+    if wire.startswith("packed"):
+        want["pack_words"] = N_WORKERS * n_leaves * c
+        want["unpack_words"] = n_leaves * c
+        fused = f"fused_unpack_{opt}"
+    else:
+        fused = f"fused_apply_{opt}"
+    want[fused] = n_leaves * c
+    if comp == "intdiana":
+        want_shift[fused] = n_leaves * c
+    return want, want_shift
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke test needs the card")
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
-    sys.path.insert(0, str(ROOT / "src"))
+
+def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, wire, lr):
+    """One path through the user entry point, launch counts zeroed just
+    before and read just after; returns the counts."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.kernels.int_compress import clip_limit
+    from repro_torch.launch.train import train_loop
+    from repro_torch.utils.tree import tree_size
+
+    cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=layers)
+    shape = ShapeConfig("chip-smoke", 2048, N_WORKERS, "train")
+    compressor = {("intsgd", "packed8"): "intsgd8_packed", ("intsgd", "dense8"): "intsgd8"}.get(
+        (comp, wire), comp)
+    print(f"{label}: {cfg.name} d_model {cfg.d_model} layers {layers} workers {N_WORKERS} "
+          f"seq {shape.seq_len} steps {steps}: {opt} / {compressor} / {wire}, lr {lr}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, history = train_loop(
+        cfg, shape, n_workers=N_WORKERS, compressor=compressor, wire=wire, steps=steps,
+        lr=lr, log_every=1, seed=0, fused=True, clip_norm=1.0, opt=opt, device=device,
+    )
+    launches, shifts = ops.launch_counts(), ops.shift_launch_counts()
+    n_leaves = len(params)
+    print(f"{label}: launches {launches}; with shift {shifts}; {n_leaves} leaves, "
+          f"{tree_size(params)} parameters; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    for rec in history:
+        print(f"  {label} step {rec['step']}: loss {rec['loss']:.4f} max_int "
+              f"{rec['max_int']:.0f} bits {rec['bits']:.0f} ms {rec['ms']:.1f}", flush=True)
+    checks.true(f"{label}: losses finite", all(math.isfinite(r["loss"]) for r in history))
+    lim_sum = N_WORKERS * clip_limit(8, N_WORKERS)
+    checks.true(f"{label}: max_int <= {lim_sum} on every compressed step",
+                all(r["max_int"] <= lim_sum for r in history[1:]))
+    want, want_shift = expected_launches(ops, n_leaves, steps, opt, comp, wire)
+    for name in want:
+        checks.true(f"{label}: {name} launches {launches[name]} (expected {want[name]}), "
+                    f"with shift {shifts[name]} (expected {want_shift[name]})",
+                    launches[name] == want[name] and shifts[name] == want_shift[name])
+    return launches
+
+
+def wire_phase(torch, checks, device):
+    """Step 1 of the headline path replayed for one leaf: the unpacked word
+    sum equals the sum of the four workers' images."""
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.core.comm import CommCtx
     from repro_torch.core.compressor import leaf_seeds, make_compressor
     from repro_torch.data.synthetic import SyntheticLMData
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.int_compress import clip_limit
     from repro_torch.launch.step import build_train_step
-    from repro_torch.launch.train import train_loop
+    from repro_torch.launch.train import OPTIMIZERS
     from repro_torch.models.transformer import init_lm_params, lm_loss
     from repro_torch.optim.base import fused_state_init
     from repro_torch.optim.schedules import constant, warmup_wrap
-    from repro_torch.optim.sgd import sgd
-    from repro_torch.utils.tree import tree_size
 
-    device = torch.device("cuda", 0)
-    checks = Checks()
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    # 1. build
-    t0 = time.perf_counter()
-    build.build(verbose=True)
-    print(f"build: {time.perf_counter() - t0:.1f}s -> {build.library_path()}", flush=True)
-    build.library()
-
-    # 2. kernels against their plain versions
-    numbers = kernels_phase(torch, ops, checks, device)
-
-    # 3. the main path through the user entry point
     cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=4)
     shape = ShapeConfig("chip-smoke", 2048, N_WORKERS, "train")
-    steps = 4
-    print(f"train: {cfg.name} d_model {cfg.d_model} layers {cfg.n_layers} "
-          f"workers {N_WORKERS} seq {shape.seq_len} steps {steps}", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    params, history = train_loop(
-        cfg, shape, n_workers=N_WORKERS, compressor="intsgd8_packed",
-        wire="packed8", steps=steps, lr=0.3, log_every=1, seed=0, fused=True,
-        clip_norm=1.0, opt="sgd", device=device,
-    )
-    launches = ops.launch_counts()
-    print(f"train: launches {launches}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    n_leaves = len(params)
-    print(f"train: {n_leaves} leaves, {tree_size(params)} parameters", flush=True)
-    del params
-    torch.cuda.empty_cache()
-    for rec in history:
-        print(f"  step {rec['step']}: loss {rec['loss']:.4f} max_int "
-              f"{rec['max_int']:.0f} bits {rec['bits']:.0f} ms {rec['ms']:.1f}", flush=True)
-    checks.true("losses finite", all(math.isfinite(r["loss"]) for r in history))
-    lim_sum = N_WORKERS * 31
-    checks.true(f"max_int <= {lim_sum} on every compressed step",
-                all(r["max_int"] <= lim_sum for r in history[1:]))
-    per_step = {
-        "int_compress": N_WORKERS * n_leaves, "pack_words": N_WORKERS * n_leaves,
-        "unpack_words": n_leaves, "fused_unpack_sgd": n_leaves,
-    }
-    for name, count in launches.items():
-        want = per_step[name] * (steps - 1)
-        checks.true(f"{name} launched on the main path ({count}, expected {want})",
-                    count > 0 and count == want)
-
-    # 4. step 1 replayed for one leaf: unpack(sum of words) == sum of images
     leaf = "layers/mlp/w_up"
+    lim_sum = N_WORKERS * clip_limit(8, N_WORKERS)
     comp = make_compressor("intsgd8_packed")
-    base_opt = sgd(momentum=0.9, weight_decay=1e-4)
-    sched = warmup_wrap(constant(0.3), 5)
+    base_opt = OPTIMIZERS["adamw"]()
+    sched = warmup_wrap(constant(3e-4), 5)
     art = build_train_step(
         cfg, shape, n_workers=N_WORKERS, compressor=comp, base_opt=base_opt,
         lr_schedule=sched, fused=True, clip_norm=1.0, device=device,
     )
     params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
                             device=device)
+    n_leaves = len(params)
     data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
     seed_gen = torch.Generator().manual_seed(0)  # train_loop's seed stream
     seeds0 = leaf_seeds(seed_gen, N_WORKERS, n_leaves, device)
     seeds1 = leaf_seeds(seed_gen, N_WORKERS, n_leaves, device)
     p1, _, cs1, _, _ = art.steps["exact"](
-        params, fused_state_init(base_opt, params), comp.init(params), 0,
+        params, fused_state_init(base_opt, params), comp.init(params, N_WORKERS), 0,
         data.batch(0, 0, device=device), seeds0,
     )
     del params
@@ -324,29 +469,83 @@ def main() -> None:
         ({leaf: img} for img in images), comp.wire_format
     )
     isum = sum(img.to(torch.int64) for img in images)
-    checks.equal(f"step 1 {leaf}: unpacked word sum == sum of the 4 images",
+    checks.equal(f"wire: step 1 {leaf}: unpacked word sum == sum of the 4 images",
                  int_sum[leaf].to(torch.int64), isum)
-    checks.true(f"step 1 {leaf}: |sum| <= {lim_sum} and some field nonzero",
+    checks.true(f"wire: step 1 {leaf}: |sum| <= {lim_sum} and some field nonzero",
                 int(isum.abs().max()) <= lim_sum and bool(isum.any()))
     del p1, images, words_sum, int_sum, isum
+    torch.cuda.empty_cache()
+
+
+# the paths phases 3-5 drive: (label, layers, steps, optimizer, compressor,
+# wire, lr); the headline path first
+PATHS = (
+    ("train", 4, 4, "adamw", "intsgd", "packed8", 3e-4),
+    ("train-sgd", 4, 4, "sgd", "intsgd", "packed8", 0.3),
+    ("family sgd/intsgd/dense8", 2, 3, "sgd", "intsgd", "dense8", 0.3),
+    ("family adamw/intsgd/dense8", 2, 3, "adamw", "intsgd", "dense8", 3e-4),
+    ("family sgd/intdiana/packed8", 2, 3, "sgd", "intdiana", "packed8", 0.3),
+    ("family sgd/intdiana/dense8", 2, 3, "sgd", "intdiana", "dense8", 0.3),
+    ("family adamw/intdiana/packed8", 2, 3, "adamw", "intdiana", "packed8", 3e-4),
+    ("family adamw/intdiana/dense8", 2, 3, "adamw", "intdiana", "dense8", 3e-4),
+)
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs the card")
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build, ops
+
+    device = torch.device("cuda", 0)
+    checks = Checks()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # 1. build
+    t0 = time.perf_counter()
+    build.build(verbose=True)
+    print(f"build: {time.perf_counter() - t0:.1f}s -> {build.library_path()}", flush=True)
+    build.library()
+
+    # 2. kernels against their plain versions
+    t0 = time.perf_counter()
+    timings = kernels_phase(torch, ops, checks, device)
+    print(f"kernels phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 3-5. the paths through the user entry point, counts read per path
+    launches = {k.name: 0 for k in ops.KERNELS}
+    for label, layers, steps, opt, comp, wire, lr in PATHS:
+        t0 = time.perf_counter()
+        counts = train_phase(torch, ops, checks, device, label=label, layers=layers,
+                             steps=steps, opt=opt, comp=comp, wire=wire, lr=lr)
+        for name, c in counts.items():
+            launches[name] += c
+        print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 6. step 1 replayed for one leaf: unpack(sum of words) == sum of images
+    wire_phase(torch, checks, device)
 
     # the kernel line, the card line, the result
     kernels = []
     for op in ops.KERNELS:
-        nb = numbers[op.name]
-        bound_ms, bound_by = bound(op.name, nb["d"], nb["bits"])
+        row = timings.main_row(op.name)
         kernels.append({
             "name": op.name, "route": "cuda",
             "source": f"src/repro_torch/{op.source}",
             "replaces": REPLACES[op.name], "launches": launches[op.name],
-            "max_abs_err": nb["max_abs_err"], "ms": nb["ms"],
-            "plain_ms": nb["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "max_abs_err": timings.err[op.name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
         })
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms, "
               f"bound {k['bound_ms']:.3f} ms by {k['bound_by']}), "
-              f"{k['launches']} launches on the main path", flush=True)
+              f"{k['launches']} launches over the driven paths", flush=True)
     if checks.failed:
         fail("; ".join(checks.failed))
     card = subprocess.run(

@@ -6,7 +6,7 @@ same per-worker code runs under ``shard_map`` or ``vmap``; here one process
 runs the n workers in turn, so the calls that aggregate take the workers'
 contributions as an iterable, in worker order. A generator works: the train
 step yields one worker's gradients at a time, so a worker's float gradients
-are freed before the next worker's backward runs and only the int32 word
+are freed before the next worker's backward runs and only the integer word
 sum stays resident.
 """
 from __future__ import annotations
@@ -46,8 +46,9 @@ class CommCtx:
     def psum_wire(self, worker_ints: Iterable[Tree], wf) -> Tuple[Tree, Tree]:
         """Codec-aware integer aggregation: pack each worker's image with
         the wire format ``wf`` as it arrives, sum the word planes across
-        workers with int32 wrap-around (the only thing that would cross the
-        wire), and unpack once. Returns ``(words_sum, int_sum)`` — the fused
+        workers in their own integer type with its wrap-around (the only
+        thing that would cross the wire: int32 packed words, or dense
+        int8/int16/int32 lanes), and unpack once. Returns ``(words_sum, int_sum)`` — the fused
         update consumes the words, the clip factor and metrics the image."""
         shapes = {}
 

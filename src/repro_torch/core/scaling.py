@@ -1,5 +1,5 @@
-"""Scaling-factor rule for IntSGD (port of ``repro/core/scaling.py``, the
-paper's default rule only).
+"""Scaling-factor rules for IntSGD (port of ``repro/core/scaling.py``: the
+paper's default rule and IntDIANA's).
 
 ``AlphaMovingAvg`` (Alg. 1 / Prop. 2)::
 
@@ -9,8 +9,13 @@ paper's default rule only).
 α comes from replicated state: no communication is needed to agree on it,
 which is what makes the integer all-reduce possible. The state lives on the
 card and every operation is a float32 tensor op in the JAX package's order,
-so α matches it bit for bit from the same state and needs no host sync. The
-other rules (last-step, blockwise, heuristic, DIANA) are not ported yet.
+so α matches it bit for bit from the same state and needs no host sync.
+
+``AlphaDiana`` (Thm 4, IntDIANA)::
+
+    α_k = η_k sqrt(d) / (sqrt(n) ||x^k - x^{k-1}||)
+
+The last-step, blockwise and heuristic rules are not ported yet.
 """
 from __future__ import annotations
 
@@ -65,3 +70,25 @@ class AlphaMovingAvg(AlphaRule):
         )
         d32 = torch.full((), float(d), dtype=torch.float32, device=state.r.device)
         return torch.sqrt(d32) / denom
+
+
+@dataclasses.dataclass(frozen=True)
+class AlphaDiana(AlphaRule):
+    """Thm 4 rule for IntDIANA: α_k = η √d / (√n ||Δx||); the state's r is
+    the last step's ||Δx||²."""
+
+    def init(self, params) -> AlphaState:
+        device = next(iter(params.values())).device
+        return AlphaState(
+            r=torch.zeros((), dtype=torch.float32, device=device),
+            step=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    def update(self, state: AlphaState, dx_stats) -> AlphaState:
+        return AlphaState(r=dx_stats.sq, step=state.step + 1)
+
+    def alpha(self, state: AlphaState, eta, n_workers: int, d: int):
+        dev = state.r.device
+        d32 = torch.full((), float(d), dtype=torch.float32, device=dev)
+        sqrt_n = torch.sqrt(torch.full((), float(n_workers), dtype=torch.float32, device=dev))
+        return eta * torch.sqrt(d32) / (sqrt_n * torch.sqrt(state.r) + 1e-30)

@@ -1,48 +1,115 @@
-// Fused decode + heavy-ball SGD step straight off PackedInt transport words.
+// Fused decode + optimizer step: {SGD, AdamW} x {no shift, IntDIANA shift}
+// x {PackedInt words, dense int8/int16/int32 lanes}, one pass per leaf.
 //
-// Replaces the SGD body of the TPU kernel
-// src/repro/kernels/fused_update.py::fused_unpack_apply_2d
-// (`_unpack_sgd_kernel`, no IntDIANA shift). The Pallas wrapper copies
-// param and momentum into a padded chunk-major (k, rows, cols) view; here
-// thread w reads word w once and updates image elements j*m + w in place of
-// that view (m = ceil(d / k) words, k = 32/bits fields per word).
+// Replaces the TPU kernels of src/repro/kernels/fused_update.py:
+//   fused_unpack_apply_2d (packed words; bodies _unpack_sgd_kernel and
+//     _unpack_adamw_kernel, both with has_shift)   -> fused_unpack_kernel
+//   fused_apply_2d (dense lanes; bodies _sgd_kernel and _adamw_kernel, both
+//     with has_shift)                               -> fused_apply_kernel
+// The Pallas wrappers copy param and state into padded 2-D (packed: chunk-
+// major (k, rows, cols)) views. Here the packed kernel's thread w reads word
+// w once and updates image elements j*m + w in place of that view (m =
+// ceil(d / k) words, k = 32/bits fields per word); the dense kernel reads
+// lane i for element i.
 //
-// Per field, in float32 and in this order (scalars = [inv_nalpha, clip, lr,
-// mu, wd], read from device memory, so the launch needs no host sync):
-//   s     = float(((word >> j*bits) & mask) - nlim)
-//   g     = clip * (s * inv_nalpha) + wd * p
-//   m_new = mu * m + g
-//   p_new = p - lr * m_new
-// p_new and m_new go to fresh output tensors: the step needs the old params
-// afterwards for the alpha rule's ||x' - x||^2.
+// Per element, in float32 and in the JAX kernels' order (fused_update.py
+// _apply_sgd / _apply_adamw), with every scalar read from device memory so
+// the launch needs no host sync:
+//   s     = packed: float(((word >> j*bits) & mask) - nlim); dense: float(lane)
+//   g_agg = s * inv_nalpha            (+ h, emitted as h' when kShift: the
+//                                      new IntDIANA global shift, pre-clip)
+//   SGD    [inv_nalpha, clip, lr, mu, wd]:
+//     g = clip * g_agg + wd * p;  m' = mu * m + g;  p' = p - lr * m'
+//   AdamW  [inv_nalpha, clip, lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2]:
+//     g = clip * g_agg;  m' = b1 * m + omb1 * g;  v' = b2 * v + (omb2 * g) * g
+//     step = (m' / bc1) / (sqrtf(v' / bc2) + eps);  p' = p - lr * (step + wd*p)
+// Outputs go to fresh tensors: the step needs the old params afterwards for
+// the alpha rule's ||x' - x||^2.
 //
-// Build with --fmad=false: every product is rounded before its sum, as the
-// plain PyTorch version (one elementwise op per line above) rounds it, so the
-// two agree bit for bit on the card.
+// Build with --fmad=false and nvcc's default -prec-div=true -prec-sqrt=true
+// (no --use_fast_math, no rsqrtf or __fdividef): every product is rounded
+// before its sum and every division and square root is IEEE-rounded, as the
+// plain PyTorch version (one elementwise op per line above) rounds them, so
+// the two agree bit for bit on the card.
 //
-// Bound on the card: memory. 4/k bytes of words plus 16 bytes of f32 state
-// (p and m read, p' and m' written) per element, about 7 float operations per
-// element. Design: one thread per word in a grid-stride loop; for each field
-// the threads of a warp touch consecutive elements, so all accesses coalesce.
+// Bound on the card: memory. Bytes per element, each input read once and
+// each output written once (k = 4 for packed8):
+//   packed SGD 4/k + 16 (+ 8 shift)    dense SGD lane + 16 (+ 8 shift)
+//   packed AdamW 4/k + 24 (+ 8 shift)  dense AdamW lane + 24 (+ 8 shift)
+// At the slice's largest leaf (234,881,024 elements, 3.35 TB/s) that is
+// 1.19 ms (packed8 SGD), 1.75 ms (packed8 AdamW, or with shift the SGD
+// body), 2.31 ms (AdamW with shift). Compute is far below: about 15 f32
+// operations per element plus one sqrt and two divisions for AdamW.
+// Design: a simple grid-stride loop, one thread per word (packed) or per
+// lane (dense); for each field the threads of a warp touch consecutive
+// elements, so every access coalesces. Making it faster is later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void fused_unpack_sgd_kernel(const int32_t* __restrict__ words,
-                                        const float* __restrict__ p,
-                                        const float* __restrict__ mom,
-                                        const float* __restrict__ scalars,
-                                        float* __restrict__ p_out,
-                                        float* __restrict__ m_out, int64_t d,
-                                        int64_t m, int k, int bits,
-                                        int32_t nlim) {
-  const float inv_nalpha = scalars[0];
-  const float clip = scalars[1];
-  const float lr = scalars[2];
-  const float mu = scalars[3];
-  const float wd = scalars[4];
+// The tensors of one launch. State slot 1 is unused by SGD; h and h_out are
+// null unless the launch carries an IntDIANA shift.
+struct Args {
+  const float* p;
+  const float* s0;  // SGD: momentum; AdamW: mu
+  const float* s1;  // AdamW: nu
+  const float* h;
+  const float* scalars;
+  float* p_out;
+  float* s0_out;
+  float* s1_out;
+  float* h_out;
+};
+
+struct SgdBody {
+  float inv_nalpha, clip, lr, mu, wd;
+  __device__ explicit SgdBody(const float* sc)
+      : inv_nalpha(sc[0]), clip(sc[1]), lr(sc[2]), mu(sc[3]), wd(sc[4]) {}
+  __device__ void operator()(const Args& a, int64_t i, float g_agg) const {
+    const float pv = a.p[i];
+    const float g = clip * g_agg + wd * pv;
+    const float m_new = mu * a.s0[i] + g;
+    a.p_out[i] = pv - lr * m_new;
+    a.s0_out[i] = m_new;
+  }
+};
+
+struct AdamwBody {
+  float inv_nalpha, clip, lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2;
+  __device__ explicit AdamwBody(const float* sc)
+      : inv_nalpha(sc[0]), clip(sc[1]), lr(sc[2]), b1(sc[3]), omb1(sc[4]),
+        b2(sc[5]), omb2(sc[6]), eps(sc[7]), wd(sc[8]), bc1(sc[9]),
+        bc2(sc[10]) {}
+  __device__ void operator()(const Args& a, int64_t i, float g_agg) const {
+    const float pv = a.p[i];
+    const float g = clip * g_agg;
+    const float m_new = b1 * a.s0[i] + omb1 * g;
+    const float v_new = b2 * a.s1[i] + (omb2 * g) * g;
+    const float step = (m_new / bc1) / (sqrtf(v_new / bc2) + eps);
+    a.p_out[i] = pv - lr * (step + wd * pv);
+    a.s0_out[i] = m_new;
+    a.s1_out[i] = v_new;
+  }
+};
+
+template <class Body, bool kShift>
+__device__ __forceinline__ void update(const Args& a, const Body& body,
+                                       int64_t i, float s) {
+  float g_agg = s * body.inv_nalpha;
+  if constexpr (kShift) {
+    g_agg = g_agg + a.h[i];
+    a.h_out[i] = g_agg;
+  }
+  body(a, i, g_agg);
+}
+
+template <class Body, bool kShift>
+__global__ void fused_unpack_kernel(const int32_t* __restrict__ words, Args a,
+                                    int64_t d, int64_t m, int k, int bits,
+                                    int32_t nlim) {
+  const Body body(a.scalars);
   const uint32_t mask = (1u << bits) - 1u;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t w = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -52,29 +119,113 @@ __global__ void fused_unpack_sgd_kernel(const int32_t* __restrict__ words,
       const int64_t idx = static_cast<int64_t>(j) * m + w;
       if (idx >= d) break;  // fields past the image end only at the tail
       const int32_t field = static_cast<int32_t>((word >> (j * bits)) & mask);
-      const float s = static_cast<float>(field - nlim);
-      const float pv = p[idx];
-      const float g = clip * (s * inv_nalpha) + wd * pv;
-      const float m_new = mu * mom[idx] + g;
-      p_out[idx] = pv - lr * m_new;
-      m_out[idx] = m_new;
+      update<Body, kShift>(a, body, idx, static_cast<float>(field - nlim));
     }
   }
 }
 
+template <class Body, bool kShift, typename Lane>
+__global__ void fused_apply_kernel(const Lane* __restrict__ ints, Args a,
+                                   int64_t d) {
+  const Body body(a.scalars);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < d; i += stride) {
+    update<Body, kShift>(a, body, i,
+                         static_cast<float>(static_cast<int32_t>(ints[i])));
+  }
+}
+
+constexpr int kThreads = 256;
+
+unsigned blocks_for(int64_t n) {
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  return static_cast<unsigned>(blocks);
+}
+
+template <class Body>
+int launch_unpack(const int32_t* words, const Args& a, int64_t d, int64_t m,
+                  int32_t k, int32_t bits, int32_t nlim, cudaStream_t stream) {
+  if (m <= 0) return 0;
+  if (a.h != nullptr) {
+    fused_unpack_kernel<Body, true><<<blocks_for(m), kThreads, 0, stream>>>(
+        words, a, d, m, k, bits, nlim);
+  } else {
+    fused_unpack_kernel<Body, false><<<blocks_for(m), kThreads, 0, stream>>>(
+        words, a, d, m, k, bits, nlim);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Body, typename Lane>
+void launch_apply_lane(const void* ints, const Args& a, int64_t d,
+                       cudaStream_t stream) {
+  const Lane* lanes = static_cast<const Lane*>(ints);
+  if (a.h != nullptr) {
+    fused_apply_kernel<Body, true, Lane>
+        <<<blocks_for(d), kThreads, 0, stream>>>(lanes, a, d);
+  } else {
+    fused_apply_kernel<Body, false, Lane>
+        <<<blocks_for(d), kThreads, 0, stream>>>(lanes, a, d);
+  }
+}
+
+template <class Body>
+int launch_apply(const void* ints, int32_t lane_bytes, const Args& a,
+                 int64_t d, cudaStream_t stream) {
+  if (d <= 0) return 0;
+  switch (lane_bytes) {
+    case 1: launch_apply_lane<Body, int8_t>(ints, a, d, stream); break;
+    case 2: launch_apply_lane<Body, int16_t>(ints, a, d, stream); break;
+    case 4: launch_apply_lane<Body, int32_t>(ints, a, d, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// Packed words, SGD body. h / h_out: null, or the IntDIANA shift and its
+// fresh output.
 extern "C" int repro_fused_unpack_sgd(const int32_t* words, const float* p,
-                                      const float* mom, const float* scalars,
-                                      float* p_out, float* m_out, int64_t d,
+                                      const float* mom, const float* h,
+                                      const float* scalars, float* p_out,
+                                      float* m_out, float* h_out, int64_t d,
                                       int64_t m, int32_t k, int32_t bits,
                                       int32_t nlim, cudaStream_t stream) {
-  if (m <= 0) return 0;
-  const int threads = 256;
-  int64_t blocks = (m + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  fused_unpack_sgd_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                            stream>>>(words, p, mom, scalars, p_out, m_out, d,
-                                      m, k, bits, nlim);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{p, mom, nullptr, h, scalars, p_out, m_out, nullptr, h_out};
+  return launch_unpack<SgdBody>(words, a, d, m, k, bits, nlim, stream);
+}
+
+// Packed words, AdamW body.
+extern "C" int repro_fused_unpack_adamw(
+    const int32_t* words, const float* p, const float* mu, const float* nu,
+    const float* h, const float* scalars, float* p_out, float* mu_out,
+    float* nu_out, float* h_out, int64_t d, int64_t m, int32_t k, int32_t bits,
+    int32_t nlim, cudaStream_t stream) {
+  const Args a{p, mu, nu, h, scalars, p_out, mu_out, nu_out, h_out};
+  return launch_unpack<AdamwBody>(words, a, d, m, k, bits, nlim, stream);
+}
+
+// Dense lanes of lane_bytes (1: int8, 2: int16, 4: int32), SGD body.
+extern "C" int repro_fused_apply_sgd(const void* ints, int32_t lane_bytes,
+                                     const float* p, const float* mom,
+                                     const float* h, const float* scalars,
+                                     float* p_out, float* m_out, float* h_out,
+                                     int64_t d, cudaStream_t stream) {
+  const Args a{p, mom, nullptr, h, scalars, p_out, m_out, nullptr, h_out};
+  return launch_apply<SgdBody>(ints, lane_bytes, a, d, stream);
+}
+
+// Dense lanes, AdamW body.
+extern "C" int repro_fused_apply_adamw(const void* ints, int32_t lane_bytes,
+                                       const float* p, const float* mu,
+                                       const float* nu, const float* h,
+                                       const float* scalars, float* p_out,
+                                       float* mu_out, float* nu_out,
+                                       float* h_out, int64_t d,
+                                       cudaStream_t stream) {
+  const Args a{p, mu, nu, h, scalars, p_out, mu_out, nu_out, h_out};
+  return launch_apply<AdamwBody>(ints, lane_bytes, a, d, stream);
 }

@@ -41,8 +41,22 @@ SIGNATURES = {
     "repro_int_compress": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
     "repro_pack_words": (_vp, _vp, _i64, _i64, _i32, _i32, _i32, _vp),
     "repro_unpack_words": (_vp, _vp, _i64, _i64, _i32, _i32, _i32, _vp),
+    # words, p, mom, h, scalars, p', m', h', d, m, k, bits, nlim, stream
     "repro_fused_unpack_sgd": (
-        _vp, _vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _i32, _vp,
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _i32, _vp,
+    ),
+    # words, p, mu, nu, h, scalars, p', mu', nu', h', d, m, k, bits, nlim, stream
+    "repro_fused_unpack_adamw": (
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32,
+        _i32, _i32, _vp,
+    ),
+    # ints, lane bytes, p, mom, h, scalars, p', m', h', d, stream
+    "repro_fused_apply_sgd": (
+        _vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _vp,
+    ),
+    # ints, lane bytes, p, mu, nu, h, scalars, p', mu', nu', h', d, stream
+    "repro_fused_apply_adamw": (
+        _vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _vp,
     ),
 }
 

@@ -13,7 +13,8 @@ Dispatch is by the device of the first tensor:
     ``interpret=True`` plays in the JAX package).
 
 ``launches`` on each wrapper counts the kernel launches, and only those, so
-a run can show that its main path went through the kernels.
+a run can show that its main path went through the kernels;
+``shift_launches`` counts those of them that carried an IntDIANA shift.
 """
 from __future__ import annotations
 
@@ -35,11 +36,14 @@ class KernelOp:
         self.plain = plain
         self.source = source  # path of the CUDA source within the package
         self.launches = 0
+        self.shift_launches = 0  # of those, launches with an IntDIANA shift
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
         if x.device.type == "cuda":
             out = self.cuda(x, *args, **kwargs)
             self.launches += 1
+            if kwargs.get("shift") is not None:
+                self.shift_launches += 1
             return out
         if x.device.type == "cpu":
             return self.plain(x, *args, **kwargs)
@@ -60,18 +64,39 @@ unpack_words = KernelOp(
     "unpack_words", _wp.unpack_words_cuda, _wp.unpack_words_plain,
     "csrc/wire_pack.cu",
 )
+# the fused decode + update family; each takes an optional ``shift=``
 fused_unpack_sgd = KernelOp(
     "fused_unpack_sgd", _fu.fused_unpack_sgd_cuda, _fu.fused_unpack_sgd_plain,
     "csrc/fused_update.cu",
 )
+fused_unpack_adamw = KernelOp(
+    "fused_unpack_adamw", _fu.fused_unpack_adamw_cuda,
+    _fu.fused_unpack_adamw_plain, "csrc/fused_update.cu",
+)
+fused_apply_sgd = KernelOp(
+    "fused_apply_sgd", _fu.fused_apply_sgd_cuda, _fu.fused_apply_sgd_plain,
+    "csrc/fused_update.cu",
+)
+fused_apply_adamw = KernelOp(
+    "fused_apply_adamw", _fu.fused_apply_adamw_cuda, _fu.fused_apply_adamw_plain,
+    "csrc/fused_update.cu",
+)
 
-KERNELS = (int_compress, pack_words, unpack_words, fused_unpack_sgd)
+KERNELS = (
+    int_compress, pack_words, unpack_words, fused_unpack_sgd,
+    fused_unpack_adamw, fused_apply_sgd, fused_apply_adamw,
+)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.shift_launches = 0
 
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def shift_launch_counts() -> dict:
+    return {k.name: k.shift_launches for k in KERNELS}

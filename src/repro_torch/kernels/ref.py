@@ -24,9 +24,21 @@ INT_LIM = {4: 7, 8: 127, 16: 32767, 32: 2147483647}
 _MASK = 0xFFFFFFFF
 
 
+_LANE_BITS = {torch.int8: 8, torch.int16: 16, torch.int32: 32}
+
+
+def wrap_int(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int64 -> the signed integer ``dtype`` (int8, int16 or int32),
+    keeping its low bits (two's complement): what a sum in that lane type
+    wraps to."""
+    bits = _LANE_BITS[dtype]
+    half = 1 << (bits - 1)
+    return (((v & ((1 << bits) - 1)) ^ half) - half).to(dtype)
+
+
 def wrap_int32(v: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 keeping the low 32 bits (two's complement)."""
-    return (((v & _MASK) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    return wrap_int(v, torch.int32)
 
 
 def saturate_int32(r: torch.Tensor) -> torch.Tensor:
@@ -99,6 +111,16 @@ def unpack_words_ref(
     return wrap_int32(torch.stack(fields).reshape(-1)[:size]).reshape(shape)
 
 
+def _decode(ints: torch.Tensor, inv_nalpha, shift):
+    """The fused kernels' decode: g_agg = Σints·inv_nalpha (+ h), in that
+    order (a product, then the shift add). ``g_agg`` is the new IntDIANA
+    global shift h' = h + mean Q; the update consumes clip·g_agg."""
+    g_agg = ints.to(torch.float32) * inv_nalpha
+    if shift is not None:
+        g_agg = g_agg + shift.to(torch.float32)
+    return g_agg
+
+
 def fused_update_ref(
     int_sum: torch.Tensor,
     param: torch.Tensor,
@@ -109,16 +131,21 @@ def fused_update_ref(
     mu: torch.Tensor,
     wd: torch.Tensor,
     clip: torch.Tensor | float = 1.0,
+    shift: torch.Tensor | None = None,
 ):
-    """Dequantize + global-norm clip + weight decay + momentum + SGD step
-    (torch.optim.SGD semantics), one elementwise op per rounding:
-    g = clip·(Σints·inv_nalpha) + wd·p; m' = μm + g; p' = p − lr·m'.
-    ``clip = 1`` is the JAX oracle's clip-free form (1·x is exact)."""
+    """Dequantize (+ IntDIANA shift) + global-norm clip + weight decay +
+    momentum + SGD step (torch.optim.SGD semantics), one elementwise op per
+    rounding: g_agg = Σints·inv_nalpha (+ h); g = clip·g_agg + wd·p;
+    m' = μm + g; p' = p − lr·m'. ``clip = 1`` is the JAX oracle's
+    clip-free form (1·x is exact). Returns ``(p', m')``, and the new shift
+    g_agg as a third output when ``shift`` is given."""
     p32 = param.to(torch.float32)
-    g = clip * (int_sum.to(torch.float32) * inv_nalpha) + wd * p32
+    g_agg = _decode(int_sum, inv_nalpha, shift)
+    g = clip * g_agg + wd * p32
     new_m = mu * mom.to(torch.float32) + g
     new_p = p32 - lr * new_m
-    return new_p.to(param.dtype), new_m.to(mom.dtype)
+    out = (new_p.to(param.dtype), new_m.to(mom.dtype))
+    return out if shift is None else (*out, g_agg.to(shift.dtype))
 
 
 def fused_unpack_update_ref(
@@ -128,15 +155,65 @@ def fused_unpack_update_ref(
     *,
     bits: int,
     n_summed: int,
-    inv_nalpha: torch.Tensor,
-    lr: torch.Tensor,
-    mu: torch.Tensor,
-    wd: torch.Tensor,
-    clip: torch.Tensor | float = 1.0,
+    **kw,
 ):
     """:func:`unpack_words_ref` composed with :func:`fused_update_ref`."""
     int_sum = unpack_words_ref(words, param.shape, bits=bits, n_summed=n_summed)
-    return fused_update_ref(
-        int_sum, param, mom, inv_nalpha=inv_nalpha, lr=lr, mu=mu, wd=wd,
-        clip=clip,
-    )
+    return fused_update_ref(int_sum, param, mom, **kw)
+
+
+def fused_adamw_ref(
+    int_sum: torch.Tensor,
+    param: torch.Tensor,
+    mu: torch.Tensor,
+    nu: torch.Tensor,
+    *,
+    inv_nalpha,
+    lr,
+    b1,
+    omb1,
+    b2,
+    omb2,
+    eps,
+    wd,
+    bc1,
+    bc2,
+    clip: torch.Tensor | float = 1.0,
+    shift: torch.Tensor | None = None,
+):
+    """Dequantize (+ IntDIANA shift) + bias-corrected AdamW step, in the
+    fused kernels' order (``_apply_adamw``), one elementwise op per
+    rounding::
+
+        g_agg = Σints·inv_nalpha (+ h);   g = clip·g_agg
+        m' = b1·m + omb1·g;               v' = b2·v + (omb2·g)·g
+        p' = p − lr·((m'/bc1) / (√(v'/bc2) + eps) + wd·p)
+
+    ``omb1``/``omb2`` are 1−b1 / 1−b2 pre-rounded from the Python floats
+    (``optim.base.FUSED_SCALAR_TAIL``); the JAX oracle recomputes them in
+    f32, one ULP away. Returns ``(p', mu', nu')``, and the new shift g_agg
+    as a fourth output when ``shift`` is given."""
+    p32 = param.to(torch.float32)
+    g_agg = _decode(int_sum, inv_nalpha, shift)
+    g = clip * g_agg
+    new_m = b1 * mu.to(torch.float32) + omb1 * g
+    new_v = b2 * nu.to(torch.float32) + omb2 * g * g
+    step = (new_m / bc1) / (torch.sqrt(new_v / bc2) + eps)
+    new_p = p32 - lr * (step + wd * p32)
+    out = (new_p.to(param.dtype), new_m.to(mu.dtype), new_v.to(nu.dtype))
+    return out if shift is None else (*out, g_agg.to(shift.dtype))
+
+
+def fused_unpack_adamw_ref(
+    words: torch.Tensor,
+    param: torch.Tensor,
+    mu: torch.Tensor,
+    nu: torch.Tensor,
+    *,
+    bits: int,
+    n_summed: int,
+    **kw,
+):
+    """:func:`unpack_words_ref` composed with :func:`fused_adamw_ref`."""
+    int_sum = unpack_words_ref(words, param.shape, bits=bits, n_summed=n_summed)
+    return fused_adamw_ref(int_sum, param, mu, nu, **kw)

@@ -6,14 +6,17 @@ packed route:
 
   1. for each of the n workers in turn: forward and backward on that
      worker's slice of the global batch (bf16 activations, f32 params);
-     on the compressed steps its gradients are encoded Int(α∘g) and packed
-     into transport words at once and freed, the words folding into the
-     int32 word sum with wrap-around (``IntSGD.aggregate_wire``);
-     step 0 is exact (paper §4.1) and sums float gradients instead;
+     on the compressed steps its gradients (IntDIANA: minus its local
+     shift) are encoded Int(α∘g) and packed into transport words at once
+     and freed, the words folding into the word sum with the wire type's
+     wrap-around (``Compressor.aggregate_wire``); step 0 is exact (paper
+     §4.1) and sums float gradients instead;
   2. the global-norm clip factor, computed off the summed integer image
-     (``_clip_factor``), so ĝ is never materialized;
-  3. the fused decode + momentum-SGD kernel per leaf, straight off the
-     summed words (``_fused_update_stage``); step 0 runs the same
+     (plus the global shift for IntDIANA) (``_clip_factor``), so ĝ is
+     never materialized;
+  3. the fused decode + optimizer kernel per leaf — SGD or AdamW, packed
+     words or dense lanes, with IntDIANA's shift in and out — straight off
+     the summed payload (``_fused_update_stage``); step 0 runs the same
      arithmetic unfused (``optim.base.fused_reference_update``);
   4. ||Δx||² × dx_scale² fed back to the α rule (``_observe_dx``).
 
@@ -103,21 +106,28 @@ def _fused_plan(base_opt: Optimizer, compressor: Compressor) -> str:
             "fused update routing needs an optimizer exposing a fused "
             "decode+update kernel (Optimizer.fused_kernel); "
             f"kind={base_opt.kind!r} advertises none — use optim.sgd "
-            "(heavy-ball)"
+            "(heavy-ball) or optim.adamw"
         )
     return base_opt.fused_kernel
 
 
 def _clip_factor(layout: Layout, clip_norm: float, *, ghat=None, int_sum=None,
-                 alphas=None) -> torch.Tensor:
+                 alphas=None, shift=None) -> torch.Tensor:
     """Global-norm clip factor min(1, c/||ĝ||). On the fused route ||ĝ||² is
-    computed off the summed image (||ĝ_l||² = ||Σints_l||²/(nα_l)²), so ĝ
-    is never materialized. Float32 sums in PyTorch's reduction order, not
+    computed off the summed image (||ĝ_l||² = ||Σints_l||²/(nα_l)², or
+    Σ (h + Σints_l/(nα_l))² with IntDIANA's global shift h — a division,
+    as in the JAX package, where the kernel multiplies by 1/(nα)), so ĝ is
+    never materialized. Float32 sums in PyTorch's reduction order, not
     XLA's: the factor agrees with the JAX package to about 1e-6 relative."""
     n = layout.ctx.n
-    if int_sum is not None:
+    if int_sum is not None and shift is None:
         leaf_sq = [
             torch.sum(torch.square(s.to(torch.float32))) / torch.square(n * alphas[k])
+            for k, s in int_sum.items()
+        ]
+    elif int_sum is not None:
+        leaf_sq = [
+            torch.sum(torch.square(shift[k] + s.to(torch.float32) / (n * alphas[k])))
             for k, s in int_sum.items()
         ]
     else:
@@ -139,29 +149,36 @@ def _observe_dx(compressor, base_opt: Optimizer, cs, new_params: Tree, params: T
 
 def _fused_update_stage(layout: Layout, params: Tree, opt_state, eta,
                         base_opt: Optimizer, *, ghat, words, alphas, wf,
-                        clip_scale):
+                        clip_scale, shift=None):
     """The fused decode + optimizer route, one kernel per leaf straight off
-    the summed transport words (the packed image never touches device
-    memory). The exact step has no integer payload and runs the same
-    arithmetic unfused. Returns ``(new_params, new_opt_state)``."""
+    the summed transport payload (packed words or dense lanes). With a
+    shift (IntDIANA's global h) the kernel also emits the new shift in the
+    same pass. The exact step has no integer payload and runs the same
+    arithmetic unfused. Returns ``(new_params, new_opt_state,
+    new_shift | None)``."""
     if words is None:
-        return optb.fused_reference_update(base_opt, ghat, params, opt_state, eta)
+        new_params, new_opt = optb.fused_reference_update(
+            base_opt, ghat, params, opt_state, eta
+        )
+        return new_params, new_opt, None
     kern = base_opt.fused_kernel
     tail, new_scalars = optb.fused_step_scalars(base_opt, opt_state, eta)
     tensor_names = optb.FUSED_STATE_TENSORS[kern]
     n = layout.ctx.n
-    new_p = {}
+    new_p, new_h = {}, {}
     new_state = {nm: {} for nm in tensor_names}
     for k in layout.names:
         scalars = torch.stack([1.0 / (n * alphas[k]), clip_scale, *tail])
-        po, oo, _ = wf.fused_update(
+        po, oo, ho = wf.fused_update(
             words[k], params[k], tuple(opt_state[nm][k] for nm in tensor_names),
             scalars, kernel=kern, n_summed=n,
+            shift=None if shift is None else shift[k],
         )
         new_p[k] = po
+        new_h[k] = ho
         for nm, o in zip(tensor_names, oo):
             new_state[nm][k] = o
-    return new_p, {**new_state, **new_scalars}
+    return new_p, {**new_state, **new_scalars}, (None if shift is None else new_h)
 
 
 def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
@@ -199,11 +216,14 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
             ghat = None
             metrics = (m.max_int, m.bits_per_coord)
 
+        # the replicated global shift the fused decode adds (IntDIANA's
+        # h_global; None for shift-free compressors and on the exact step)
+        shift = None if exact else compressor.fused_shift(cs)
         clip_scale = torch.ones((), dtype=torch.float32, device=layout.device)
         if clip_norm is not None:
             scale = _clip_factor(
                 layout, clip_norm, ghat=ghat,
-                int_sum=None if exact else wa.ints, alphas=alphas,
+                int_sum=None if exact else wa.ints, alphas=alphas, shift=shift,
             )
             if ghat is not None:
                 ghat = {k: g * scale for k, g in ghat.items()}
@@ -213,11 +233,13 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
             words = wa.words
             del wa  # the summed image is not needed past the clip factor
 
-        new_params, new_opt = _fused_update_stage(
+        new_params, new_opt, new_shift = _fused_update_stage(
             layout, params, opt_state, eta, base_opt, ghat=ghat, words=words,
             alphas=alphas, wf=None if exact else compressor.wire_format,
-            clip_scale=clip_scale,
+            clip_scale=clip_scale, shift=shift,
         )
+        if new_shift is not None:
+            cs = compressor.fused_store_shift(cs, new_shift)
         cs = _observe_dx(compressor, base_opt, cs, new_params, params)
         loss = torch.sum(torch.stack(losses)) / ctx.n
         return new_params, new_opt, cs, loss, metrics

@@ -7,10 +7,13 @@ CLI (runs on the card; ``--device cpu`` runs the kernels' plain versions)::
       --smoke --steps 8 --workers 4 --batch 4 --seq 32 \\
       --compressor intsgd8_packed --wire packed8 --fused --opt sgd
 
-``--layers N`` cuts the depth (full width kept). Not ported yet, and
-raising so: ``--ckpt-dir``, ``--overlap ring``, ``--microbatches > 1``,
-``--opt adamw``, ``--data``/``--model`` meshes, and the unfused route
-(no ``--fused``).
+``--opt sgd|adamw``; ``--compressor`` intsgd, intsgd4, intsgd8,
+intsgd8_packed, intsgd4_packed or intdiana; ``--wire`` dense4/8/16/32 or
+packed4/8/16 (a compressor whose name carries no width, intsgd or
+intdiana, takes the wire's). ``--layers N`` cuts the depth (full width
+kept). Not ported yet, and raising so: ``--ckpt-dir``, ``--overlap ring``,
+``--microbatches > 1``, ``--data``/``--model`` meshes, and the unfused
+route (no ``--fused``).
 """
 from __future__ import annotations
 
@@ -25,10 +28,18 @@ from repro_torch.core.compressor import leaf_seeds, make_compressor, with_wire
 from repro_torch.data.synthetic import SyntheticLMData
 from repro_torch.launch.step import build_train_step, resolve_device
 from repro_torch.models.transformer import init_lm_params
+from repro_torch.optim.adamw import adamw
 from repro_torch.optim.base import fused_state_init
 from repro_torch.optim.schedules import constant, warmup_wrap
 from repro_torch.optim.sgd import sgd
-from repro_torch.wire import wire_format_names
+from repro_torch.wire import make_wire_format, wire_format_names
+
+OPTIMIZERS = {
+    "sgd": lambda: sgd(momentum=0.9, weight_decay=1e-4),
+    "adamw": lambda: adamw(weight_decay=1e-4),
+}
+# registry names that carry no width: with a wire, they take the wire's
+WIDTH_FROM_WIRE = ("intsgd", "intdiana")
 
 
 def train_loop(
@@ -53,12 +64,15 @@ def train_loop(
     seed. Returns ``(params, history)``: one record per step with loss,
     max_int, bits and the step's wall time in ms (the step ends in a sync)."""
     device = resolve_device(device)
-    if opt != "sgd":
-        raise NotImplementedError(f"--opt {opt} is not ported yet (the port has sgd)")
+    if opt not in OPTIMIZERS:
+        raise ValueError(f"optimizer {opt!r}; options {sorted(OPTIMIZERS)}")
     comp = make_compressor(compressor)
     if wire is not None:
-        comp = with_wire(comp, wire)
-    base_opt = sgd(momentum=0.9, weight_decay=1e-4)
+        wf = make_wire_format(wire)
+        if compressor in WIDTH_FROM_WIRE:
+            comp = dataclasses.replace(comp, bits=wf.bits)
+        comp = with_wire(comp, wf)
+    base_opt = OPTIMIZERS[opt]()
     sched = warmup_wrap(constant(lr), 5)
     art = build_train_step(
         cfg, shape, n_workers=n_workers, compressor=comp, base_opt=base_opt,
@@ -69,7 +83,7 @@ def train_loop(
         device=device,
     )
     opt_state = fused_state_init(base_opt, params)
-    comp_state = comp.init(params)
+    comp_state = comp.init(params, n_workers)
     seed_gen = torch.Generator().manual_seed(seed)
     data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=seed)
     n_leaves = len(art.layout.names)

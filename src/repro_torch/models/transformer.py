@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scaling import AlphaState
 from repro_torch.models.attention import attention_train
 from repro_torch.models.common import cross_entropy, dense_init, rmsnorm
 from repro_torch.models.mlp import swiglu_mlp
@@ -140,7 +141,30 @@ def params_from_jax(tree_of_numpy, device, prefix: str = "") -> Tree:
     return out
 
 
-def opt_state_from_jax(state_of_numpy, device) -> Dict[str, Tree]:
-    """JAX fused-route optimizer state (``{"mom": tree}`` for SGD) -> the
-    port's ``{"mom": leaf dict}``."""
-    return {name: params_from_jax(t, device) for name, t in state_of_numpy.items()}
+def opt_state_from_jax(state_of_numpy, device) -> Dict[str, object]:
+    """JAX fused-route optimizer state (``{"mom": tree}`` for SGD,
+    ``{"mu": tree, "nu": tree, "count": int32 scalar}`` for AdamW) -> the
+    port's: a leaf dict per tree, a tensor per scalar."""
+    return {
+        name: params_from_jax(t, device) if isinstance(t, dict)
+        else torch.from_numpy(np.array(t)).to(device)
+        for name, t in state_of_numpy.items()
+    }
+
+
+def comp_state_from_jax(state_of_numpy, device):
+    """JAX IntDIANA compressor state, stacked over the workers as the JAX
+    step and ``vmap_workers`` hold it (every leaf with a leading worker
+    axis: ``{"alpha": AlphaState(r, step), "h_local": tree, "h_global":
+    tree}``) -> the port's: h_local kept stacked ``(n, *shape)`` per leaf;
+    the replicated h_global and α state taken from worker 0."""
+    alpha = state_of_numpy["alpha"]
+    first = lambda v: torch.from_numpy(np.array(np.array(v)[0])).to(device)
+    return {
+        "alpha": AlphaState(r=first(alpha.r), step=first(alpha.step)),
+        "h_local": params_from_jax(state_of_numpy["h_local"], device),
+        "h_global": {
+            k: v[0].clone()
+            for k, v in params_from_jax(state_of_numpy["h_global"], device).items()
+        },
+    }

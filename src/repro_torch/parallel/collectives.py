@@ -16,7 +16,7 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-from repro_torch.kernels.ref import wrap_int32
+from repro_torch.kernels.ref import wrap_int
 
 Tree = Dict[str, torch.Tensor]
 
@@ -32,17 +32,26 @@ def check_wire_dtypes(words: Tree) -> None:
 
 
 def add_wire_words(acc: Optional[Tree], words: Tree) -> Tree:
-    """Fold one worker's transport words into the running sum with int32
-    wrap-around (mod 2^32), which the packed-field arithmetic relies on.
-    The add runs in int64 and wraps explicitly: int32 overflow is not
-    defined behaviour in the elementwise kernels."""
+    """Fold one worker's transport words into the running sum, in the
+    payload's own integer type and wrapping as an all-reduce in that type
+    does: packed words mod 2^32 (the packed-field arithmetic relies on
+    it), dense int8/int16/int32 lanes in their width (the JAX package's
+    psum of int8 lanes is int8; the §5.1 clip keeps it from wrapping). The
+    add runs in int64 and wraps explicitly: integer overflow is not defined
+    behaviour in the elementwise kernels."""
     check_wire_dtypes(words)
     if acc is None:
         return dict(words)
     if acc.keys() != words.keys():
         raise ValueError("workers sent payloads for different leaves")
+    for k in acc:
+        if acc[k].dtype != words[k].dtype:
+            raise TypeError(
+                f"wire payload {k!r}: workers sent {acc[k].dtype} and "
+                f"{words[k].dtype} lanes"
+            )
     return {
-        k: wrap_int32(acc[k].to(torch.int64) + words[k].to(torch.int64))
+        k: wrap_int(acc[k].to(torch.int64) + words[k].to(torch.int64), acc[k].dtype)
         for k in acc
     }
 

@@ -1,18 +1,22 @@
 """Wire codecs between rounded integers and the transport (port of
 ``repro/wire``). See :mod:`repro_torch.wire.base` for the contract.
 
-Registry names: ``packed4`` / ``packed8`` / ``packed16`` (bit-packed int32
-transport words). The JAX package's other codecs (``dense*``, ``topk*:<k>``,
-``logged:<name>``) are not ported yet: any other name raises saying so.
+Registry names: ``dense4`` / ``dense8`` / ``dense16`` / ``dense32`` (one
+native integer lane per coordinate) and ``packed4`` / ``packed8`` /
+``packed16`` (bit-packed int32 transport words). The JAX package's other
+codecs (``topk*:<k>``, ``logged:<name>``) are not ported yet: any other
+name raises saying so.
 """
 from __future__ import annotations
 
 from repro_torch.wire.base import WireFormat, WireRangeError, clip_limit
+from repro_torch.wire.dense import DenseInt
 from repro_torch.wire.packed import PackedInt
 
 __all__ = [
     "WireFormat",
     "WireRangeError",
+    "DenseInt",
     "PackedInt",
     "clip_limit",
     "make_wire_format",
@@ -21,6 +25,10 @@ __all__ = [
 ]
 
 WIRE_FORMATS = {
+    "dense4": lambda: DenseInt(bits=4),
+    "dense8": lambda: DenseInt(bits=8),
+    "dense16": lambda: DenseInt(bits=16),
+    "dense32": lambda: DenseInt(bits=32),
     "packed4": lambda: PackedInt(bits=4),
     "packed8": lambda: PackedInt(bits=8),
     "packed16": lambda: PackedInt(bits=16),

@@ -9,7 +9,8 @@ Port of ``repro/wire/base.py`` (psum transport only). The four stages::
 
 Psum-safety contract: ``unpack(Σ_i pack(ints_i), n) == Σ_i ints_i``
 elementwise and exactly, for any n images within the §5.1 clip, where the Σ
-on the left is the wrap-around int32 word sum.
+on the left is the word sum in the payload's own integer type, wrapping as an
+all-reduce in that type does.
 
 The port's encode always takes the counter-PRNG kernel route (the JAX
 package's ``use_kernels=True``): the JAX ``jax.random`` rounding stream of
@@ -118,3 +119,9 @@ class WireFormat:
         order, ``scalars`` ``[inv_nalpha, clip, *FUSED_SCALAR_TAIL[kernel]]``
         on the card. Returns ``(new_param, new_opt, new_shift | None)``."""
         raise NotImplementedError
+
+    @staticmethod
+    def fused_result(out, opt, shift):
+        """A fused kernel's ``(p', *state', [h'])`` -> ``(p', state',
+        h' | None)``."""
+        return out[0], tuple(out[1:1 + len(opt)]), (out[-1] if shift is not None else None)

@@ -23,6 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.wire.base import WireFormat
 
 _ALLOWED_BITS = (4, 8, 16)
+_FUSED = {"sgd": ops.fused_unpack_sgd, "adamw": ops.fused_unpack_adamw}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,14 +62,8 @@ class PackedInt(WireFormat):
 
     def fused_update(self, words, param, opt, scalars, *, kernel: str,
                      n_summed: int, shift=None):
-        if kernel != "sgd" or shift is not None:
-            raise NotImplementedError(
-                f"fused kernel {kernel!r}"
-                + (" with an IntDIANA shift" if shift is not None else "")
-                + " is not ported yet (the port has the packed SGD body only)"
-            )
-        (mom,) = opt
-        p, m = ops.fused_unpack_sgd(
-            words, param, mom, scalars, bits=self.bits, n_summed=n_summed
+        out = _FUSED[kernel](
+            words, param, *opt, scalars, shift=shift, bits=self.bits,
+            n_summed=n_summed,
         )
-        return p, (m,), None
+        return self.fused_result(out, opt, shift)

@@ -106,6 +106,74 @@ def test_fused_unpack_sgd_kernel_matches_plain(dev, shape, bits):
     torch.testing.assert_close(gm, wm, rtol=0, atol=0)
 
 
+def _family_inputs(dev, kernel, d, shift, seed):
+    """p, optimizer state, scalar vector and shift at the train path's
+    magnitudes, on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randn(d, generator=g, device=dev) * 0.02
+    m = torch.randn(d, generator=g, device=dev) * 1e-3
+    if kernel == "sgd":
+        state = (m,)
+        sc = torch.tensor([1 / (4 * 37.0), 0.61, 0.3, 0.9, 1e-4], device=dev)
+    else:
+        state = (m, torch.randn(d, generator=g, device=dev).abs() * 1e-5)
+        t = 3
+        sc = torch.tensor([1 / (4 * 37.0), 0.61, 3e-4, 0.9, 1.0 - 0.9, 0.95, 1.0 - 0.95,
+                           1e-8, 1e-4, 1.0 - 0.9**t, 1.0 - 0.95**t], device=dev)
+    h = torch.randn(d, generator=g, device=dev) * 0.01 if shift else None
+    return p, state, sc, h
+
+
+def _bit_equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("kernel,shift", [("sgd", True), ("adamw", False), ("adamw", True)])
+def test_fused_unpack_family_kernel_matches_plain(dev, bits, kernel, shift):
+    n, d = 4, 1_000_003
+    lim = clip_limit(bits, n)
+    rng = np.random.default_rng([bits, len(kernel), int(shift)])
+    words = psum_wire_words(
+        {"w": ops.pack_words(_ints(rng, (d,), lim).to(dev), bits=bits, n_workers=n)}
+        for _ in range(n)
+    )["w"]
+    p, state, sc, h = _family_inputs(dev, kernel, d, shift, bits)
+    op = ops.fused_unpack_sgd if kernel == "sgd" else ops.fused_unpack_adamw
+    before, before_shift = op.launches, op.shift_launches
+    got = op(words, p, *state, sc, shift=h, bits=bits, n_summed=n)
+    assert op.launches == before + 1 and op.shift_launches == before_shift + int(shift)
+    # built with --fmad=false, IEEE sqrt and division: bit for bit
+    _bit_equal(got, op.plain(words, p, *state, sc, shift=h, bits=bits, n_summed=n))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+@pytest.mark.parametrize("kernel", ["sgd", "adamw"])
+@pytest.mark.parametrize("shift", [False, True])
+def test_fused_apply_kernel_matches_plain_at_the_lane_extremes(dev, bits, kernel, shift):
+    from repro_torch.wire import DenseInt
+
+    n, d = 4, 1_000_003
+    wf = DenseInt(bits)
+    lim = wf.clip_limit(n)
+    rng = np.random.default_rng([bits, len(kernel), int(shift), 5])
+    images = [_ints(rng, (d,), lim).to(dev) for _ in range(n)]
+    for img in images:  # sums at the lane's extremes ±n·lim
+        img[:1000] = lim
+        img[1000:2000] = -lim
+    lanes = psum_wire_words({"w": wf.pack(img, n_workers=n)} for img in images)["w"]
+    assert lanes.dtype == wf.lane_dtype
+    assert int(lanes[:1000].min()) == n * lim and int(lanes[1000:2000].max()) == -n * lim
+    p, state, sc, h = _family_inputs(dev, kernel, d, shift, bits + 1)
+    op = ops.fused_apply_sgd if kernel == "sgd" else ops.fused_apply_adamw
+    before = op.launches
+    got = op(lanes, p, *state, sc, shift=h)
+    assert op.launches == before + 1
+    _bit_equal(got, op.plain(lanes, p, *state, sc, shift=h))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 8, device=dev).t()  # not contiguous
     one = torch.tensor(1.0, device=dev)
@@ -117,3 +185,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # alpha on the host
         ops.int_compress(torch.zeros(8, device=dev), torch.tensor(1.0), seed,
                          n_workers=1, bits=8)
+    p = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="int8, int16 or int32"):
+        ops.fused_apply_sgd(torch.zeros(8, dtype=torch.int64, device=dev), p, p,
+                            torch.zeros(5, device=dev))
+    with pytest.raises(ValueError, match="shift"):  # shift on the host
+        ops.fused_apply_adamw(torch.zeros(8, dtype=torch.int8, device=dev), p, p, p,
+                              torch.zeros(11, device=dev), shift=torch.zeros(8))

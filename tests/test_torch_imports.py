@@ -32,6 +32,7 @@ def _port_modules():
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.launch.train" in mods and "repro_torch.kernels.ops" in mods
+    assert "repro_torch.optim.adamw" in mods and "repro_torch.wire.dense" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -79,6 +80,9 @@ def test_entry_points_need_the_card_unless_cpu_is_asked_for():
         train.train_loop(cfg, shape, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "granite-8b", "--smoke", "--steps", "1", "--fused"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "granite-8b", "--smoke", "--steps", "1", "--fused",
+                    "--opt", "adamw", "--compressor", "intdiana", "--wire", "dense8"])
 
 
 def test_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys):
@@ -95,8 +99,12 @@ def test_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys):
                   ["--data", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(base + extra)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(base + ["--opt", "adamw"])
+    # AdamW, IntDIANA and the dense wire run (ported); a width-free
+    # compressor name takes the wire's width
+    train.main(base[:-1] + ["intdiana", "--wire", "dense8", "--opt", "adamw", "--steps", "2",
+                            "--workers", "2", "--batch", "2", "--seq", "8"])
+    out = capsys.readouterr().out
+    assert "step     1" in out and "max_int" in out
     with pytest.raises(NotImplementedError, match="ZeRO-1"):
         train.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                     "--compressor", "intsgd8_packed"])

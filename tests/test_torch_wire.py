@@ -1,4 +1,5 @@
-"""Port vs JAX: the compressed stage at n = 4 workers, and the codec layer.
+"""Port vs JAX: the compressed stage at n = 4 workers, and the codec layer
+(packed words and dense lanes, each summed in its own integer type).
 
 JAX side: ``IntSGD(bits=8, wire=PackedInt(8, use_kernels=True),
 use_kernels=True).aggregate_wire`` under ``coll.vmap_workers`` with a
@@ -24,12 +25,13 @@ from repro.core.compressor import IntSGD as JIntSGD, _leaf_keys  # noqa: E402
 from repro.core.scaling import AlphaState as JAlphaState  # noqa: E402
 from repro.kernels import ops as kops  # noqa: E402
 from repro.parallel import collectives as jcoll  # noqa: E402
-from repro.wire import PackedInt as JPackedInt  # noqa: E402
+from repro.wire import DenseInt as JDenseInt, PackedInt as JPackedInt  # noqa: E402
 from repro_torch.core.comm import CommCtx  # noqa: E402
 from repro_torch.core.compressor import make_compressor, with_wire  # noqa: E402
 from repro_torch.core.scaling import AlphaState  # noqa: E402
+from repro_torch.parallel.collectives import psum_wire_words  # noqa: E402
 from repro_torch.wire import (  # noqa: E402
-    PackedInt, WireRangeError, make_wire_format, wire_format_names,
+    DenseInt, PackedInt, WireRangeError, make_wire_format, wire_format_names,
 )
 
 N = 4
@@ -122,13 +124,19 @@ def test_wire_range_error_on_the_same_pairs_as_jax(bits, n):
 
 
 def test_codec_registry_has_packed_only_and_says_what_is_not_ported():
-    assert wire_format_names() == ["packed16", "packed4", "packed8"]
+    # dense and packed codecs are ported; the sparse and logging ones not
+    assert wire_format_names() == [
+        "dense16", "dense32", "dense4", "dense8", "packed16", "packed4", "packed8",
+    ]
     assert make_wire_format("packed8") == PackedInt(bits=8)
-    for name in ("dense8", "dense32", "topk8:64", "logged:packed8"):
+    assert make_wire_format("dense8") == DenseInt(bits=8)
+    for name in ("topk8:64", "logged:packed8"):
         with pytest.raises(ValueError, match="not ported yet"):
             make_wire_format(name)
     with pytest.raises(ValueError, match="bits"):
         PackedInt(bits=32)
+    with pytest.raises(ValueError, match="bit values"):
+        DenseInt(bits=12)
 
 
 def test_compressor_registry_and_bits_consistency():
@@ -138,8 +146,63 @@ def test_compressor_registry_and_bits_consistency():
         with_wire(make_compressor("intsgd"), "packed8")
     with pytest.raises(ValueError, match="not ported"):
         make_compressor("qsgd")
-    with pytest.raises(ValueError, match="dense int32 lane"):
-        make_compressor("intsgd").wire_format
+    # without a codec IntSGD rides one dense lane per coordinate, as in JAX
+    assert make_compressor("intsgd").wire_format == DenseInt(bits=32)
+    assert make_compressor("intsgd8").wire_format == DenseInt(bits=8)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+def test_dense_lanes_and_dtypes_match_jax(bits):
+    jwf, wf = JDenseInt(bits), DenseInt(bits)
+    assert str(wf.lane_dtype).split(".")[1] == jnp.dtype(jwf.lane_dtype).name
+    for size in (1, 7, 1000):
+        assert wf.wire_bytes(size) == jwf.wire_bytes(size)
+    img = torch.arange(-5, 5, dtype=torch.int32).reshape(2, 5)
+    lanes = wf.pack(img, n_workers=1)
+    assert lanes.dtype == wf.lane_dtype
+    back = wf.unpack(lanes, (2, 5), n_summed=1)
+    assert back.dtype == torch.int32 and torch.equal(back, img)
+    assert wf.clip_limit(N) == jwf.clip_limit(N)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+def test_dense_psum_law_in_lane_dtype_matches_jax(bits):
+    """unpack(Σ pack) == Σ ints at n = 4 with every worker at +lim and at
+    -lim (the sum at ±n·lim, the lane's edge), summed in the lane type."""
+    lim = DenseInt(bits).clip_limit(N)
+    rng = np.random.default_rng(bits)
+    images = rng.integers(-lim, lim + 1, (N, 3, 100)).astype(np.int32)
+    images[:, 0, :] = lim
+    images[:, 1, :50] = -lim
+    jctx = JCommCtx(axes=(jcoll.WORKER_AXIS,), axis_sizes=(N,))
+    jwords, jints = jcoll.vmap_workers(
+        lambda x: jctx.psum_wire({"a": x}, JDenseInt(bits)), in_axes=0,
+    )(jnp.asarray(images))
+    words, ints = CommCtx(n_workers=N).psum_wire(
+        ({"a": torch.from_numpy(images[w])} for w in range(N)), DenseInt(bits)
+    )
+    assert words["a"].dtype == DenseInt(bits).lane_dtype
+    assert str(np.asarray(jwords["a"]).dtype) == str(words["a"].dtype).split(".")[1]
+    np.testing.assert_array_equal(words["a"].numpy(), np.asarray(jwords["a"][0]))
+    np.testing.assert_array_equal(ints["a"].numpy(), np.asarray(jints["a"][0]))
+    assert torch.equal(ints["a"].to(torch.int64), torch.from_numpy(images.astype(np.int64).sum(0)))
+    assert int(ints["a"].max()) == N * lim and int(ints["a"].min()) == -N * lim
+
+
+def test_dense_word_sum_wraps_in_the_lane_type_as_jax_psum_does():
+    """Past the clip (which the codec never sends) the int8 lane sum wraps
+    mod 2^8 as JAX's int8 psum does; it never widens."""
+    x = np.array([[100, -100, 127], [100, -100, 1]], np.int8)
+    jsum = jcoll.vmap_workers(lambda v: jcoll.psum(v, jcoll.WORKER_AXIS), in_axes=0)(
+        jnp.asarray(x)
+    )
+    got = psum_wire_words({"a": torch.from_numpy(row)} for row in x)["a"]
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jsum[0]))
+    assert got.tolist() == [-56, 56, -128]
+    with pytest.raises(TypeError, match="lanes"):
+        psum_wire_words([{"a": torch.zeros(2, dtype=torch.int8)},
+                         {"a": torch.zeros(2, dtype=torch.int16)}])
 
 
 def test_psum_wire_counts_workers():
