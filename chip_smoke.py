@@ -5,7 +5,7 @@
 
 Phases, each of which must pass for the exit code to be 0:
 
-  1. build   — compile the seven hand-written kernels (three sources in
+  1. build   — compile the eight hand-written kernels (four sources in
                src/repro_torch/csrc) with nvcc for sm_90a, one nvcc per
                source, in parallel;
   2. kernels — hold each kernel and each of its variants against its plain
@@ -18,7 +18,12 @@ Phases, each of which must pass for the exit code to be 0:
                without shift. Checks the wrap-around psum law with saturated
                fields (packed) and the lane-type sum at its extremes
                (dense), and times each kernel variant and its plain version
-               with CUDA events;
+               with CUDA events. block_norms (float32 and int32, nblocks 1
+               and 4, at the largest leaf, at 1,000,003, at a size whose
+               last chunk is empty and at one element) is held to its plain
+               version and to a float64 sum at rtol 1e-5 (the three sum in
+               different orders), and two launches must agree bit for bit;
+               its float32 time is printed beside torch.dot(x, x)'s;
   3. train   — the headline path through the user entry point
                (launch.train.train_loop): granite-8b at full width, depth
                cut to 4 layers, 4 data-parallel workers simulated on the
@@ -29,12 +34,16 @@ Phases, each of which must pass for the exit code to be 0:
                momentum SGD (lr 0.3);
   5. family  — the six other corners of {SGD, AdamW} × {IntSGD, IntDIANA}
                × {packed8, dense8} at full width, depth 2, 4 workers,
-               3 steps each.
-               In phases 3-5 the launch counts are zeroed just before each
+               3 steps each;
+  6. train-block — IntSGD with blockwise α (Alg. 2, one α per leaf) on
+               the packed8 fused-SGD route, 4 layers, 4 steps: each leaf's
+               α on the first compressed step is printed and must be
+               finite, positive and not all equal.
+               In phases 3-6 the launch counts are zeroed just before each
                path and read just after: every kernel's count (and count
                of launches with an IntDIANA shift) must equal what that
                path implies, losses must be finite and max_int <= 4·31;
-  6. wire    — step 1 of the headline path replayed for one leaf: the
+  7. wire    — step 1 of the headline path replayed for one leaf: the
                unpacked word sum equals the sum of the four workers' images.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
@@ -68,12 +77,14 @@ REPLACES = {
     "fused_unpack_adamw": "src/repro/kernels/fused_update.py:219",
     "fused_apply_sgd": "src/repro/kernels/fused_update.py:176",
     "fused_apply_adamw": "src/repro/kernels/fused_update.py:176",
+    "block_norms": "src/repro/kernels/block_norms.py:30",
 }
 # float/integer operations per image element, counted from each kernel's
 # arithmetic (for the compute side of the bound)
 OPS_PER_ELEMENT = {
     "int_compress": 20, "pack_words": 3, "unpack_words": 3, "fused_unpack_sgd": 8,
     "fused_unpack_adamw": 20, "fused_apply_sgd": 8, "fused_apply_adamw": 18,
+    "block_norms": 2,
 }
 # the variant of each kernel the headline numbers use: the main path's
 # (packed8, no shift) or, for the dense kernels, int8 lanes without shift
@@ -81,6 +92,7 @@ MAIN_VARIANT = {
     "int_compress": "stochastic", "pack_words": "packed8", "unpack_words": "packed8",
     "fused_unpack_sgd": "packed8", "fused_unpack_adamw": "packed8",
     "fused_apply_sgd": "int8", "fused_apply_adamw": "int8",
+    "block_norms": "float32",
 }
 STATE_BYTES = {"sgd": 16, "adamw": 24}  # f32 p and state, read and written
 
@@ -142,6 +154,19 @@ class Checks:
             self.failed.append(what)
         return float(err)
 
+    def close(self, what: str, got, want, rtol: float) -> float:
+        """|got - want| <= rtol·|want| elementwise; the largest absolute
+        error."""
+        g, w = got.double(), want.double()
+        err = (g - w).abs().max().item() if got.numel() else 0.0
+        rel = ((g - w).abs() / w.abs().clamp(min=1e-300)).max().item() if got.numel() else 0.0
+        ok = got.shape == want.shape and bool(((g - w).abs() <= rtol * w.abs()).all())
+        print(f"  [{'ok' if ok else 'MISMATCH'}] {what}: max_abs_err {err}, "
+              f"max_rel_err {rel:.3g} (rtol {rtol})", flush=True)
+        if not ok:
+            self.failed.append(what)
+        return float(err)
+
     def true(self, what: str, cond: bool) -> None:
         print(f"  [{'ok' if cond else 'FAILED'}] {what}", flush=True)
         if not cond:
@@ -158,16 +183,21 @@ class Timings:
         self.rows = []  # one per (kernel, variant) at the largest leaf
 
     def add(self, name, variant, d, nbytes, err, cuda_fn=None, plain_fn=None,
-            reps=(20, 3)):
+            reps=(20, 3), library_fn=None):
+        """``library_fn``: the one PyTorch call that computes the same
+        function, where there is one (timed as a yardstick only)."""
         self.err[name] = max(self.err.get(name, 0.0), err)
         if cuda_fn is None:
             return
         ms = cuda_ms(self.torch, cuda_fn, reps[0])
         plain_ms = cuda_ms(self.torch, plain_fn, reps[1])
+        library_ms = None if library_fn is None else cuda_ms(self.torch, library_fn, reps[0])
         bound_ms, bound_by = bound(name, nbytes, d)
         self.rows.append(dict(name=name, variant=variant, d=d, bytes=nbytes, ms=ms,
-                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
-        print(f"  time {name} [{variant}]: {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms))
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        print(f"  time {name} [{variant}]: {ms:.3f} ms (plain {plain_ms:.3f} ms{lib}, "
               f"bound {bound_ms:.3f} ms by {bound_by}, {nbytes} bytes)", flush=True)
 
     def main_row(self, name):
@@ -353,15 +383,62 @@ def kernels_phase(torch, ops, checks, device):
     return timings
 
 
+def block_norms_phase(torch, ops, checks, timings, device):
+    """block_norms against its plain version and a float64 sum, and against
+    itself (two launches, bit for bit), on float32 and int32 inputs at the
+    main path's magnitudes; timed at the largest leaf."""
+    from repro_torch.kernels.block_norms import chunk_len
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    # (elements, nblocks): the largest leaf and a ragged size at 1 and 4
+    # blocks; 2500 elements in 4 chunks of 1024 leave the last one empty
+    cases = [(d, nb) for d in (LARGEST_LEAF, RAGGED) for nb in (1, 4)] + [(2500, 4), (1, 1)]
+    for dtype in (torch.float32, torch.int32):
+        tag = str(dtype).rsplit(".", 1)[1]
+        for d, nb in cases:
+            if dtype == torch.float32:  # update- and gradient-like values
+                x = torch.randn(d, generator=gen, device=device) * 1e-2
+            else:  # a summed 4-worker packed8 image
+                x = torch.randint(-124, 125, (d,), generator=gen, device=device,
+                                  dtype=torch.int32)
+            what = f"block_norms [{tag}] d={d} nblocks={nb}"
+            got = ops.block_norms.cuda(x, nb)
+            err = checks.close(f"{what} vs plain", got, ops.block_norms.plain(x, nb), 1e-5)
+            per = chunk_len(d, nb)
+            flat = x.double()
+            f64 = torch.stack([torch.sum(flat[b * per:(b + 1) * per] ** 2) for b in range(nb)])
+            del flat
+            checks.close(f"{what} vs float64 sum", got, f64, 1e-5)
+            checks.equal(f"{what} second launch bit-identical", ops.block_norms.cuda(x, nb), got)
+            if d == 2500:
+                checks.true(f"{what}: the empty last chunk is 0, the others not",
+                            float(got[3]) == 0.0 and bool((got[:3] > 0).all()))
+            if d == LARGEST_LEAF and nb == 1:  # 4 B read per element, 4 B written
+                timings.add(
+                    "block_norms", tag, d, 4 * d + 4, err,
+                    lambda: ops.block_norms.cuda(x, 1), lambda: ops.block_norms.plain(x, 1),
+                    library_fn=(lambda: torch.dot(x, x)) if dtype == torch.float32 else None,
+                )
+            else:
+                timings.add("block_norms", tag, d, 0, err)
+            del x, got, f64
+        torch.cuda.empty_cache()
+
+
 def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire: str):
     """Launch counts (all, and with an IntDIANA shift) a path implies: per
     compressed step, encode for every (worker, leaf); pack for every
     (worker, leaf) and unpack for every leaf on a packed wire (none on a
     dense one: pack is the narrowing cast, unpack the widening one); one
-    fused update per leaf."""
-    c = steps - 1  # step 0 is exact: no kernel
+    fused update per leaf. block_norms: every step, one per leaf for
+    ||Δx_l||²; on IntSGD paths one more per leaf and step for the clip
+    factor (||ĝ_l||² on the exact step, ||Σints_l||² after); on IntDIANA
+    paths only the exact step's (its shift form is plain PyTorch)."""
+    c = steps - 1  # step 0 is exact: no kernel but block_norms
     want = {k.name: 0 for k in ops.KERNELS}
     want_shift = dict(want)
+    want["block_norms"] = n_leaves * steps + (
+        n_leaves if comp == "intdiana" else n_leaves * steps)
     want["int_compress"] = N_WORKERS * n_leaves * c
     if wire.startswith("packed"):
         want["pack_words"] = N_WORKERS * n_leaves * c
@@ -410,6 +487,14 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
     lim_sum = N_WORKERS * clip_limit(8, N_WORKERS)
     checks.true(f"{label}: max_int <= {lim_sum} on every compressed step",
                 all(r["max_int"] <= lim_sum for r in history[1:]))
+    if comp == "intsgd_block":  # one α per leaf, from that leaf's own ||Δx_l||²
+        alpha = history[1]["alpha"]
+        for leaf, a in alpha.items():
+            print(f"  {label} step 1 alpha[{leaf}] = {a!r}", flush=True)
+        vals = list(alpha.values())
+        checks.true(f"{label}: step 1 has one α per leaf, finite, positive, not all equal",
+                    len(vals) == n_leaves and all(math.isfinite(a) and a > 0 for a in vals)
+                    and len(set(vals)) > 1)
     want, want_shift = expected_launches(ops, n_leaves, steps, opt, comp, wire)
     for name in want:
         checks.true(f"{label}: {name} launches {launches[name]} (expected {want[name]}), "
@@ -477,7 +562,7 @@ def wire_phase(torch, checks, device):
     torch.cuda.empty_cache()
 
 
-# the paths phases 3-5 drive: (label, layers, steps, optimizer, compressor,
+# the paths phases 3-6 drive: (label, layers, steps, optimizer, compressor,
 # wire, lr); the headline path first
 PATHS = (
     ("train", 4, 4, "adamw", "intsgd", "packed8", 3e-4),
@@ -488,6 +573,7 @@ PATHS = (
     ("family sgd/intdiana/dense8", 2, 3, "sgd", "intdiana", "dense8", 0.3),
     ("family adamw/intdiana/packed8", 2, 3, "adamw", "intdiana", "packed8", 3e-4),
     ("family adamw/intdiana/dense8", 2, 3, "adamw", "intdiana", "dense8", 3e-4),
+    ("train-block", 4, 4, "sgd", "intsgd_block", "packed8", 0.3),
 )
 
 
@@ -517,7 +603,11 @@ def main() -> None:
     timings = kernels_phase(torch, ops, checks, device)
     print(f"kernels phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 3-5. the paths through the user entry point, counts read per path
+    t0 = time.perf_counter()
+    block_norms_phase(torch, ops, checks, timings, device)
+    print(f"block_norms phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 3-6. the paths through the user entry point, counts read per path
     launches = {k.name: 0 for k in ops.KERNELS}
     for label, layers, steps, opt, comp, wire, lr in PATHS:
         t0 = time.perf_counter()
@@ -527,7 +617,7 @@ def main() -> None:
             launches[name] += c
         print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 6. step 1 replayed for one leaf: unpack(sum of words) == sum of images
+    # 7. step 1 replayed for one leaf: unpack(sum of words) == sum of images
     wire_phase(torch, checks, device)
 
     # the kernel line, the card line, the result
@@ -540,12 +630,18 @@ def main() -> None:
             "replaces": REPLACES[op.name], "launches": launches[op.name],
             "max_abs_err": timings.err[op.name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     for k in kernels:
-        print(f"kernel {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms, "
+        lib = "" if k["library_ms"] is None else f", library {k['library_ms']:.3f} ms"
+        # time lost to the bound over the driven paths, were every launch at
+        # the largest leaf (an overestimate for kernels run mostly on small
+        # leaves): the order in which to redesign the kernels
+        excess = k["launches"] * (k["ms"] - k["bound_ms"])
+        print(f"kernel {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms{lib}, "
               f"bound {k['bound_ms']:.3f} ms by {k['bound_by']}), "
-              f"{k['launches']} launches over the driven paths", flush=True)
+              f"{k['launches']} launches over the driven paths, "
+              f"launches x (ms - bound) = {excess:.1f} ms", flush=True)
     if checks.failed:
         fail("; ".join(checks.failed))
     card = subprocess.run(

@@ -1,5 +1,6 @@
 """Gradient compressors (port of ``repro/core/compressor.py``: the exact
-mean, IntSGD with the global α rule, and IntDIANA, on a psum wire).
+mean, IntSGD with a global or blockwise α rule, and IntDIANA, on a psum
+wire).
 
 Interface, on the local n-worker backend (:mod:`repro_torch.core.comm`)::
 
@@ -30,7 +31,7 @@ from typing import Any, ClassVar, Dict, Iterable
 import torch
 
 from repro_torch.core.comm import CommCtx
-from repro_torch.core.scaling import AlphaDiana, AlphaMovingAvg, AlphaRule
+from repro_torch.core.scaling import AlphaBlockwise, AlphaDiana, AlphaMovingAvg, AlphaRule
 from repro_torch.core.stats import DxStats, TreeDims, local_tree_dims
 from repro_torch.utils.tree import leaf_names, tree_abs_max
 from repro_torch.wire import DenseInt, PackedInt, WireFormat, make_wire_format
@@ -104,9 +105,10 @@ class Compressor:
 
 @dataclasses.dataclass(frozen=True)
 class IntSGD(Compressor):
-    """Algorithm 1 (global α, moving-average rule). The transport is the
-    ``wire`` codec; without one it is ``DenseInt(bits)``, one native lane
-    per coordinate."""
+    """Algorithm 1 (global α) / Algorithm 2 (blockwise α: one α per leaf,
+    ``alpha_rule=AlphaBlockwise()``). The transport is the ``wire`` codec;
+    without one it is ``DenseInt(bits)``, one native lane per
+    coordinate."""
 
     name: ClassVar[str] = "intsgd"
     alpha_rule: AlphaRule = AlphaMovingAvg()
@@ -119,6 +121,10 @@ class IntSGD(Compressor):
         return bool(getattr(self.wire_format, "fused_capable", True))
 
     @property
+    def blockwise(self) -> bool:
+        return isinstance(self.alpha_rule, AlphaBlockwise)
+
+    @property
     def wire_format(self) -> WireFormat:
         return self.wire if self.wire is not None else DenseInt(bits=self.bits)
 
@@ -129,6 +135,10 @@ class IntSGD(Compressor):
         return self.alpha_rule.update(state, dx_stats)
 
     def _alphas(self, state, names, eta, n, dims: TreeDims):
+        if self.blockwise:
+            return self.alpha_rule.alpha_tree(
+                state, eta, n, dims.leaf_dims, float(dims.d)
+            )
         a = self.alpha_rule.alpha(state, eta, n, dims.d)
         return {k: a for k in names}
 
@@ -345,6 +355,8 @@ def with_wire(comp: Compressor, wire) -> Compressor:
 
 _COMPRESSORS = {
     "intsgd": IntSGD,
+    "intsgd_determ": partial(IntSGD, stochastic=False),
+    "intsgd_block": partial(IntSGD, alpha_rule=AlphaBlockwise()),
     "intsgd4": partial(IntSGD, bits=4),
     "intsgd8": partial(IntSGD, bits=8),
     "intsgd8_packed": partial(IntSGD, bits=8, wire=PackedInt(bits=8)),

@@ -11,6 +11,8 @@ beside its plain PyTorch version (port of ``repro/kernels``):
   fused_apply_adamw int8/16/32 lanes, p, mu, nu -> p', mu', nu'
   (each fused kernel optionally takes the IntDIANA shift h and also
   returns h' = Σints/(nα) + h)
+  block_norms       x (f32 or int32)  -> Σx² per contiguous chunk, f32
+                    (||Δx_l||² for the α rules, ||Σints_l||² for the clip)
 
 Sources live in ``repro_torch/csrc`` and are built with nvcc at first launch
 (:mod:`repro_torch.kernels.build`); :mod:`repro_torch.kernels.ops` holds the

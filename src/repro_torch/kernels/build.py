@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("int_compress.cu", "wire_pack.cu", "fused_update.cu")
+SOURCES = ("int_compress.cu", "wire_pack.cu", "fused_update.cu", "block_norms.cu")
 # --fmad=false: the kernels round every product before its sum, as their
 # plain PyTorch versions do, so integer outputs and the fused update agree
 # with them bit for bit on the card.
@@ -58,6 +58,8 @@ SIGNATURES = {
     "repro_fused_apply_adamw": (
         _vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _vp,
     ),
+    # x, dtype code, out, scratch, numel, chunk, nblocks, ctas, stream
+    "repro_block_norms": (_vp, _i32, _vp, _vp, _i64, _i64, _i32, _i32, _vp),
 }
 
 

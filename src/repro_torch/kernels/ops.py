@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels import block_norms as _bn
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import int_compress as _ic
 from repro_torch.kernels import wire_pack as _wp
@@ -82,10 +83,29 @@ fused_apply_adamw = KernelOp(
     "csrc/fused_update.cu",
 )
 
+# Σx² per contiguous chunk (float32 or int32 in on the card)
+block_norms = KernelOp(
+    "block_norms", _bn.block_norms_cuda, _bn.block_norms_plain,
+    "csrc/block_norms.cu",
+)
+
 KERNELS = (
     int_compress, pack_words, unpack_words, fused_unpack_sgd,
-    fused_unpack_adamw, fused_apply_sgd, fused_apply_adamw,
+    fused_unpack_adamw, fused_apply_sgd, fused_apply_adamw, block_norms,
 )
+
+
+def sq_norm(x: torch.Tensor) -> torch.Tensor:
+    """||x||² in float32 (0-d) via the block-norms kernel, one block."""
+    return block_norms(x, 1).reshape(())
+
+
+def block_sq_norms(x: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """Squared norms of ``nblocks`` equal contiguous chunks of flat(x),
+    chunked as the JAX package's ``block_sq_norms`` chunks them
+    (:func:`repro_torch.kernels.block_norms.chunk_len`): trailing chunks
+    past the end are 0."""
+    return block_norms(x, nblocks)
 
 
 def reset_launch_counts() -> None:

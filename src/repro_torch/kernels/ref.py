@@ -217,3 +217,15 @@ def fused_unpack_adamw_ref(
     """:func:`unpack_words_ref` composed with :func:`fused_adamw_ref`."""
     int_sum = unpack_words_ref(words, param.shape, bits=bits, n_summed=n_summed)
     return fused_adamw_ref(int_sum, param, mu, nu, **kw)
+
+
+def block_norms_ref(x: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """Squared L2 norm of each contiguous row-block of a 2-D tensor, in
+    float32; the last block is zero-padded to ``block_rows`` rows."""
+    rows = x.shape[0]
+    nblocks = (rows + block_rows - 1) // block_rows
+    pad = nblocks * block_rows - rows
+    xf = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, pad))
+    return torch.sum(
+        torch.square(xf).reshape(nblocks, block_rows, x.shape[1]), dim=(1, 2)
+    )

@@ -13,12 +13,15 @@ packed route:
      §4.1) and sums float gradients instead;
   2. the global-norm clip factor, computed off the summed integer image
      (plus the global shift for IntDIANA) (``_clip_factor``), so ĝ is
-     never materialized;
+     never materialized; each leaf's sum of squares is the block-norms
+     kernel's, which reads the int32 image in place;
   3. the fused decode + optimizer kernel per leaf — SGD or AdamW, packed
      words or dense lanes, with IntDIANA's shift in and out — straight off
      the summed payload (``_fused_update_stage``); step 0 runs the same
      arithmetic unfused (``optim.base.fused_reference_update``);
-  4. ||Δx||² × dx_scale² fed back to the α rule (``_observe_dx``).
+  4. ||Δx_l||² (the block-norms kernel, per leaf) × dx_scale² fed back to
+     the α rule (``_observe_dx``): the global rules read the sum, blockwise
+     α (Alg. 2) each leaf's.
 
 α, η, the clip factor and the kernels' scalar vectors stay on the card: the
 step makes no host sync. The unfused ZeRO-1 route, microbatch pipelining,
@@ -35,7 +38,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.comm import CommCtx
 from repro_torch.core.compressor import Compressor, aggregate_exact, with_wire
-from repro_torch.core.stats import DxStats, TreeDims, scale_dx_stats
+from repro_torch.core.stats import TreeDims, local_dx_stats, scale_dx_stats
+from repro_torch.kernels import ops
 from repro_torch.models.transformer import lm_loss, param_shapes
 from repro_torch.optim import base as optb
 from repro_torch.optim.base import Optimizer
@@ -59,7 +63,8 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """What every stage of the step shares: config, the n-worker context,
-    the model's dimensionality (α's d) and leaf order, the device."""
+    the model's dimensionality (α's d and each leaf's d_l) and leaf order,
+    the device."""
 
     cfg: ModelConfig
     ctx: CommCtx
@@ -117,13 +122,15 @@ def _clip_factor(layout: Layout, clip_norm: float, *, ghat=None, int_sum=None,
     computed off the summed image (||ĝ_l||² = ||Σints_l||²/(nα_l)², or
     Σ (h + Σints_l/(nα_l))² with IntDIANA's global shift h — a division,
     as in the JAX package, where the kernel multiplies by 1/(nα)), so ĝ is
-    never materialized. Float32 sums in PyTorch's reduction order, not
-    XLA's: the factor agrees with the JAX package to about 1e-6 relative."""
+    never materialized. ||Σints_l||² and the exact step's ||ĝ_l||² are the
+    block-norms kernel's (int32 and float32 read in place); the shift form
+    is another function and stays plain PyTorch. Sums run in another order
+    than XLA's: the factor agrees with the JAX package to about 1e-6
+    relative."""
     n = layout.ctx.n
     if int_sum is not None and shift is None:
         leaf_sq = [
-            torch.sum(torch.square(s.to(torch.float32))) / torch.square(n * alphas[k])
-            for k, s in int_sum.items()
+            ops.sq_norm(s) / torch.square(n * alphas[k]) for k, s in int_sum.items()
         ]
     elif int_sum is not None:
         leaf_sq = [
@@ -131,19 +138,20 @@ def _clip_factor(layout: Layout, clip_norm: float, *, ghat=None, int_sum=None,
             for k, s in int_sum.items()
         ]
     else:
-        leaf_sq = [torch.sum(torch.square(g.to(torch.float32))) for g in ghat.values()]
+        leaf_sq = [ops.sq_norm(g) for g in ghat.values()]
     norm = torch.sqrt(torch.sum(torch.stack(leaf_sq))) + 1e-12
     return torch.clamp(torch.full_like(norm, clip_norm) / norm, max=1.0)
 
 
 def _observe_dx(compressor, base_opt: Optimizer, cs, new_params: Tree, params: Tree):
     """||Δx||² -> α rule, rescaled to gradient-equivalent units
-    (base_opt.dx_scale — §4.1 momentum correction)."""
-    leaf_sq = {
-        k: torch.sum(torch.square(new_params[k].to(torch.float32) - p.to(torch.float32)))
+    (base_opt.dx_scale — §4.1 momentum correction). Each leaf's Δx is made
+    and reduced in turn, so one is alive at a time."""
+    delta = (
+        (k, new_params[k].to(torch.float32) - p.to(torch.float32))
         for k, p in params.items()
-    }
-    stats = DxStats(sq=torch.sum(torch.stack(list(leaf_sq.values()))), leaf_sq=leaf_sq)
+    )
+    stats = local_dx_stats(delta)
     return compressor.observe_update(cs, scale_dx_stats(stats, base_opt.dx_scale))
 
 
@@ -184,9 +192,10 @@ def _fused_update_stage(layout: Layout, params: Tree, opt_state, eta,
 def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
                      exact: bool, clip_norm: Optional[float]):
     def step(params, opt_state, comp_state, step_idx: int, batch, seeds=None):
-        """-> (params', opt_state', comp_state', loss, (max_int, bits)).
-        ``seeds``: int32 (n_workers, n_leaves) encode seeds on the card
-        (unused by the exact step)."""
+        """-> (params', opt_state', comp_state', loss, (max_int, bits,
+        alphas)); ``alphas`` is the step's {leaf: 0-d α} (empty on the exact
+        step). ``seeds``: int32 (n_workers, n_leaves) encode seeds on the
+        card (unused by the exact step)."""
         ctx = layout.ctx
         if not exact and seeds is None:
             raise ValueError("the compressed step needs (n_workers, n_leaves) encode seeds")
@@ -207,14 +216,14 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
         if exact:
             ghat = aggregate_exact(worker_grads(), ctx)
             zero = torch.zeros((), dtype=torch.float32, device=layout.device)
-            metrics = (zero, zero)
+            metrics = (zero, zero, {})
         else:
             wa, alphas, cs, m = compressor.aggregate_wire(
                 comp_state, worker_grads(), seeds=seeds, eta=eta, ctx=ctx,
                 dims=layout.dims,
             )
             ghat = None
-            metrics = (m.max_int, m.bits_per_coord)
+            metrics = (m.max_int, m.bits_per_coord, alphas)
 
         # the replicated global shift the fused decode adds (IntDIANA's
         # h_global; None for shift-free compressors and on the exact step)
@@ -280,7 +289,11 @@ def build_train_step(
             f"{n_workers} workers"
         )
     shapes = param_shapes(cfg)
-    dims = TreeDims(d=sum(math.prod(s) for s in shapes.values()))
+    # port of specs.global_tree_dims at tp = 1
+    dims = TreeDims(
+        d=sum(math.prod(s) for s in shapes.values()),
+        leaf_dims={k: float(math.prod(s)) for k, s in shapes.items()},
+    )
     layout = Layout(
         cfg=cfg, ctx=CommCtx(n_workers=n_workers), dims=dims,
         names=tuple(leaf_names(shapes)), device=device,

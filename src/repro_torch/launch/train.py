@@ -7,10 +7,11 @@ CLI (runs on the card; ``--device cpu`` runs the kernels' plain versions)::
       --smoke --steps 8 --workers 4 --batch 4 --seq 32 \\
       --compressor intsgd8_packed --wire packed8 --fused --opt sgd
 
-``--opt sgd|adamw``; ``--compressor`` intsgd, intsgd4, intsgd8,
+``--opt sgd|adamw``; ``--compressor`` intsgd, intsgd_block (blockwise α,
+Alg. 2), intsgd_determ (round half to even), intsgd4, intsgd8,
 intsgd8_packed, intsgd4_packed or intdiana; ``--wire`` dense4/8/16/32 or
-packed4/8/16 (a compressor whose name carries no width, intsgd or
-intdiana, takes the wire's). ``--layers N`` cuts the depth (full width
+packed4/8/16 (a compressor whose name carries no width — intsgd,
+intsgd_block, intsgd_determ, intdiana — takes the wire's). ``--layers N`` cuts the depth (full width
 kept). Not ported yet, and raising so: ``--ckpt-dir``, ``--overlap ring``,
 ``--microbatches > 1``, ``--data``/``--model`` meshes, and the unfused
 route (no ``--fused``).
@@ -39,7 +40,7 @@ OPTIMIZERS = {
     "adamw": lambda: adamw(weight_decay=1e-4),
 }
 # registry names that carry no width: with a wire, they take the wire's
-WIDTH_FROM_WIRE = ("intsgd", "intdiana")
+WIDTH_FROM_WIRE = ("intsgd", "intsgd_block", "intsgd_determ", "intdiana")
 
 
 def train_loop(
@@ -62,7 +63,8 @@ def train_loop(
     on synthetic data. Weights come from a ``torch.Generator`` seeded with
     ``seed`` on the device, encode seeds from a host generator with the same
     seed. Returns ``(params, history)``: one record per step with loss,
-    max_int, bits and the step's wall time in ms (the step ends in a sync)."""
+    max_int, bits, each leaf's α (``alpha``, empty on the exact step) and
+    the step's wall time in ms (the step ends in a sync)."""
     device = resolve_device(device)
     if opt not in OPTIMIZERS:
         raise ValueError(f"optimizer {opt!r}; options {sorted(OPTIMIZERS)}")
@@ -100,8 +102,10 @@ def train_loop(
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the step's one host sync
         ms = (time.perf_counter() - t0) * 1e3
+        alphas = metrics[2]
+        alpha_vals = torch.stack(list(alphas.values())).tolist() if alphas else []
         rec = dict(step=i, loss=float(loss), max_int=float(metrics[0]),
-                   bits=float(metrics[1]), ms=ms)
+                   bits=float(metrics[1]), alpha=dict(zip(alphas, alpha_vals)), ms=ms)
         history.append(rec)
         if i % log_every == 0 or i == steps - 1:
             print(

@@ -152,16 +152,33 @@ def opt_state_from_jax(state_of_numpy, device) -> Dict[str, object]:
     }
 
 
+def _first(v, device) -> torch.Tensor:
+    """Worker 0's entry of a leaf stacked over the workers."""
+    return torch.from_numpy(np.array(np.array(v)[0])).to(device)
+
+
+def _alpha_state_from_jax(alpha, device) -> AlphaState:
+    """A stacked JAX ``AlphaState`` -> worker 0's: r a 0-d tensor (global
+    rules) or a leaf dict of them (blockwise α)."""
+    if isinstance(alpha.r, dict):
+        r = {k: v[0].clone() for k, v in params_from_jax(alpha.r, device).items()}
+    else:
+        r = _first(alpha.r, device)
+    return AlphaState(r=r, step=_first(alpha.step, device))
+
+
 def comp_state_from_jax(state_of_numpy, device):
-    """JAX IntDIANA compressor state, stacked over the workers as the JAX
-    step and ``vmap_workers`` hold it (every leaf with a leading worker
-    axis: ``{"alpha": AlphaState(r, step), "h_local": tree, "h_global":
-    tree}``) -> the port's: h_local kept stacked ``(n, *shape)`` per leaf;
-    the replicated h_global and α state taken from worker 0."""
-    alpha = state_of_numpy["alpha"]
-    first = lambda v: torch.from_numpy(np.array(np.array(v)[0])).to(device)
+    """JAX compressor state, stacked over the workers as the JAX step and
+    ``vmap_workers`` hold it (every leaf with a leading worker axis) -> the
+    port's. IntSGD's is a bare ``AlphaState(r, step)`` (r a per-leaf tree
+    for blockwise α), taken from worker 0. IntDIANA's is ``{"alpha":
+    AlphaState, "h_local": tree, "h_global": tree}``: h_local kept stacked
+    ``(n, *shape)`` per leaf, the replicated h_global and α state taken
+    from worker 0."""
+    if not isinstance(state_of_numpy, dict):
+        return _alpha_state_from_jax(state_of_numpy, device)
     return {
-        "alpha": AlphaState(r=first(alpha.r), step=first(alpha.step)),
+        "alpha": _alpha_state_from_jax(state_of_numpy["alpha"], device),
         "h_local": params_from_jax(state_of_numpy["h_local"], device),
         "h_global": {
             k: v[0].clone()

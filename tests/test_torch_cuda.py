@@ -192,3 +192,47 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shift"):  # shift on the host
         ops.fused_apply_adamw(torch.zeros(8, dtype=torch.int8, device=dev), p, p, p,
                               torch.zeros(11, device=dev), shift=torch.zeros(8))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1,), (1_000_003,), (5000,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("nblocks", [1, 4, 8])
+def test_block_norms_kernel_matches_plain_and_float64(dev, shape, dtype, nblocks):
+    rng = np.random.default_rng([*shape, nblocks, dtype.itemsize])
+    if dtype == torch.int32:
+        x = torch.from_numpy(rng.integers(-(2**20), 2**20, shape).astype(np.int32)).to(dev)
+    else:
+        x = torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32)).to(dev)
+    before = ops.block_norms.launches
+    got = ops.block_sq_norms(x, nblocks)
+    assert ops.block_norms.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (nblocks,)
+    # the two sum in different orders (float64 partials in the kernel)
+    torch.testing.assert_close(got, ops.block_norms.plain(x, nblocks), rtol=1e-5, atol=0)
+    from repro_torch.kernels.block_norms import chunk_len
+
+    per = chunk_len(x.numel(), nblocks)
+    flat = x.reshape(-1).to(torch.float32).double()
+    f64 = torch.stack([torch.sum(flat[b * per:(b + 1) * per] ** 2) for b in range(nblocks)])
+    torch.testing.assert_close(got.double(), f64, rtol=1e-5, atol=0)
+    # no atomics, a partition fixed by (numel, nblocks): bit-identical again
+    assert torch.equal(ops.block_sq_norms(x, nblocks), got)
+
+
+def test_block_norms_kernel_order_does_not_depend_on_alignment(dev):
+    x = torch.randn(1_000_004, device=dev)
+    view = x[1:]  # 4-byte aligned: four scalar loads per group, same order
+    assert view.data_ptr() % 16 != 0
+    for nblocks in (1, 4):
+        assert torch.equal(ops.block_sq_norms(view, nblocks),
+                           ops.block_sq_norms(view.clone(), nblocks))
+    assert ops.sq_norm(view).shape == ()
+
+
+def test_block_norms_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    with pytest.raises(TypeError, match="float32 or int32"):
+        ops.sq_norm(torch.zeros(8, dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sq_norm(torch.zeros(4, 8, device=dev).t())
+    with pytest.raises(ValueError, match="nblocks"):
+        ops.block_sq_norms(torch.zeros(8, device=dev), 70000)

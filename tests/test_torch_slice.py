@@ -2,7 +2,9 @@
 config) on the fused route at n = 1: the packed8 IntSGD route with SGD
 (``test_slice_matches_jax_four_steps``), and the family corners (AdamW,
 IntSGD, packed8), (SGD, IntSGD, dense8) and (AdamW, IntDIANA, dense8)
-(``test_slice_family_matches_jax_four_steps``).
+(``test_slice_family_matches_jax_four_steps``), and IntSGD's other α and
+rounding rules: blockwise α (Alg. 2) on packed8 and round-half-to-even on
+dense8, both with SGD (``test_slice_alpha_rules_match_jax_four_steps``).
 
 Reference: the JAX package's ``build_train_step`` on the single CPU device
 (``fused=True``, ``clip_norm=1.0``, ``sgd(0.9, 1e-4)`` or
@@ -25,6 +27,7 @@ import numpy as np  # noqa: E402
 
 from repro.configs import ShapeConfig as JShape, get_arch as jget_arch, smoke_config as jsmoke  # noqa: E402
 from repro.core.compressor import IntDIANA as JIntDIANA, IntSGD as JIntSGD, _leaf_keys  # noqa: E402
+from repro.core.scaling import AlphaBlockwise as JAlphaBlockwise  # noqa: E402
 from repro.kernels import ops as kops  # noqa: E402
 from repro.launch.step import build_init_state, build_train_step as jbuild  # noqa: E402
 from repro.models.transformer import init_lm_params  # noqa: E402
@@ -63,6 +66,10 @@ def _corner(opt, comp, wire):
     jwire = {"packed8": JPackedInt, "dense8": JDenseInt}[wire](8, use_kernels=True)
     if comp == "intsgd":
         jcomp = JIntSGD(bits=8, wire=jwire, use_kernels=True)
+    elif comp == "intsgd_block":
+        jcomp = JIntSGD(bits=8, wire=jwire, use_kernels=True, alpha_rule=JAlphaBlockwise())
+    elif comp == "intsgd_determ":
+        jcomp = JIntSGD(bits=8, wire=jwire, use_kernels=True, stochastic=False)
     else:
         jcomp = JIntDIANA(bits=8, wire=jwire)
     if opt == "sgd":
@@ -71,7 +78,8 @@ def _corner(opt, comp, wire):
         jo, to, lr = jadamw(weight_decay=1e-4), adamw(weight_decay=1e-4), 3e-4
     name = {("intsgd", "packed8"): "intsgd8_packed", ("intsgd", "dense8"): "intsgd8"}.get(
         (comp, wire), comp)
-    tcomp = make_compressor(name, **({"bits": 8, "wire": wire} if comp == "intdiana" else {}))
+    width_free = comp in ("intdiana", "intsgd_block", "intsgd_determ")
+    tcomp = make_compressor(name, **({"bits": 8, "wire": wire} if width_free else {}))
     return jo, jcomp, to, tcomp, lr
 
 
@@ -127,14 +135,21 @@ def _check_corner(opt, comp, wire):
             assert all(torch.equal(opt_state[name][k], z[k]) for k in params)
         else:
             assert opt_state[name].dtype == z.dtype and torch.equal(opt_state[name], z)
+    comp_state = comp_state_from_jax(comp0, "cpu")
+    zeros = tcomp.init(params, 1)
     if comp == "intdiana":
-        comp_state = comp_state_from_jax(comp0, "cpu")
-        zeros = tcomp.init(params, 1)
         for name in ("h_local", "h_global"):
             assert all(torch.equal(comp_state[name][k], zeros[name][k]) for k in params)
+        alpha0, zero_alpha = comp_state["alpha"], zeros["alpha"]
     else:
-        comp_state = tcomp.init(params)
-    losses, max_ints = [], []
+        alpha0, zero_alpha = comp_state, zeros
+    if isinstance(zero_alpha.r, dict):  # blockwise α: one r per leaf
+        assert set(alpha0.r) == set(params)
+        assert all(torch.equal(alpha0.r[k], zero_alpha.r[k]) for k in params)
+    else:
+        assert torch.equal(alpha0.r, zero_alpha.r)
+    assert torch.equal(alpha0.step, zero_alpha.step)
+    losses, max_ints, alphas = [], [], []
     for i, (toks, labels) in enumerate(batches):
         fn = art.steps["exact"] if i == 0 else art.steps["compressed"]
         batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
@@ -144,6 +159,7 @@ def _check_corner(opt, comp, wire):
         )
         losses.append(loss.item())
         max_ints.append(metrics[0].item())
+        alphas.append({k: float(a) for k, a in metrics[2].items()})
 
     np.testing.assert_allclose(losses, jlosses, rtol=2e-2)
     assert all(abs(a - b) <= 1 for a, b in zip(max_ints, jmax)), (max_ints, jmax)
@@ -153,6 +169,11 @@ def _check_corner(opt, comp, wire):
         assert int(opt_state["count"]) == STEPS
     if comp == "intdiana":  # the shift moved off zero
         assert any(bool(v.any()) for v in comp_state["h_global"].values())
+    assert alphas[0] == {} and all(set(a) == set(params) for a in alphas[1:])
+    for a in alphas[1:]:
+        assert all(np.isfinite(v) and v > 0 for v in a.values())
+        # blockwise α differs from leaf to leaf; a global α is one number
+        assert (len(set(a.values())) > 1) == (comp == "intsgd_block")
 
 
 def test_slice_matches_jax_four_steps():
@@ -165,4 +186,12 @@ def test_slice_matches_jax_four_steps():
     ("adamw", "intdiana", "dense8"),
 ])
 def test_slice_family_matches_jax_four_steps(opt, comp, wire):
+    _check_corner(opt, comp, wire)
+
+
+@pytest.mark.parametrize("opt,comp,wire", [
+    ("sgd", "intsgd_block", "packed8"),
+    ("sgd", "intsgd_determ", "dense8"),
+])
+def test_slice_alpha_rules_match_jax_four_steps(opt, comp, wire):
     _check_corner(opt, comp, wire)
