@@ -17,13 +17,20 @@ Phases, each of which must pass for the exit code to be 0:
                shift, dense SGD and AdamW on int8/int16/int32 lanes with and
                without shift. Checks the wrap-around psum law with saturated
                fields (packed) and the lane-type sum at its extremes
-               (dense), and times each kernel variant and its plain version
-               with CUDA events. block_norms (float32 and int32, nblocks 1
-               and 4, at the largest leaf, at 1,000,003, at a size whose
-               last chunk is empty and at one element) is held to its plain
-               version and to a float64 sum at rtol 1e-5 (the three sum in
-               different orders), and two launches must agree bit for bit;
-               its float32 time is printed beside torch.dot(x, x)'s;
+               (dense), and times each kernel variant (median per launch
+               over batches of 20 launches, CUDA events) and its plain
+               version (median of single runs). block_norms (one launch;
+               float32 and int32, nblocks 1 and 4, at the largest leaf, at
+               1,000,003, at a size whose last chunk is empty, at one
+               element, and at 65,535 blocks) is held to its plain version
+               and to a float64 sum at rtol 1e-5 (the three sum in
+               different orders); a second launch, a misaligned view x[1:]
+               of the largest leaf, and all cases relaunched interleaved
+               must agree bit for bit (the ticket counters return to 0).
+               At the largest leaf it is timed in turns with torch.dot(x, x)
+               (the library call) and torch.sum(x) (a read-rate probe), and
+               at every granite-8b leaf size from a CUDA graph, summed per
+               compressed step;
   3. train   — the headline path through the user entry point
                (launch.train.train_loop): granite-8b at full width, depth
                cut to 4 layers, 4 data-parallel workers simulated on the
@@ -53,6 +60,7 @@ repository.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -140,6 +148,50 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def batch_ms(torch, fn, batch: int) -> float:
+    """Device time per run of ``fn``: CUDA events around ``batch`` runs."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(batch):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / batch
+
+
+def interleaved_ms(torch, fns, rounds: int = 12, batch: int = 20) -> list:
+    """Median time per run of each function, timed in turns within one call
+    (f1, f2, ..., f2, f1 in every round, each a batch of ``batch`` runs):
+    the way to tell two versions apart by 1 %."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for _ in range(rounds):
+        for i in order + order[::-1]:
+            times[i].append(batch_ms(torch, fns[i], batch))
+    return [statistics.median(t) for t in times]
+
+
+def graph_ms(torch, fn, batch: int = 20, reps: int = 7) -> float:
+    """Median device time per run of ``fn`` replayed from a CUDA graph of
+    ``batch`` runs, so that the host's launch cost does not count (it
+    would, at the small leaves, with launches issued one by one)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        times.append(batch_ms(torch, graph.replay, 1) / batch)
+    del graph
+    return statistics.median(times)
+
+
 class Checks:
     """Records every comparison; the run fails at the end if any failed."""
 
@@ -183,15 +235,18 @@ class Timings:
         self.rows = []  # one per (kernel, variant) at the largest leaf
 
     def add(self, name, variant, d, nbytes, err, cuda_fn=None, plain_fn=None,
-            reps=(20, 3), library_fn=None):
-        """``library_fn``: the one PyTorch call that computes the same
-        function, where there is one (timed as a yardstick only)."""
+            plain_reps=3, ms=None, library_ms=None):
+        """Every kernel's ``ms`` is the median per launch over batches of
+        20 launches (:func:`interleaved_ms`), timed here from ``cuda_fn``
+        or, with ``library_ms`` (the one PyTorch call that computes the
+        same function, a yardstick only), by the caller in turns with it;
+        the plain version's is the median of single runs."""
         self.err[name] = max(self.err.get(name, 0.0), err)
-        if cuda_fn is None:
+        if plain_fn is None:
             return
-        ms = cuda_ms(self.torch, cuda_fn, reps[0])
-        plain_ms = cuda_ms(self.torch, plain_fn, reps[1])
-        library_ms = None if library_fn is None else cuda_ms(self.torch, library_fn, reps[0])
+        if ms is None:
+            ms = interleaved_ms(self.torch, [cuda_fn])[0]
+        plain_ms = cuda_ms(self.torch, plain_fn, plain_reps)
         bound_ms, bound_by = bound(name, nbytes, d)
         self.rows.append(dict(name=name, variant=variant, d=d, bytes=nbytes, ms=ms,
                               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -253,7 +308,7 @@ def fused_variants(torch, ops, checks, timings, gen, device, d, big, *, payload,
             del got, want
             nbytes = bytes_moved(op.name, d, lane_bytes, shift)
             if big:
-                timings.add(op.name, variant, d, nbytes, err, cuda, plain, reps=(10, 2))
+                timings.add(op.name, variant, d, nbytes, err, cuda, plain, plain_reps=2)
             else:
                 timings.add(op.name, variant, d, nbytes, err)
             del p, state, sc, h
@@ -383,46 +438,118 @@ def kernels_phase(torch, ops, checks, device):
     return timings
 
 
+def block_norms_inputs(torch, gen, device, d, dtype):
+    """Update-like float32 values, or a summed 4-worker packed8 image."""
+    if dtype == torch.float32:
+        return torch.randn(d, generator=gen, device=device) * 1e-2
+    return torch.randint(-124, 125, (d,), generator=gen, device=device, dtype=torch.int32)
+
+
+def leaf_sizes() -> list:
+    """(elements, leaves of that size) of granite-8b at 4 layers, largest
+    first: the three MLP matrices, embed and lm_head, wq and wo, wk and wv,
+    ln1 and ln2, ln_f."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import param_shapes
+
+    cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=4)
+    counts = collections.Counter(math.prod(s) for s in param_shapes(cfg).values())
+    return sorted(counts.items(), reverse=True)
+
+
+def block_norms_leaf_times(torch, kernel, device) -> dict:
+    """``kernel(x, nblocks)`` at every granite-8b leaf size (4 layers),
+    float32 and int32, nblocks 1, replayed from a CUDA graph: ms per launch
+    and the sum over one compressed IntSGD step, which runs it once per
+    leaf on float32 (||dx_l||^2) and once on int32 (||sum ints_l||^2)."""
+    gen = torch.Generator(device=device).manual_seed(99)
+    rows, step_ms, launches = [], 0.0, 0
+    for dtype in (torch.float32, torch.int32):
+        for d, leaves in leaf_sizes():
+            launches += leaves
+            x = block_norms_inputs(torch, gen, device, d, dtype)
+            ms = graph_ms(torch, lambda: kernel(x, 1))
+            del x
+            step_ms += leaves * ms
+            rows.append({"dtype": str(dtype).rsplit(".", 1)[1], "d": d, "leaves": leaves,
+                         "ms": ms})
+            print(f"  block_norms leaf time [{rows[-1]['dtype']}] d={d} x{leaves}: "
+                  f"{ms:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+    print(f"  block_norms per compressed step ({launches} launches): {step_ms:.4f} ms",
+          flush=True)
+    return {"leaves": rows, "step_ms": step_ms}
+
+
 def block_norms_phase(torch, ops, checks, timings, device):
     """block_norms against its plain version and a float64 sum, and against
-    itself (two launches, bit for bit), on float32 and int32 inputs at the
-    main path's magnitudes; timed at the largest leaf."""
-    from repro_torch.kernels.block_norms import chunk_len
+    itself (launches repeated, interleaved with other sizes, misaligned),
+    on float32 and int32 inputs at the main path's magnitudes; timed at the
+    largest leaf in turns with torch.dot, and at every leaf size."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.block_norms import MAX_BLOCKS, chunk_len
 
+    kernel = ops.block_norms.cuda  # a direct call: no launch counted
     gen = torch.Generator(device=device).manual_seed(4321)
     # (elements, nblocks): the largest leaf and a ragged size at 1 and 4
-    # blocks; 2500 elements in 4 chunks of 1024 leave the last one empty
-    cases = [(d, nb) for d in (LARGEST_LEAF, RAGGED) for nb in (1, 4)] + [(2500, 4), (1, 1)]
+    # blocks; 2500 elements in 4 chunks of 1024 leave the last one empty;
+    # the wrapper's most blocks on a ragged size
+    cases = [(d, nb) for d in (LARGEST_LEAF, RAGGED) for nb in (1, 4)] + [
+        (2500, 4), (1, 1), (RAGGED, MAX_BLOCKS)]
     for dtype in (torch.float32, torch.int32):
         tag = str(dtype).rsplit(".", 1)[1]
+        firsts = []  # (x, nblocks, first result) for the interleaved repeats
         for d, nb in cases:
-            if dtype == torch.float32:  # update- and gradient-like values
-                x = torch.randn(d, generator=gen, device=device) * 1e-2
-            else:  # a summed 4-worker packed8 image
-                x = torch.randint(-124, 125, (d,), generator=gen, device=device,
-                                  dtype=torch.int32)
+            x = block_norms_inputs(torch, gen, device, d, dtype)
             what = f"block_norms [{tag}] d={d} nblocks={nb}"
-            got = ops.block_norms.cuda(x, nb)
+            got = kernel(x, nb)
             err = checks.close(f"{what} vs plain", got, ops.block_norms.plain(x, nb), 1e-5)
             per = chunk_len(d, nb)
-            flat = x.double()
-            f64 = torch.stack([torch.sum(flat[b * per:(b + 1) * per] ** 2) for b in range(nb)])
-            del flat
+            f64 = F.pad(x.double(), (0, per * nb - d)).view(nb, per).square().sum(1)
             checks.close(f"{what} vs float64 sum", got, f64, 1e-5)
-            checks.equal(f"{what} second launch bit-identical", ops.block_norms.cuda(x, nb), got)
+            del f64
+            checks.equal(f"{what} second launch bit-identical", kernel(x, nb), got)
             if d == 2500:
                 checks.true(f"{what}: the empty last chunk is 0, the others not",
                             float(got[3]) == 0.0 and bool((got[:3] > 0).all()))
             if d == LARGEST_LEAF and nb == 1:  # 4 B read per element, 4 B written
-                timings.add(
-                    "block_norms", tag, d, 4 * d + 4, err,
-                    lambda: ops.block_norms.cuda(x, 1), lambda: ops.block_norms.plain(x, 1),
-                    library_fn=(lambda: torch.dot(x, x)) if dtype == torch.float32 else None,
-                )
+                fns = [lambda: kernel(x, 1)]
+                if dtype == torch.float32:  # the library call, and a read-rate probe
+                    fns += [lambda: torch.dot(x, x), lambda: torch.sum(x)]
+                times = interleaved_ms(torch, fns)
+                bound_ms = bound("block_norms", 4 * d + 4, d)[0]
+                line = f"  block_norms [{tag}] in turns: kernel {times[0]:.4f} ms " \
+                       f"({100 * bound_ms / times[0]:.1f} % of the {bound_ms:.4f} ms bound)"
+                if dtype == torch.float32:
+                    line += (f", torch.dot {times[1]:.4f} ms, kernel/dot "
+                             f"{times[0] / times[1]:.4f}; torch.sum (read-rate probe) "
+                             f"{times[2]:.4f} ms = {4 * d / times[2] / 1e9:.3f} TB/s")
+                print(line, flush=True)
+                timings.add("block_norms", tag, d, 4 * d + 4, err,
+                            plain_fn=lambda: ops.block_norms.plain(x, 1), ms=times[0],
+                            library_ms=times[1] if dtype == torch.float32 else None)
+                # a misaligned view (four scalar loads a group) reads the same
+                # elements in the same order as an aligned copy of them
+                x1 = torch.cat([x[:1], x])[1:]
+                checks.true(f"{what}: the view x[1:] is not 16-byte aligned",
+                            x1.data_ptr() % 16 != 0)
+                for vb in (1, 4):
+                    checks.equal(f"{what} misaligned view, nblocks={vb}, bit-equal to "
+                                 f"an aligned copy", kernel(x1, vb), kernel(x, vb))
+                del x1
             else:
                 timings.add("block_norms", tag, d, 0, err)
-            del x, got, f64
+            firsts.append((x, nb, got))
+        # launches of every size and nblocks, interleaved and repeated: each
+        # bit-identical to its first result, so the ticket counters are
+        # back at 0 after every launch
+        ok = all(torch.equal(kernel(x, nb), got)
+                 for _ in range(3) for x, nb, got in firsts[::-1] + firsts)
+        checks.true(f"block_norms [{tag}]: {6 * len(firsts)} interleaved launches of "
+                    f"{len(firsts)} (size, nblocks) cases bit-identical to their first", ok)
+        del firsts, x, got
         torch.cuda.empty_cache()
+    block_norms_leaf_times(torch, kernel, device)
 
 
 def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire: str):

@@ -8,10 +8,13 @@ to a whole (8, 128) tile), the elements past the end count as zero, and
 each chunk's Σx² comes back as float32, the elements cast to float32 first.
 The CUDA kernel (``csrc/block_norms.cu``) takes float32 or int32 and casts
 in registers, so an integer image is never copied to float32; it reduces in
-two stages with float64 partials and no atomics, so its result is the same
-bit for bit on every run. :func:`block_norms_plain` is its plain PyTorch
-version with the same signature (any dtype); :mod:`repro_torch.kernels.ops`
-dispatches between them.
+one launch, each CTA keeping four 16-byte loads in flight per thread, the
+float64 partials summed by the CTA that draws a chunk's last ticket, with
+no float atomics and a partition fixed by (numel, nblocks), so its result
+is the same bit for bit on every run and every card.
+:func:`block_norms_plain` is its plain PyTorch version with the same
+signature (any dtype); :mod:`repro_torch.kernels.ops` dispatches between
+them.
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ from repro_torch.kernels.ref import block_norms_ref
 
 TILE_ELEMS = 8 * 128  # the JAX wrapper's (8, 128) tile: the chunk's granule
 TILE_COLS = 128
-MAX_CTAS = 1024  # stage-one CTAs in all, about 8 per SM of an H100
+MAX_CTAS = 1024  # CTAs in all at the largest chunks: one wave, 8 per SM at most
 THREADS = 256
+MAX_BLOCKS = 65535  # the grid's y extent, and the number of ticket counters
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
 
 
@@ -39,32 +43,53 @@ def chunk_len(numel: int, nblocks: int) -> int:
 
 
 def stage_one_ctas(numel: int, nblocks: int) -> int:
-    """CTAs per chunk in the kernel's first stage: about ``MAX_CTAS`` in
-    all, no more than the chunk's groups of four fill. A function of
-    (numel, nblocks) only, so the summation order is too."""
+    """CTAs per chunk: about ``MAX_CTAS`` in all, no more than the chunk's
+    groups of four fill. A constant function of (numel, nblocks), never of
+    the card's SM count, so the summation order is one too."""
     groups = -(-chunk_len(numel, nblocks) // 4)
     need = -(-groups // THREADS)
     return max(1, min(-(-MAX_CTAS // nblocks), need))
 
 
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def ticket_counters(device: torch.device) -> torch.Tensor:
+    """The kernel's per-chunk ticket counters on ``device``: one int32
+    tensor of ``MAX_BLOCKS`` zeros, allocated at first use and cached. The
+    kernel leaves every counter 0 when it ends, so no launch clears them."""
+    device = torch.device(device)
+    if device not in _counters:
+        _counters[device] = torch.zeros(MAX_BLOCKS, dtype=torch.int32, device=device)
+    return _counters[device]
+
+
 def block_norms_cuda(x: torch.Tensor, nblocks: int) -> torch.Tensor:
-    """Launch the two-stage reduction on the current stream; returns float32
-    (nblocks,). ``x``: a contiguous float32 or int32 tensor on the card."""
+    """Launch the one-pass reduction on the current stream; returns float32
+    (nblocks,). ``x``: a contiguous float32 or int32 tensor on the card.
+
+    The launch takes tickets from :func:`ticket_counters`, shared by every
+    launch on the device: two streams must not run it at once on the same
+    device. The port launches it on the current stream only."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(
             f"block_norms: the kernel takes float32 or int32, got {x.dtype}"
         )
     build.require(x, "x", x.dtype, x.device)
-    if not 1 <= nblocks <= 65535:
-        raise ValueError(f"block_norms: nblocks must be in [1, 65535], got {nblocks}")
+    if not 1 <= nblocks <= MAX_BLOCKS:
+        raise ValueError(
+            f"block_norms: nblocks must be in [1, {MAX_BLOCKS}], got {nblocks}"
+        )
     numel = x.numel()
     chunk = chunk_len(numel, nblocks)
     ctas = stage_one_ctas(numel, nblocks)
     out = torch.empty(nblocks, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(nblocks * ctas, dtype=torch.float64, device=x.device)
+    partial = torch.empty(nblocks * ctas if ctas > 1 else 0, dtype=torch.float64,
+                          device=x.device)
     status = build.library().repro_block_norms(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(), scratch.data_ptr(),
-        numel, chunk, nblocks, ctas, build.stream_of(x),
+        x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(), partial.data_ptr(),
+        ticket_counters(x.device).data_ptr(), numel, chunk, nblocks, ctas,
+        build.stream_of(x),
     )
     build.check(status, "block_norms")
     return out

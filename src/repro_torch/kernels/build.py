@@ -58,8 +58,9 @@ SIGNATURES = {
     "repro_fused_apply_adamw": (
         _vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _vp,
     ),
-    # x, dtype code, out, scratch, numel, chunk, nblocks, ctas, stream
-    "repro_block_norms": (_vp, _i32, _vp, _vp, _i64, _i64, _i32, _i32, _vp),
+    # x, dtype code, out, partials, ticket counters, numel, chunk, nblocks,
+    # ctas, stream
+    "repro_block_norms": (_vp, _i32, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _vp),
 }
 
 

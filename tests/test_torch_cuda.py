@@ -229,6 +229,48 @@ def test_block_norms_kernel_order_does_not_depend_on_alignment(dev):
     assert ops.sq_norm(view).shape == ()
 
 
+def test_block_norms_kernel_at_the_most_blocks(dev):
+    from repro_torch.kernels.block_norms import MAX_BLOCKS, chunk_len
+
+    x = torch.randn(1_000_003, device=dev)
+    got = ops.block_sq_norms(x, MAX_BLOCKS)
+    per = chunk_len(x.numel(), MAX_BLOCKS)
+    flat = torch.nn.functional.pad(x.double(), (0, per * MAX_BLOCKS - x.numel()))
+    torch.testing.assert_close(got.double(), flat.view(MAX_BLOCKS, per).square().sum(1),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(got, ops.block_norms.plain(x, MAX_BLOCKS), rtol=1e-5, atol=0)
+    assert torch.equal(ops.block_sq_norms(x, MAX_BLOCKS), got)
+
+
+def test_block_norms_kernel_misaligned_view_at_several_block_counts(dev):
+    x = torch.randn(16 * 4096 * 14 + 1, device=dev)
+    view = x[1:]
+    assert view.data_ptr() % 16 != 0
+    for nblocks in (1, 4, 12):
+        assert torch.equal(ops.block_sq_norms(view, nblocks),
+                           ops.block_sq_norms(view.clone(), nblocks))
+
+
+def test_block_norms_ticket_counters_return_to_zero(dev):
+    """Launches of other sizes and block counts, interleaved and repeated:
+    each bit-identical to its first result, and every counter 0 after."""
+    from repro_torch.kernels.block_norms import ticket_counters
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = [(4_000_037, 1), (1_000_003, 4), (2500, 4), (16_384, 1), (1_000_003, 65535),
+             (3_000_000, 3), (1, 1)]
+    firsts = []
+    for d, nb in cases:
+        x = torch.randn(d, generator=gen, device=dev)
+        firsts.append((x, nb, ops.block_sq_norms(x, nb)))
+        xi = torch.randint(-124, 125, (d,), generator=gen, device=dev, dtype=torch.int32)
+        firsts.append((xi, nb, ops.block_sq_norms(xi, nb)))
+    for _ in range(3):
+        for x, nb, want in firsts[::-1] + firsts:
+            assert torch.equal(ops.block_sq_norms(x, nb), want)
+    assert not ticket_counters(dev).any()
+
+
 def test_block_norms_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError, match="float32 or int32"):
         ops.sq_norm(torch.zeros(8, dtype=torch.bfloat16, device=dev))

@@ -131,19 +131,40 @@ def test_chunk_rule_sweep_matches_jax(size, nblocks, seed, integer):
 
 
 @pytest.mark.parametrize("numel", [0, 1, 4, 1000, 1_000_003, 234_881_024])
-@pytest.mark.parametrize("nblocks", [1, 4, 12, 5000])
+@pytest.mark.parametrize("nblocks", [1, 4, 12, 5000, 65535])
 def test_kernel_partition_depends_only_on_size(numel, nblocks):
-    """The CUDA kernel's first stage: chunks of chunk_len, at least one CTA
-    per chunk, about MAX_CTAS in all, none that would find no group of
-    four to read."""
+    """The CUDA kernel's grid: chunks of chunk_len, at least one CTA per
+    chunk, MAX_CTAS (a constant that fits one wave of an H100: 8 CTAs of
+    256 threads on each of 132 SMs) in all at the largest chunks, and none
+    that would find no group of four to read."""
     chunk = bn.chunk_len(numel, nblocks)
     ctas = bn.stage_one_ctas(numel, nblocks)
     assert chunk % bn.TILE_ELEMS == 0 and chunk * nblocks >= numel
+    assert bn.MAX_CTAS == 1024 and bn.MAX_CTAS <= 8 * 132
     assert 1 <= ctas <= bn.MAX_CTAS
     assert ctas * nblocks <= max(bn.MAX_CTAS + nblocks, nblocks)
     groups = -(-chunk // 4)
     assert ctas == 1 or (ctas - 1) * bn.THREADS < groups
     assert ctas == bn.stage_one_ctas(numel, nblocks)
+    if numel == 234_881_024 and nblocks in (1, 4):  # the full grid
+        assert ctas * nblocks == bn.MAX_CTAS
+
+
+def test_ticket_counters_are_one_cached_zero_tensor_per_device():
+    """The wrapper's allocation helper, run on the CPU and the meta device:
+    MAX_BLOCKS int32 zeros, allocated once per device."""
+    devices = (torch.device("cpu"), torch.device("meta"))
+    for d in devices:
+        bn._counters.pop(d, None)
+    first = bn.ticket_counters(torch.device("cpu"))
+    assert first.dtype == torch.int32 and tuple(first.shape) == (bn.MAX_BLOCKS,)
+    assert first.device.type == "cpu" and not first.any()
+    assert bn.ticket_counters("cpu") is first
+    other = bn.ticket_counters("meta")
+    assert other is not first and other.device.type == "meta"
+    assert bn.ticket_counters(torch.device("meta")) is other
+    for d in devices:
+        bn._counters.pop(d)
 
 
 def test_cuda_wrapper_rejects_other_dtypes_before_building():
