@@ -45,12 +45,26 @@ Phases, each of which must pass for the exit code to be 0:
   6. train-block — IntSGD with blockwise α (Alg. 2, one α per leaf) on
                the packed8 fused-SGD route, 4 layers, 4 steps: each leaf's
                α on the first compressed step is printed and must be
-               finite, positive and not all equal.
-               In phases 3-6 the launch counts are zeroed just before each
+               finite, positive and not all equal;
+  7. zero1   — the ZeRO-1 route (f32 master rows, the update in plain
+               PyTorch, the JAX package's default): zero1-sgd (SGD /
+               IntSGD / packed8, 4 layers, 4 steps), zero1-adamw-m2 (AdamW,
+               2 pipelined microbatches, global batch 8, 4 layers, 4
+               steps), zero1-intdiana-m2 (SGD / IntDIANA / dense8, 2
+               microbatches, 2 layers, 3 steps), zero1-bf16 (zero1-sgd's
+               corner with bf16 params, 2 layers, 3 steps);
+  8. baseline-none — uncompressed SGD (`none`, a float mean) on the ZeRO-1
+               route, 4 layers, 4 steps.
+               In phases 3-8 the launch counts are zeroed just before each
                path and read just after: every kernel's count (and count
                of launches with an IntDIANA shift) must equal what that
-               path implies, losses must be finite and max_int <= 4·31;
-  7. wire    — step 1 of the headline path replayed for one leaf: the
+               path implies, losses must be finite and max_int <= 4·lim(8,
+               4·M); each path's step times and peak memory are printed;
+  9. cross-route — zero1-sgd's losses at steps 1-3 within 1e-2 relative of
+               train-sgd's (same seed, weights, data and encode seeds), and
+               baseline-none's step time beside zero1-sgd's and
+               train-sgd's;
+ 10. wire    — step 1 of the headline path replayed for one leaf: the
                unpacked word sum equals the sum of the four workers' images.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
@@ -552,68 +566,85 @@ def block_norms_phase(torch, ops, checks, timings, device):
     block_norms_leaf_times(torch, kernel, device)
 
 
-def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire: str):
-    """Launch counts (all, and with an IntDIANA shift) a path implies: per
-    compressed step, encode for every (worker, leaf); pack for every
-    (worker, leaf) and unpack for every leaf on a packed wire (none on a
-    dense one: pack is the narrowing cast, unpack the widening one); one
-    fused update per leaf. block_norms: every step, one per leaf for
-    ||Δx_l||²; on IntSGD paths one more per leaf and step for the clip
-    factor (||ĝ_l||² on the exact step, ||Σints_l||² after); on IntDIANA
-    paths only the exact step's (its shift form is plain PyTorch)."""
+def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire, *,
+                      fused: bool, microbatches: int):
+    """Launch counts (all, and with an IntDIANA shift) a path implies. Per
+    compressed step: encode for every (microbatch, worker, leaf); pack for
+    every (microbatch, worker, leaf) and unpack for every (microbatch, leaf)
+    on a packed wire (none on a dense one: pack is the narrowing cast,
+    unpack the widening one). The fused route runs one fused update per leaf
+    and block_norms once per leaf and step for ||Δx_l||², and on IntSGD
+    paths once more for the clip factor (||ĝ_l||² on the exact step,
+    ||Σints_l||² after; on IntDIANA paths only the exact step's, its shift
+    form being plain PyTorch). The ZeRO-1 route runs no fused kernel and
+    block_norms twice per leaf and step, for ||ĝ_l||² and ||Δx_l||², whatever
+    the compressor; ``none`` runs no integer kernel at all."""
     c = steps - 1  # step 0 is exact: no kernel but block_norms
     want = {k.name: 0 for k in ops.KERNELS}
     want_shift = dict(want)
+    if comp != "none":
+        want["int_compress"] = microbatches * N_WORKERS * n_leaves * c
+        if wire.startswith("packed"):
+            want["pack_words"] = microbatches * N_WORKERS * n_leaves * c
+            want["unpack_words"] = microbatches * n_leaves * c
+    if not fused:
+        want["block_norms"] = 2 * n_leaves * steps
+        return want, want_shift
     want["block_norms"] = n_leaves * steps + (
         n_leaves if comp == "intdiana" else n_leaves * steps)
-    want["int_compress"] = N_WORKERS * n_leaves * c
-    if wire.startswith("packed"):
-        want["pack_words"] = N_WORKERS * n_leaves * c
-        want["unpack_words"] = n_leaves * c
-        fused = f"fused_unpack_{opt}"
-    else:
-        fused = f"fused_apply_{opt}"
-    want[fused] = n_leaves * c
+    fused_op = f"fused_unpack_{opt}" if wire.startswith("packed") else f"fused_apply_{opt}"
+    want[fused_op] = n_leaves * c
     if comp == "intdiana":
-        want_shift[fused] = n_leaves * c
+        want_shift[fused_op] = n_leaves * c
     return want, want_shift
 
 
-def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, wire, lr):
+def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, wire, lr,
+                fused, microbatches=1, param_dtype="float32"):
     """One path through the user entry point, launch counts zeroed just
-    before and read just after; returns the counts."""
+    before and read just after; returns the counts, the history and the
+    peak memory in GiB."""
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.kernels.int_compress import clip_limit
     from repro_torch.launch.train import train_loop
     from repro_torch.utils.tree import tree_size
 
     cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=layers)
-    shape = ShapeConfig("chip-smoke", 2048, N_WORKERS, "train")
+    shape = ShapeConfig("chip-smoke", 2048, N_WORKERS * microbatches, "train")
     compressor = {("intsgd", "packed8"): "intsgd8_packed", ("intsgd", "dense8"): "intsgd8"}.get(
         (comp, wire), comp)
+    route = "fused" if fused else f"ZeRO-1, {microbatches} microbatch(es)"
     print(f"{label}: {cfg.name} d_model {cfg.d_model} layers {layers} workers {N_WORKERS} "
-          f"seq {shape.seq_len} steps {steps}: {opt} / {compressor} / {wire}, lr {lr}",
-          flush=True)
+          f"seq {shape.seq_len} global batch {shape.global_batch} steps {steps}: {opt} / "
+          f"{compressor} / {wire}, lr {lr}, {route}, {param_dtype} params", flush=True)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     params, history = train_loop(
         cfg, shape, n_workers=N_WORKERS, compressor=compressor, wire=wire, steps=steps,
-        lr=lr, log_every=1, seed=0, fused=True, clip_norm=1.0, opt=opt, device=device,
+        lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0, microbatches=microbatches,
+        opt=opt, param_dtype=getattr(torch, param_dtype), device=device,
     )
     launches, shifts = ops.launch_counts(), ops.shift_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     n_leaves = len(params)
     print(f"{label}: launches {launches}; with shift {shifts}; {n_leaves} leaves, "
-          f"{tree_size(params)} parameters; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+          f"{tree_size(params)} parameters; peak memory {peak:.1f} GiB", flush=True)
+    checks.true(f"{label}: params are {param_dtype}",
+                all(p.dtype == getattr(torch, param_dtype) for p in params.values()))
     del params
     torch.cuda.empty_cache()
     for rec in history:
         print(f"  {label} step {rec['step']}: loss {rec['loss']:.4f} max_int "
               f"{rec['max_int']:.0f} bits {rec['bits']:.0f} ms {rec['ms']:.1f}", flush=True)
     checks.true(f"{label}: losses finite", all(math.isfinite(r["loss"]) for r in history))
-    lim_sum = N_WORKERS * clip_limit(8, N_WORKERS)
+    # the clip for the n·M sum; what one reduce carries is at most n·lim
+    lim_sum = N_WORKERS * clip_limit(8, N_WORKERS * microbatches)
     checks.true(f"{label}: max_int <= {lim_sum} on every compressed step",
                 all(r["max_int"] <= lim_sum for r in history[1:]))
+    if comp == "none":
+        checks.true(f"{label}: max_int 0 and 32 bits on every compressed step",
+                    all(r["max_int"] == 0 and r["bits"] == 32 for r in history[1:]))
     if comp == "intsgd_block":  # one α per leaf, from that leaf's own ||Δx_l||²
         alpha = history[1]["alpha"]
         for leaf, a in alpha.items():
@@ -622,12 +653,19 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
         checks.true(f"{label}: step 1 has one α per leaf, finite, positive, not all equal",
                     len(vals) == n_leaves and all(math.isfinite(a) and a > 0 for a in vals)
                     and len(set(vals)) > 1)
-    want, want_shift = expected_launches(ops, n_leaves, steps, opt, comp, wire)
+    want, want_shift = expected_launches(ops, n_leaves, steps, opt, comp, wire, fused=fused,
+                                         microbatches=microbatches)
     for name in want:
         checks.true(f"{label}: {name} launches {launches[name]} (expected {want[name]}), "
                     f"with shift {shifts[name]} (expected {want_shift[name]})",
                     launches[name] == want[name] and shifts[name] == want_shift[name])
-    return launches
+    return launches, history, peak
+
+
+def compressed_ms(history) -> float:
+    """Median wall time of a path's compressed steps but the first (which
+    also pays first-use costs)."""
+    return statistics.median(r["ms"] for r in history[2:])
 
 
 def wire_phase(torch, checks, device):
@@ -689,19 +727,49 @@ def wire_phase(torch, checks, device):
     torch.cuda.empty_cache()
 
 
-# the paths phases 3-6 drive: (label, layers, steps, optimizer, compressor,
-# wire, lr); the headline path first
+# the paths phases 3-8 drive: (label, layers, steps, optimizer, compressor,
+# wire, lr, route options); the headline path first
+FUSED = dict(fused=True)
 PATHS = (
-    ("train", 4, 4, "adamw", "intsgd", "packed8", 3e-4),
-    ("train-sgd", 4, 4, "sgd", "intsgd", "packed8", 0.3),
-    ("family sgd/intsgd/dense8", 2, 3, "sgd", "intsgd", "dense8", 0.3),
-    ("family adamw/intsgd/dense8", 2, 3, "adamw", "intsgd", "dense8", 3e-4),
-    ("family sgd/intdiana/packed8", 2, 3, "sgd", "intdiana", "packed8", 0.3),
-    ("family sgd/intdiana/dense8", 2, 3, "sgd", "intdiana", "dense8", 0.3),
-    ("family adamw/intdiana/packed8", 2, 3, "adamw", "intdiana", "packed8", 3e-4),
-    ("family adamw/intdiana/dense8", 2, 3, "adamw", "intdiana", "dense8", 3e-4),
-    ("train-block", 4, 4, "sgd", "intsgd_block", "packed8", 0.3),
+    ("train", 4, 4, "adamw", "intsgd", "packed8", 3e-4, FUSED),
+    ("train-sgd", 4, 4, "sgd", "intsgd", "packed8", 0.3, FUSED),
+    ("family sgd/intsgd/dense8", 2, 3, "sgd", "intsgd", "dense8", 0.3, FUSED),
+    ("family adamw/intsgd/dense8", 2, 3, "adamw", "intsgd", "dense8", 3e-4, FUSED),
+    ("family sgd/intdiana/packed8", 2, 3, "sgd", "intdiana", "packed8", 0.3, FUSED),
+    ("family sgd/intdiana/dense8", 2, 3, "sgd", "intdiana", "dense8", 0.3, FUSED),
+    ("family adamw/intdiana/packed8", 2, 3, "adamw", "intdiana", "packed8", 3e-4, FUSED),
+    ("family adamw/intdiana/dense8", 2, 3, "adamw", "intdiana", "dense8", 3e-4, FUSED),
+    ("train-block", 4, 4, "sgd", "intsgd_block", "packed8", 0.3, FUSED),
+    ("zero1-sgd", 4, 4, "sgd", "intsgd", "packed8", 0.3, dict(fused=False)),
+    ("zero1-adamw-m2", 4, 4, "adamw", "intsgd", "packed8", 3e-4,
+     dict(fused=False, microbatches=2)),
+    ("zero1-intdiana-m2", 2, 3, "sgd", "intdiana", "dense8", 0.3,
+     dict(fused=False, microbatches=2)),
+    ("zero1-bf16", 2, 3, "sgd", "intsgd", "packed8", 0.3,
+     dict(fused=False, param_dtype="bfloat16")),
+    ("baseline-none", 4, 4, "sgd", "none", None, 0.3, dict(fused=False)),
 )
+
+
+def cross_route_phase(checks, histories) -> None:
+    """zero1-sgd against train-sgd (the fused packed8 SGD path): the same
+    seed, weights, data and encode seeds, so the same losses up to the
+    update's arithmetic and the bf16 backward, which the card does not
+    reproduce bit for bit; and baseline-none's step time beside
+    zero1-sgd's, the cost of IntSGD's encode, pack, word sum and decode."""
+    fused, zero1 = histories["train-sgd"], histories["zero1-sgd"]
+    gaps = [abs(z["loss"] - f["loss"]) / abs(f["loss"]) for z, f in zip(zero1[1:], fused[1:])]
+    for i, g in enumerate(gaps, 1):
+        print(f"cross-route: step {i}: zero1-sgd loss {zero1[i]['loss']!r}, train-sgd loss "
+              f"{fused[i]['loss']!r}, relative gap {g:.3g}", flush=True)
+    checks.true("cross-route: zero1-sgd and train-sgd losses within 1e-2 relative at steps 1-3",
+                len(gaps) == 3 and all(g < 1e-2 for g in gaps))
+    base, intsgd = compressed_ms(histories["baseline-none"]), compressed_ms(zero1)
+    fused_ms = compressed_ms(fused)
+    print(f"step ms (median of steps 2-3): baseline-none {base:.1f}, zero1-sgd {intsgd:.1f} "
+          f"(IntSGD's encode, pack, word sum and decode cost {intsgd - base:.1f} ms a step), "
+          f"train-sgd (fused) {fused_ms:.1f} (ZeRO-1 update over the fused one "
+          f"{intsgd - fused_ms:.1f} ms)", flush=True)
 
 
 def main() -> None:
@@ -734,17 +802,25 @@ def main() -> None:
     block_norms_phase(torch, ops, checks, timings, device)
     print(f"block_norms phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 3-6. the paths through the user entry point, counts read per path
+    # 3-8. the paths through the user entry point, counts read per path
     launches = {k.name: 0 for k in ops.KERNELS}
-    for label, layers, steps, opt, comp, wire, lr in PATHS:
+    histories, peaks = {}, {}
+    for label, layers, steps, opt, comp, wire, lr, route in PATHS:
         t0 = time.perf_counter()
-        counts = train_phase(torch, ops, checks, device, label=label, layers=layers,
-                             steps=steps, opt=opt, comp=comp, wire=wire, lr=lr)
+        counts, histories[label], peaks[label] = train_phase(
+            torch, ops, checks, device, label=label, layers=layers, steps=steps, opt=opt,
+            comp=comp, wire=wire, lr=lr, **route)
         for name, c in counts.items():
             launches[name] += c
         print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
+    for label, h in histories.items():
+        print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
+              f"peak {peaks[label]:.1f} GiB", flush=True)
 
-    # 7. step 1 replayed for one leaf: unpack(sum of words) == sum of images
+    # 9. the ZeRO-1 route against the fused one, and the baseline's gap
+    cross_route_phase(checks, histories)
+
+    # 10. step 1 replayed for one leaf: unpack(sum of words) == sum of images
     wire_phase(torch, checks, device)
 
     # the kernel line, the card line, the result

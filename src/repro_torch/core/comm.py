@@ -72,3 +72,7 @@ class CommCtx:
 
     def pmean(self, worker_trees: Iterable[Tree]) -> Tree:
         return coll.pmean_tree(worker_trees, self.n)
+
+    def all_gather(self, worker_trees: Iterable[Tree]) -> Tree:
+        """Gather with a leading worker axis of size n."""
+        return coll.all_gather_tree(worker_trees, self.n)

@@ -1,6 +1,6 @@
 """Gradient compressors (port of ``repro/core/compressor.py``: the exact
-mean, IntSGD with a global or blockwise α rule, and IntDIANA, on a psum
-wire).
+mean, the uncompressed baseline, IntSGD with a global or blockwise α rule,
+and IntDIANA, on a psum wire).
 
 Interface, on the local n-worker backend (:mod:`repro_torch.core.comm`)::
 
@@ -16,11 +16,17 @@ on the model update of the previous step: the trainer calls
 is exact (paper §4.1 "the first communication is exact"): train steps use
 :func:`aggregate_exact` at k = 0.
 
+Microbatch pipelining (M > 1) encodes each microbatch's image with
+``encode_ints(n_accum=M)``, sums the M summed images in int32 and decodes
+them in ``finish_pipelined``. ``NoCompression`` (the uncompressed SGD
+baseline) only has ``aggregate``: a float mean, no integer wire.
+
 Seeds: the encode's counter PRNG takes one int32 seed per (worker, leaf).
 The JAX package derives them from its key (``fold_worker_key`` then one
 split per leaf); the port takes them as an ``(n_workers, n_leaves)`` int32
-tensor on the card — :func:`leaf_seeds` draws one from a
-``torch.Generator``, and a test can hand in the JAX package's own.
+tensor on the card, ``(M, n_workers, n_leaves)`` with M microbatches —
+:func:`leaf_seeds` draws one from a ``torch.Generator``, and a test can
+hand in the JAX package's own.
 """
 from __future__ import annotations
 
@@ -45,12 +51,14 @@ def aggregate_exact(worker_grads: Iterable[Tree], ctx: CommCtx) -> Tree:
 
 
 def leaf_seeds(generator: torch.Generator, n_workers: int, n_leaves: int,
-               device) -> torch.Tensor:
-    """Independent int32 encode seeds per (worker, leaf), drawn from
+               device, microbatches: int = 1) -> torch.Tensor:
+    """Independent int32 encode seeds per (worker, leaf), and per microbatch
+    when there are several (a leading axis of ``microbatches``), drawn from
     ``generator`` on the host and placed on ``device``."""
+    shape = (n_workers, n_leaves) if microbatches == 1 else (
+        microbatches, n_workers, n_leaves)
     seeds = torch.randint(
-        -(2**31), 2**31, (n_workers, n_leaves), generator=generator,
-        dtype=torch.int64,
+        -(2**31), 2**31, shape, generator=generator, dtype=torch.int64,
     ).to(torch.int32)
     return seeds.to(device)
 
@@ -70,13 +78,20 @@ class Metrics:
     max_int: torch.Tensor  # max |aggregated integer| on the wire
     bits_per_coord: torch.Tensor  # estimated wire bits per coordinate
     payload_bytes: float  # static bytes sent per worker per step
+    # the step's α per leaf (empty for a float compressor), so that a
+    # decode-here caller can report it
+    alphas: Tree = dataclasses.field(default_factory=dict)
 
 
-def _wire_metrics(wf: WireFormat, int_sum: Tree) -> Metrics:
+def wire_bits(max_int: torch.Tensor) -> torch.Tensor:
+    """Estimated wire bits per coordinate for a largest |integer|."""
+    return 1.0 + torch.ceil(torch.log2(torch.clamp(max_int, min=1.0) + 1.0))
+
+
+def _wire_metrics(wf: WireFormat, int_sum: Tree, alphas: Tree) -> Metrics:
     max_int = tree_abs_max(int_sum)
-    bits = 1.0 + torch.ceil(torch.log2(torch.clamp(max_int, min=1.0) + 1.0))
     payload = float(sum(wf.wire_bytes(v.numel()) for v in int_sum.values()))
-    return Metrics(max_int, bits, payload)
+    return Metrics(max_int, wire_bits(max_int), payload, alphas)
 
 
 class Compressor:
@@ -101,6 +116,35 @@ class Compressor:
 
     def observe_update(self, state, dx_stats: DxStats):
         return state
+
+
+@dataclasses.dataclass(frozen=True)
+class NoCompression(Compressor):
+    """Full precision: the uncompressed SGD baseline. ``use_allgather``
+    reproduces the paper's SGD (All-gather) row: the same mean, reached by
+    gathering every worker's gradients."""
+
+    name: ClassVar[str] = "none"
+    use_allgather: bool = False
+
+    def aggregate(self, state, worker_grads: Iterable[Tree], *, seeds=None,
+                  eta=None, ctx: CommCtx, dims: TreeDims | None = None):
+        """The float mean over workers. Returns ``(ghat, state, metrics)``."""
+        if self.use_allgather:
+            gathered = ctx.all_gather(worker_grads)
+            ghat = {k: torch.mean(g.to(torch.float32), dim=0) for k, g in gathered.items()}
+            del gathered
+        else:
+            ghat = ctx.pmean(worker_grads)
+        d = sum(g.numel() for g in ghat.values())
+        payload = 4.0 * d * (ctx.n if self.use_allgather else 1)
+        device = next(iter(ghat.values())).device
+        m = Metrics(
+            torch.zeros((), dtype=torch.float32, device=device),
+            torch.full((), 32.0, dtype=torch.float32, device=device),
+            payload,
+        )
+        return ghat, state, m
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,7 +233,7 @@ class IntSGD(Compressor):
             WireAggregate(words=words_sum, ints=int_sum),
             alphas,
             state,
-            _wire_metrics(wf, int_sum),
+            _wire_metrics(wf, int_sum, alphas),
         )
 
     def aggregate(self, state, worker_grads: Iterable[Tree], *,
@@ -204,6 +248,21 @@ class IntSGD(Compressor):
             k: wf.decode(s, alphas[k], n_workers=ctx.n) for k, s in wa.ints.items()
         }
         return ghat, state, metrics
+
+    def finish_pipelined(self, state, int_sum_acc: Tree, local_int_acc, alphas,
+                         *, ctx: CommCtx, n_accum: int):
+        """Decode the ``n_accum`` accumulated summed images of the
+        microbatch-pipelined step: ĝ = Σ_m Σ_i Int(α g_i^m) / (n·M·α). The
+        per-image clip (``encode_ints(n_accum=M)``) kept the int32 sum from
+        wrapping. IntSGD keeps no wire-level state: ``local_int_acc`` is
+        unused and the state passes through. Returns ``(ghat, state)``."""
+        del local_int_acc
+        wf = self.wire_format
+        ghat = {
+            k: wf.decode(s, alphas[k], n_workers=ctx.n * n_accum)
+            for k, s in int_sum_acc.items()
+        }
+        return ghat, state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,7 +372,7 @@ class IntDIANA(Compressor):
             WireAggregate(words=words_sum, ints=int_sum),
             alphas,
             dict(state, h_local=h_local),
-            _wire_metrics(wf, int_sum),
+            _wire_metrics(wf, int_sum, alphas),
         )
 
     def aggregate(self, state, worker_grads: Iterable[Tree], *,
@@ -330,6 +389,24 @@ class IntDIANA(Compressor):
             for k, h in state["h_global"].items()
         }
         return h_global, dict(state, h_global=h_global), metrics
+
+    def finish_pipelined(self, state, int_sum_acc: Tree, local_int_acc: Tree,
+                         alphas, *, ctx: CommCtx, n_accum: int):
+        """Decode of the accumulated images and the shift advance:
+        h_i += (Σ_m ints_i^m)/(M·α), off each worker's integer local sum
+        ``local_int_acc`` ({leaf: (n, *shape) int32}, advanced in place as
+        ``aggregate_wire`` does); mean_q = Σ_m Σ_i ints/(n·M·α);
+        ĝ = h + mean_q, which is also the new global shift. Returns
+        ``(ghat, state)``."""
+        wf = self.wire_format
+        h_local = state["h_local"]
+        for k, s in local_int_acc.items():
+            h_local[k].add_(s.to(torch.float32) / (n_accum * alphas[k]))
+        h_global = {
+            k: h + wf.decode(int_sum_acc[k], alphas[k], n_workers=ctx.n * n_accum)
+            for k, h in state["h_global"].items()
+        }
+        return h_global, dict(state, h_local=h_local, h_global=h_global)
 
     def fused_shift(self, state):
         return state["h_global"]
@@ -354,6 +431,8 @@ def with_wire(comp: Compressor, wire) -> Compressor:
 
 
 _COMPRESSORS = {
+    "none": NoCompression,
+    "allgather_sgd": partial(NoCompression, use_allgather=True),
     "intsgd": IntSGD,
     "intsgd_determ": partial(IntSGD, stochastic=False),
     "intsgd_block": partial(IntSGD, alpha_rule=AlphaBlockwise()),
@@ -363,6 +442,10 @@ _COMPRESSORS = {
     "intsgd4_packed": partial(IntSGD, bits=4, wire=PackedInt(bits=4)),
     "intdiana": IntDIANA,
 }
+
+
+def compressor_names() -> list:
+    return sorted(_COMPRESSORS)
 
 
 def make_compressor(name: str, **kw) -> Compressor:

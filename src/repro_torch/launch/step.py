@@ -1,31 +1,39 @@
-"""Train step construction (port of the fused-route path of
-``repro/launch/step.py`` on the local n-worker backend).
+"""Train step construction (port of ``repro/launch/step.py`` on the local
+n-worker backend): the fused route and the ZeRO-1 route, with microbatch
+wire pipelining on the latter.
 
-One step, as the JAX package's ``_make_train_body`` runs it on the fused
-packed route:
+One step, as the JAX package's ``_make_train_body`` runs it:
 
   1. for each of the n workers in turn: forward and backward on that
-     worker's slice of the global batch (bf16 activations, f32 params);
-     on the compressed steps its gradients (IntDIANA: minus its local
-     shift) are encoded Int(α∘g) and packed into transport words at once
-     and freed, the words folding into the word sum with the wire type's
-     wrap-around (``Compressor.aggregate_wire``); step 0 is exact (paper
-     §4.1) and sums float gradients instead;
-  2. the global-norm clip factor, computed off the summed integer image
-     (plus the global shift for IntDIANA) (``_clip_factor``), so ĝ is
-     never materialized; each leaf's sum of squares is the block-norms
-     kernel's, which reads the int32 image in place;
-  3. the fused decode + optimizer kernel per leaf — SGD or AdamW, packed
-     words or dense lanes, with IntDIANA's shift in and out — straight off
-     the summed payload (``_fused_update_stage``); step 0 runs the same
-     arithmetic unfused (``optim.base.fused_reference_update``);
+     worker's slice of the global batch (bf16 activations; f32 params, or
+     bf16 with ``param_dtype``); on the compressed steps its gradients
+     (IntDIANA: minus its local shift) are encoded Int(α∘g) and packed into
+     transport words at once and freed, the words folding into the word sum
+     with the wire type's wrap-around (``Compressor.aggregate_wire``); step
+     0 is exact (paper §4.1) and sums float gradients instead. With M > 1
+     microbatches on the ZeRO-1 route each microbatch m runs the n workers
+     in turn, encodes each image clipped for the n·M sum, reduces it and
+     adds the summed image to an int32 accumulator
+     (``_pipelined_grad_stage``); a compressor without wire-level
+     aggregation (``none``) and the exact step average the M microbatch
+     gradients in f32 first (``_accum_grad_stage``);
+  2. the global-norm clip factor: on the fused route off the summed integer
+     image (plus the global shift for IntDIANA), so ĝ is never
+     materialized; on the ZeRO-1 route off the decoded ĝ. Each leaf's sum
+     of squares is the block-norms kernel's (but IntDIANA's shift form);
+  3. the update: on the fused route the fused decode + optimizer kernel per
+     leaf — SGD or AdamW, packed words or dense lanes, with IntDIANA's shift
+     in and out — straight off the summed payload (``_fused_update_stage``;
+     step 0 runs the same arithmetic unfused); on the ZeRO-1 route the
+     decoded ĝ goes through the optimizer on the f32 master rows and the
+     new rows are gathered back to the params (``optim.zero1``);
   4. ||Δx_l||² (the block-norms kernel, per leaf) × dx_scale² fed back to
      the α rule (``_observe_dx``): the global rules read the sum, blockwise
      α (Alg. 2) each leaf's.
 
 α, η, the clip factor and the kernels' scalar vectors stay on the card: the
-step makes no host sync. The unfused ZeRO-1 route, microbatch pipelining,
-the overlapped ring transport and tensor parallelism are not ported yet.
+step makes no host sync. The overlapped ring transport and tensor
+parallelism are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,13 +45,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.comm import CommCtx
-from repro_torch.core.compressor import Compressor, aggregate_exact, with_wire
+from repro_torch.core.compressor import (
+    Compressor, aggregate_exact, wire_bits, with_wire,
+)
 from repro_torch.core.stats import TreeDims, local_dx_stats, scale_dx_stats
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import lm_loss, param_shapes
 from repro_torch.optim import base as optb
 from repro_torch.optim.base import Optimizer
-from repro_torch.utils.tree import leaf_names
+from repro_torch.optim.zero1 import zero1_init, zero1_update
+from repro_torch.utils.tree import leaf_names, tree_abs_max
 
 Tree = Dict[str, torch.Tensor]
 
@@ -86,14 +97,94 @@ def _forward_backward(layout: Layout, params: Tree, batch):
     return loss.detach(), dict(zip(leaves, grads))
 
 
-def _worker_batch(batch, w: int, n: int):
-    """Worker w's contiguous slice of the global batch (the JAX package
-    shards the batch dimension over the data-parallel axis)."""
+def _microbatch(batch, m: int, n_micro: int):
+    """Slice m of n_micro along the batch dim of every leaf: worker w's
+    contiguous slice of the global batch (the JAX package shards the batch
+    dimension over the data-parallel axis), or microbatch m of a worker's."""
     def one(v):
-        b = v.shape[0] // n
-        return v[w * b:(w + 1) * b]
+        b = v.shape[0] // n_micro
+        return v[m * b:(m + 1) * b]
 
     return {k: one(v) for k, v in batch.items()}
+
+
+def _accum_grad_stage(layout: Layout, params: Tree, batch, n_micro: int):
+    """Plain gradient accumulation of one worker (the exact step, and
+    compressors without wire-level aggregation): the mean of the microbatch
+    gradients in f32, aggregated once afterwards."""
+    loss_acc = g_acc = None
+    for m in range(n_micro):
+        loss_m, grads_m = _forward_backward(layout, params, _microbatch(batch, m, n_micro))
+        if g_acc is None:
+            loss_acc = loss_m
+            g_acc = {k: g.to(torch.float32) for k, g in grads_m.items()}
+        else:
+            loss_acc = loss_acc + loss_m
+            for k, g in grads_m.items():
+                g_acc[k].add_(g.to(torch.float32))
+        del grads_m
+    return loss_acc / n_micro, {k: g / n_micro for k, g in g_acc.items()}
+
+
+def _pipelined_grad_stage(layout: Layout, compressor: Compressor, cs, params: Tree,
+                          batch, seeds: torch.Tensor, eta, n_micro: int):
+    """Microbatch wire pipelining: for each microbatch m, the n workers in
+    turn, each image Int(α g_i^m) clipped for the full n·M accumulated sum
+    (``encode_ints(n_accum=M)``, so the int32 accumulator cannot wrap) and
+    packed and folded into microbatch m's word sum as soon as its backward
+    ends; the summed image is unpacked once and added to the accumulator.
+    The M summed images add exactly, so
+
+        ĝ = Σ_m Σ_i Int(α g_i^m) / (n·M·α)
+
+    (``compressor.finish_pipelined``, which also advances the compressor's
+    state; IntDIANA's h_i reads each worker's local integer sum, kept here
+    when ``fused_local_state`` is set). ``seeds`` is (M, n, n_leaves).
+    Returns ``(ghat, state, loss, max_int, alphas)``; max_int is the largest
+    |summed image| of one microbatch, what one reduce carried."""
+    ctx = layout.ctx
+    n = ctx.n
+    wf = compressor.wire_format
+    track_local = compressor.fused_local_state
+    worker_loss = [None] * n
+    int_acc, local_acc, alphas, max_int = None, {}, {}, None
+    for m in range(n_micro):
+        def images():
+            for w in range(n):
+                loss_m, grads = _forward_backward(
+                    layout, params, _microbatch(_microbatch(batch, w, n), m, n_micro)
+                )
+                worker_loss[w] = loss_m if m == 0 else worker_loss[w] + loss_m
+                ints, a = compressor.encode_ints(
+                    cs, grads, seeds=seeds[m], eta=eta, ctx=ctx.at_worker(w),
+                    dims=layout.dims, n_accum=n_micro,
+                )
+                alphas.update(a)
+                del grads
+                if track_local:
+                    for k, v in ints.items():
+                        if k not in local_acc:
+                            local_acc[k] = torch.zeros((n, *v.shape), dtype=v.dtype,
+                                                       device=v.device)
+                        local_acc[k][w].add_(v)
+                yield ints
+                del ints
+
+        _, int_sum = ctx.psum_wire(images(), wf)
+        peak = tree_abs_max(int_sum)
+        max_int = peak if max_int is None else torch.maximum(max_int, peak)
+        if int_acc is None:
+            int_acc = int_sum
+        else:
+            for k, v in int_sum.items():
+                int_acc[k].add_(v)
+        del int_sum
+    ghat, cs = compressor.finish_pipelined(
+        cs, int_acc, local_acc if track_local else None, alphas, ctx=ctx,
+        n_accum=n_micro,
+    )
+    loss = torch.sum(torch.stack([wl / n_micro for wl in worker_loss])) / n
+    return ghat, cs, loss, max_int, alphas
 
 
 def _fused_plan(base_opt: Optimizer, compressor: Compressor) -> str:
@@ -190,67 +281,100 @@ def _fused_update_stage(layout: Layout, params: Tree, opt_state, eta,
 
 
 def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
-                     exact: bool, clip_norm: Optional[float]):
+                     exact: bool, clip_norm: Optional[float], fused: bool,
+                     microbatches: int, param_dtype):
+    # the microbatch wire pipelining rides the same capability as the fused
+    # route: compressors with wire-level aggregation pipeline their integer
+    # images; the others accumulate f32 gradients and aggregate once
+    pipelined = microbatches > 1 and compressor.fused_capable
+
     def step(params, opt_state, comp_state, step_idx: int, batch, seeds=None):
         """-> (params', opt_state', comp_state', loss, (max_int, bits,
         alphas)); ``alphas`` is the step's {leaf: 0-d α} (empty on the exact
-        step). ``seeds``: int32 (n_workers, n_leaves) encode seeds on the
-        card (unused by the exact step)."""
+        step and for a float compressor). ``seeds``: int32 (n_workers,
+        n_leaves) encode seeds on the card, (M, n_workers, n_leaves) with M
+        pipelined microbatches (unused by the exact step)."""
         ctx = layout.ctx
         if not exact and seeds is None:
             raise ValueError("the compressed step needs (n_workers, n_leaves) encode seeds")
-        eta = lr_schedule(step_idx, layout.device)
-        losses = []
-
-        def worker_grads():
-            for w in range(ctx.n):
-                loss, grads = _forward_backward(
-                    layout, params, _worker_batch(batch, w, ctx.n)
-                )
-                losses.append(loss)
-                yield grads
-                del grads
-
-        words = alphas = None
-        cs = comp_state
-        if exact:
-            ghat = aggregate_exact(worker_grads(), ctx)
-            zero = torch.zeros((), dtype=torch.float32, device=layout.device)
-            metrics = (zero, zero, {})
-        else:
-            wa, alphas, cs, m = compressor.aggregate_wire(
-                comp_state, worker_grads(), seeds=seeds, eta=eta, ctx=ctx,
-                dims=layout.dims,
+        if not exact and pipelined and (seeds.dim() != 3 or seeds.shape[0] != microbatches):
+            raise ValueError(
+                f"{microbatches} pipelined microbatches need (M, n_workers, n_leaves) "
+                f"encode seeds, got {tuple(seeds.shape)}"
             )
-            ghat = None
-            metrics = (m.max_int, m.bits_per_coord, alphas)
+        eta = lr_schedule(step_idx, layout.device)
+        wa = alphas = None
+        cs = comp_state
+        if not exact and pipelined:
+            ghat, cs, loss, max_int, alphas = _pipelined_grad_stage(
+                layout, compressor, cs, params, batch, seeds, eta, microbatches,
+            )
+            metrics = (max_int, wire_bits(max_int), alphas)
+        else:
+            losses = []
+
+            def worker_grads():
+                for w in range(ctx.n):
+                    local = _microbatch(batch, w, ctx.n)
+                    if microbatches > 1:
+                        loss_w, grads = _accum_grad_stage(layout, params, local, microbatches)
+                    else:
+                        loss_w, grads = _forward_backward(layout, params, local)
+                    losses.append(loss_w)
+                    yield grads
+                    del grads
+
+            if exact:
+                ghat = aggregate_exact(worker_grads(), ctx)
+                zero = torch.zeros((), dtype=torch.float32, device=layout.device)
+                metrics = (zero, zero, {})
+            elif fused:
+                wa, alphas, cs, m = compressor.aggregate_wire(
+                    comp_state, worker_grads(), seeds=seeds, eta=eta, ctx=ctx,
+                    dims=layout.dims,
+                )
+                ghat = None
+                metrics = (m.max_int, m.bits_per_coord, alphas)
+            else:
+                ghat, cs, m = compressor.aggregate(
+                    comp_state, worker_grads(), seeds=seeds, eta=eta, ctx=ctx,
+                    dims=layout.dims,
+                )
+                metrics = (m.max_int, m.bits_per_coord, m.alphas)
+            loss = torch.sum(torch.stack(losses)) / ctx.n
 
         # the replicated global shift the fused decode adds (IntDIANA's
-        # h_global; None for shift-free compressors and on the exact step)
-        shift = None if exact else compressor.fused_shift(cs)
+        # h_global; None for shift-free compressors, the exact step and the
+        # ZeRO-1 route, which decodes ĝ itself)
+        shift = None if wa is None else compressor.fused_shift(cs)
         clip_scale = torch.ones((), dtype=torch.float32, device=layout.device)
         if clip_norm is not None:
             scale = _clip_factor(
                 layout, clip_norm, ghat=ghat,
-                int_sum=None if exact else wa.ints, alphas=alphas, shift=shift,
+                int_sum=None if wa is None else wa.ints, alphas=alphas, shift=shift,
             )
             if ghat is not None:
                 ghat = {k: g * scale for k, g in ghat.items()}
             else:  # fused: the clip rides the kernels' scalar vector
                 clip_scale = scale
-        if not exact:
-            words = wa.words
-            del wa  # the summed image is not needed past the clip factor
+        words = None if wa is None else wa.words
+        del wa  # the summed image is not needed past the clip factor
 
-        new_params, new_opt, new_shift = _fused_update_stage(
-            layout, params, opt_state, eta, base_opt, ghat=ghat, words=words,
-            alphas=alphas, wf=None if exact else compressor.wire_format,
-            clip_scale=clip_scale, shift=shift,
-        )
-        if new_shift is not None:
-            cs = compressor.fused_store_shift(cs, new_shift)
+        if fused:
+            new_params, new_opt, new_shift = _fused_update_stage(
+                layout, params, opt_state, eta, base_opt, ghat=ghat, words=words,
+                alphas=alphas, wf=None if words is None else compressor.wire_format,
+                clip_scale=clip_scale, shift=shift,
+            )
+            if new_shift is not None:
+                cs = compressor.fused_store_shift(cs, new_shift)
+        else:
+            new_params, new_opt = zero1_update(
+                base_opt, opt_state, ghat, eta, n_dp=ctx.n, param_dtype=param_dtype,
+                params_like=params,
+            )
+        del ghat, words
         cs = _observe_dx(compressor, base_opt, cs, new_params, params)
-        loss = torch.sum(torch.stack(losses)) / ctx.n
         return new_params, new_opt, cs, loss, metrics
 
     return step
@@ -264,30 +388,53 @@ def build_train_step(
     compressor: Compressor,
     base_opt: Optimizer,
     lr_schedule: Callable,
-    fused: bool = True,
+    param_dtype=torch.float32,
+    fused: bool = False,
     clip_norm: Optional[float] = None,
     wire=None,
+    microbatches: int = 1,
     device=None,
 ) -> StepArtifacts:
     """The exact (step-0) and compressed train steps of ``cfg`` with
     ``n_workers`` data-parallel workers simulated on one device (the card
-    by default; ``device="cpu"`` runs the kernels' plain versions)."""
+    by default; ``device="cpu"`` runs the kernels' plain versions). The
+    update runs on the ZeRO-1 route, or with ``fused=True`` through the
+    fused decode + update kernels; ``param_dtype`` is the compute params'
+    type (the ZeRO-1 route gathers its f32 master rows into it)."""
     device = resolve_device(device)
     # float32 matmuls in full float32 on the card (no TF32), as in the JAX
     # package: the bf16 forward is the train path's only reduced precision
     torch.backends.cuda.matmul.allow_tf32 = False
     if wire is not None:
         compressor = with_wire(compressor, wire)
-    if not fused:
-        raise NotImplementedError(
-            "the unfused ZeRO-1 update route is not ported yet; use fused=True"
+    if microbatches > 1 and fused:
+        raise ValueError(
+            "microbatch pipelining accumulates summed integer images, which "
+            "the fused packed-word kernel cannot consume; use the zero1 "
+            "route (fused=False) with microbatches > 1"
         )
-    _fused_plan(base_opt, compressor)
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    if fused:
+        _fused_plan(base_opt, compressor)
+        if param_dtype != torch.float32:
+            raise NotImplementedError(
+                f"{param_dtype} params on the fused route are not ported yet "
+                "(its kernels update float32 params); use the zero1 route"
+            )
     if shape.global_batch % n_workers:
         raise ValueError(
             f"global batch {shape.global_batch} does not split over "
             f"{n_workers} workers"
         )
+    if microbatches > 1:
+        local_batch = shape.global_batch // n_workers
+        if local_batch % microbatches:
+            raise ValueError(
+                f"local batch {local_batch} (global {shape.global_batch} over "
+                f"{n_workers} workers) is not divisible into "
+                f"{microbatches} microbatches"
+            )
     shapes = param_shapes(cfg)
     # port of specs.global_tree_dims at tp = 1
     dims = TreeDims(
@@ -303,7 +450,23 @@ def build_train_step(
         return _make_train_step(
             layout, compressor=compressor, base_opt=base_opt,
             lr_schedule=lr_schedule, exact=exact, clip_norm=clip_norm,
+            fused=fused, microbatches=microbatches,
+            param_dtype=param_dtype,
         )
 
     return StepArtifacts(steps={"compressed": make(False), "exact": make(True)},
                          layout=layout)
+
+
+def build_init_state(params: Tree, *, n_workers: int, compressor: Compressor,
+                     base_opt: Optimizer, fused: bool = False):
+    """``(opt_state, comp_state)`` for ``params``: ZeRO-1 masters (equal to
+    the params) with the optimizer state in their row layout by default, the
+    fused route's f32 state tree with ``fused=True``; the compressor's state
+    for ``n_workers`` workers."""
+    if fused:
+        _fused_plan(base_opt, compressor)
+        opt_state = optb.fused_state_init(base_opt, params)
+    else:
+        opt_state = zero1_init(base_opt, params, n_workers)
+    return opt_state, compressor.init(params, n_workers)

@@ -4,17 +4,21 @@ data-parallel IntSGD loop with n workers simulated on one card.
 CLI (runs on the card; ``--device cpu`` runs the kernels' plain versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
-      --smoke --steps 8 --workers 4 --batch 4 --seq 32 \\
-      --compressor intsgd8_packed --wire packed8 --fused --opt sgd
+      --smoke --steps 8 --workers 4 --batch 8 --seq 32 \\
+      --compressor intsgd8_packed --wire packed8 --opt sgd [--microbatches 2]
 
-``--opt sgd|adamw``; ``--compressor`` intsgd, intsgd_block (blockwise α,
-Alg. 2), intsgd_determ (round half to even), intsgd4, intsgd8,
-intsgd8_packed, intsgd4_packed or intdiana; ``--wire`` dense4/8/16/32 or
-packed4/8/16 (a compressor whose name carries no width — intsgd,
-intsgd_block, intsgd_determ, intdiana — takes the wire's). ``--layers N`` cuts the depth (full width
-kept). Not ported yet, and raising so: ``--ckpt-dir``, ``--overlap ring``,
-``--microbatches > 1``, ``--data``/``--model`` meshes, and the unfused
-route (no ``--fused``).
+The update runs on the ZeRO-1 route (f32 master rows, the JAX package's
+default) unless ``--fused`` asks for the fused decode + update kernels;
+``--microbatches M`` pipelines M microbatches' integer images per step on
+the ZeRO-1 route. ``--opt sgd|adamw``; ``--compressor`` none or
+allgather_sgd (uncompressed SGD, the paper's baseline; ZeRO-1 only),
+intsgd, intsgd_block (blockwise α, Alg. 2), intsgd_determ (round half to
+even), intsgd4, intsgd8, intsgd8_packed, intsgd4_packed or intdiana;
+``--wire`` dense4/8/16/32 or packed4/8/16 (a compressor whose name carries
+no width — intsgd, intsgd_block, intsgd_determ, intdiana — takes the
+wire's). ``--layers N`` cuts the depth (full width kept). Not ported yet,
+and raising so: ``--ckpt-dir``, ``--overlap ring`` and ``--data``/``--model``
+meshes.
 """
 from __future__ import annotations
 
@@ -25,12 +29,13 @@ import time
 import torch
 
 from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
-from repro_torch.core.compressor import leaf_seeds, make_compressor, with_wire
+from repro_torch.core.compressor import (
+    compressor_names, leaf_seeds, make_compressor, with_wire,
+)
 from repro_torch.data.synthetic import SyntheticLMData
-from repro_torch.launch.step import build_train_step, resolve_device
+from repro_torch.launch.step import build_init_state, build_train_step, resolve_device
 from repro_torch.models.transformer import init_lm_params
 from repro_torch.optim.adamw import adamw
-from repro_torch.optim.base import fused_state_init
 from repro_torch.optim.schedules import constant, warmup_wrap
 from repro_torch.optim.sgd import sgd
 from repro_torch.wire import make_wire_format, wire_format_names
@@ -53,18 +58,22 @@ def train_loop(
     lr: float = 0.3,
     log_every: int = 5,
     seed: int = 0,
-    fused: bool = True,
+    fused: bool = False,
     clip_norm: float | None = 1.0,
     wire: str | None = None,
+    microbatches: int = 1,
     opt: str = "sgd",
+    param_dtype=torch.float32,
     device=None,
 ):
     """Train ``cfg`` for ``steps`` steps (step 0 exact, the rest compressed)
-    on synthetic data. Weights come from a ``torch.Generator`` seeded with
-    ``seed`` on the device, encode seeds from a host generator with the same
-    seed. Returns ``(params, history)``: one record per step with loss,
-    max_int, bits, each leaf's α (``alpha``, empty on the exact step) and
-    the step's wall time in ms (the step ends in a sync)."""
+    on synthetic data, on the ZeRO-1 route or, with ``fused=True``, the
+    fused one. Weights come from a ``torch.Generator`` seeded with ``seed``
+    on the device (in ``param_dtype``), encode seeds from a host generator
+    with the same seed. Returns ``(params, history)``: one record per step
+    with loss, max_int, bits, each leaf's α (``alpha``, empty on the exact
+    step and for a float compressor) and the step's wall time in ms (the
+    step ends in a sync)."""
     device = resolve_device(device)
     if opt not in OPTIMIZERS:
         raise ValueError(f"optimizer {opt!r}; options {sorted(OPTIMIZERS)}")
@@ -78,14 +87,16 @@ def train_loop(
     sched = warmup_wrap(constant(lr), 5)
     art = build_train_step(
         cfg, shape, n_workers=n_workers, compressor=comp, base_opt=base_opt,
-        lr_schedule=sched, fused=fused, clip_norm=clip_norm, device=device,
+        lr_schedule=sched, param_dtype=param_dtype, fused=fused,
+        clip_norm=clip_norm, microbatches=microbatches, device=device,
     )
     params = init_lm_params(
         cfg, generator=torch.Generator(device=device).manual_seed(seed),
-        device=device,
+        device=device, dtype=param_dtype,
     )
-    opt_state = fused_state_init(base_opt, params)
-    comp_state = comp.init(params, n_workers)
+    opt_state, comp_state = build_init_state(
+        params, n_workers=n_workers, compressor=comp, base_opt=base_opt, fused=fused,
+    )
     seed_gen = torch.Generator().manual_seed(seed)
     data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=seed)
     n_leaves = len(art.layout.names)
@@ -93,7 +104,7 @@ def train_loop(
     history = []
     for i in range(steps):
         batch = data.batch(i, 0, device=device)  # global batch, split by worker
-        seeds = leaf_seeds(seed_gen, n_workers, n_leaves, device)
+        seeds = leaf_seeds(seed_gen, n_workers, n_leaves, device, microbatches)
         fn = art.steps["exact"] if i == 0 else art.steps["compressed"]
         t0 = time.perf_counter()
         params, opt_state, comp_state, loss, metrics = fn(
@@ -128,26 +139,28 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=1,
                     help="data-parallel workers simulated on the device")
     ap.add_argument("--lr", type=float, default=0.3)
-    ap.add_argument("--compressor", default="intsgd")
+    ap.add_argument("--compressor", default="intsgd",
+                    help="gradient compressor: " + ", ".join(compressor_names()))
     ap.add_argument("--opt", default="sgd", choices=["sgd", "adamw"])
     ap.add_argument("--wire", default=None,
                     help="wire codec: " + ", ".join(wire_format_names()))
     ap.add_argument("--fused", action="store_true",
-                    help="fused decode+update kernel route (the only one ported)")
+                    help="route the update through the fused decode+update "
+                         "kernels (default: the ZeRO-1 route)")
     ap.add_argument("--clip-norm", type=float, default=1.0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--overlap", default="off", choices=["off", "ring"])
-    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="pipelined microbatches per step (ZeRO-1 route)")
     args = ap.parse_args(argv)
 
     not_ported = [
         flag for flag, on in (
             ("--ckpt-dir", args.ckpt_dir is not None),
             ("--overlap ring", args.overlap != "off"),
-            ("--microbatches > 1", args.microbatches > 1),
             ("--data/--model meshes", args.data > 1 or args.model > 1),
         ) if on
     ]
@@ -162,8 +175,8 @@ def main(argv=None):
     train_loop(
         cfg, shape, n_workers=args.workers, compressor=args.compressor,
         steps=args.steps, lr=args.lr, fused=args.fused,
-        clip_norm=args.clip_norm, wire=args.wire, opt=args.opt,
-        device=args.device,
+        clip_norm=args.clip_norm, wire=args.wire, microbatches=args.microbatches,
+        opt=args.opt, device=args.device,
     )
 
 

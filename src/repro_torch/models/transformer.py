@@ -137,8 +137,15 @@ def params_from_jax(tree_of_numpy, device, prefix: str = "") -> Tree:
         if isinstance(v, dict):
             out.update(params_from_jax(v, device, name + "/"))
         else:
-            out[name] = torch.from_numpy(np.array(v)).to(device)
+            out[name] = _tensor(v, device)
     return out
+
+
+def _tensor(v, device) -> torch.Tensor:
+    a = np.array(v)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16: through float32, exact
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(a).to(device)
 
 
 def opt_state_from_jax(state_of_numpy, device) -> Dict[str, object]:
@@ -150,6 +157,28 @@ def opt_state_from_jax(state_of_numpy, device) -> Dict[str, object]:
         else torch.from_numpy(np.array(t)).to(device)
         for name, t in state_of_numpy.items()
     }
+
+
+def zero1_state_from_jax(opt_state_of_numpy, comp_state_of_numpy, device):
+    """JAX ZeRO-1 state as ``build_init_state(fused=False)`` and the train
+    step hold it globally — ``{"master": tree, "base": state}``, every
+    tensor leaf in its ``(n_dp, ceil(k/n_dp))`` row layout with the leading
+    dp dim, AdamW's ``count`` a scalar — and the dp-stacked compressor
+    state -> the port's ``(opt_state, comp_state)``: the same rows per leaf
+    name (``optim.zero1``'s layout), the base state as the port's optimizer
+    holds it (SGD: a leaf dict of momentum rows; AdamW: ``{"mu", "nu",
+    "count"}``), the compressor state as :func:`comp_state_from_jax` gives
+    it."""
+    base = opt_state_of_numpy["base"]
+    if isinstance(base, dict) and "count" in base:
+        base = opt_state_from_jax(base, device)
+    elif isinstance(base, dict):
+        base = params_from_jax(base, device)
+    else:  # SGD without momentum keeps no state
+        base = ()
+    opt_state = {"master": params_from_jax(opt_state_of_numpy["master"], device),
+                 "base": base}
+    return opt_state, comp_state_from_jax(comp_state_of_numpy, device)
 
 
 def _first(v, device) -> torch.Tensor:
@@ -174,7 +203,9 @@ def comp_state_from_jax(state_of_numpy, device):
     for blockwise α), taken from worker 0. IntDIANA's is ``{"alpha":
     AlphaState, "h_local": tree, "h_global": tree}``: h_local kept stacked
     ``(n, *shape)`` per leaf, the replicated h_global and α state taken
-    from worker 0."""
+    from worker 0. The float baseline's is empty."""
+    if isinstance(state_of_numpy, tuple) and not state_of_numpy:
+        return ()
     if not isinstance(state_of_numpy, dict):
         return _alpha_state_from_jax(state_of_numpy, device)
     return {

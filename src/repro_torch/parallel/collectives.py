@@ -81,3 +81,20 @@ def pmean_tree(worker_trees: Iterable[Tree], n: int) -> Tree:
     if count != n:
         raise ValueError(f"pmean over {count} workers, expected {n}")
     return {k: v / n for k, v in acc.items()}
+
+
+def all_gather_tree(worker_trees: Iterable[Tree], n: int) -> Tree:
+    """Each leaf gathered over the n workers: a leading worker axis of size
+    n, worker order (the JAX package's ``all_gather_flat`` per leaf)."""
+    trees = list(worker_trees)
+    if len(trees) != n:
+        raise ValueError(f"all_gather over {len(trees)} workers, expected {n}")
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def all_gather_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The ZeRO-1 param all-gather (``all_gather_concat`` over flat rows in
+    the JAX package): row w of ``rows`` (n, per) is worker w's; returns
+    every worker's row concatenated in worker order, flat (n·per,). On the
+    local backend the n rows already sit side by side."""
+    return rows.reshape(-1)

@@ -73,10 +73,12 @@ class WireFormat:
         n_workers: int,
         stochastic: bool = True,
     ) -> torch.Tensor:
-        """x -> Int(α ∘ x) clipped for the n-worker sum, canonical int32."""
+        """x -> Int(α ∘ x) clipped for the n-worker sum, canonical int32.
+        The kernel reads float32: a bf16 gradient is cast first, as the JAX
+        package's wrapper casts outside its kernel."""
         self.clip_limit(n_workers)  # typed error before the kernel's
         return ops.int_compress(
-            x, alpha, seed, n_workers=n_workers, bits=self.bits,
+            x.to(torch.float32), alpha, seed, n_workers=n_workers, bits=self.bits,
             stochastic=stochastic,
         )
 

@@ -95,16 +95,26 @@ def test_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys):
     assert "step     0" in out and "step     1" in out
     base = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--fused",
             "--compressor", "intsgd8_packed"]
-    for extra in (["--ckpt-dir", "x"], ["--overlap", "ring"], ["--microbatches", "2"],
-                  ["--data", "2"]):
+    for extra in (["--ckpt-dir", "x"], ["--overlap", "ring"], ["--data", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(base + extra)
+    # the JAX package's refusal: the fused route consumes one image per step
+    with pytest.raises(ValueError, match="use the zero1 route"):
+        train.main(base + ["--microbatches", "2"])
     # AdamW, IntDIANA and the dense wire run (ported); a width-free
     # compressor name takes the wire's width
     train.main(base[:-1] + ["intdiana", "--wire", "dense8", "--opt", "adamw", "--steps", "2",
                             "--workers", "2", "--batch", "2", "--seq", "8"])
     out = capsys.readouterr().out
     assert "step     1" in out and "max_int" in out
-    with pytest.raises(NotImplementedError, match="ZeRO-1"):
-        train.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
-                    "--compressor", "intsgd8_packed"])
+    # without --fused: the ZeRO-1 route, with pipelined microbatches and
+    # the uncompressed baseline
+    zero1 = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--steps", "2",
+             "--workers", "2", "--batch", "4", "--seq", "8"]
+    train.main(zero1 + ["--compressor", "intsgd8_packed", "--wire", "packed8",
+                        "--microbatches", "2"])
+    train.main(zero1 + ["--compressor", "none"])
+    out = capsys.readouterr().out
+    assert out.count("step     1") == 2 and "bits 32" in out
+    with pytest.raises(ValueError, match="not divisible into 3 microbatches"):
+        train.main(zero1 + ["--microbatches", "3"])
