@@ -65,7 +65,28 @@ Phases, each of which must pass for the exit code to be 0:
                baseline-none's step time beside zero1-sgd's and
                train-sgd's;
  10. wire    — step 1 of the headline path replayed for one leaf: the
-               unpacked word sum equals the sum of the four workers' images.
+               unpacked word sum equals the sum of the four workers' images;
+ 11. ranks   — four real ranks (``repro_torch.parallel.spawn``, one spawn
+               for all corners) sharing the card through a gloo process
+               group, each one worker of three corners at full width, seq
+               2048, batch 1 per worker, 3 steps: ranks zero1-sgd (SGD /
+               IntSGD / packed8, 2 layers), ranks zero1-adamw-intdiana-m2
+               (AdamW / IntDIANA / dense8, 2 pipelined microbatches whose
+               reduces are issued async; 1 layer, as four ranks of it do not
+               fit in 80 GB at 2), ranks fused-sgd-ring (fused SGD / IntSGD /
+               packed8 on the bucketed wire, default bucket size). Each
+               corner also runs on the local backend at n = 4 first. After
+               every step the params' checksums must be equal on the four
+               ranks, α and max_int identical; max_int <= 4·lim(8, 4·M);
+               losses within 1e-2 relative of the local backend's; each
+               rank's launch counts one worker's share. Prints each rank's
+               peak memory and step times (four processes time-sharing one
+               card, gloo staging the collectives through host memory: not
+               a transport speed);
+ 12. nccl-1  — a one-rank NCCL process group in this process: int32 words
+               and int8 lanes all-reduced over it come back as sent, and
+               zero1-sgd's corner (2 layers, 3 steps) on it is held to the
+               local backend at n = 1 (losses within 1e-2), both timed.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit (nvidia-smi), then {"ok": true, "device": {...}} as the last line.
@@ -78,6 +99,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -567,10 +589,12 @@ def block_norms_phase(torch, ops, checks, timings, device):
 
 
 def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire, *,
-                      fused: bool, microbatches: int):
-    """Launch counts (all, and with an IntDIANA shift) a path implies. Per
-    compressed step: encode for every (microbatch, worker, leaf); pack for
-    every (microbatch, worker, leaf) and unpack for every (microbatch, leaf)
+                      fused: bool, microbatches: int, n_local: int = N_WORKERS):
+    """Launch counts (all, and with an IntDIANA shift) a path implies in one
+    process running ``n_local`` workers (all n on the local backend, one
+    per rank on a process group). Per compressed step: encode for every
+    (microbatch, local worker, leaf); pack for every (microbatch, local
+    worker, leaf) and unpack for every (microbatch, leaf)
     on a packed wire (none on a dense one: pack is the narrowing cast,
     unpack the widening one). The fused route runs one fused update per leaf
     and block_norms once per leaf and step for ||Δx_l||², and on IntSGD
@@ -583,9 +607,9 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
     want = {k.name: 0 for k in ops.KERNELS}
     want_shift = dict(want)
     if comp != "none":
-        want["int_compress"] = microbatches * N_WORKERS * n_leaves * c
+        want["int_compress"] = microbatches * n_local * n_leaves * c
         if wire.startswith("packed"):
-            want["pack_words"] = microbatches * N_WORKERS * n_leaves * c
+            want["pack_words"] = microbatches * n_local * n_leaves * c
             want["unpack_words"] = microbatches * n_leaves * c
     if not fused:
         want["block_norms"] = 2 * n_leaves * steps
@@ -599,31 +623,40 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
     return want, want_shift
 
 
+def compressor_name(comp: str, wire) -> str:
+    return {("intsgd", "packed8"): "intsgd8_packed", ("intsgd", "dense8"): "intsgd8"}.get(
+        (comp, wire), comp)
+
+
 def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, wire, lr,
-                fused, microbatches=1, param_dtype="float32"):
+                fused, microbatches=1, param_dtype="float32", n_workers=N_WORKERS,
+                overlap="off", group=None):
     """One path through the user entry point, launch counts zeroed just
     before and read just after; returns the counts, the history and the
-    peak memory in GiB."""
+    peak memory in GiB. With a process ``group`` this process is one of
+    its ``n_workers`` ranks."""
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.kernels.int_compress import clip_limit
     from repro_torch.launch.train import train_loop
     from repro_torch.utils.tree import tree_size
 
     cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=layers)
-    shape = ShapeConfig("chip-smoke", 2048, N_WORKERS * microbatches, "train")
-    compressor = {("intsgd", "packed8"): "intsgd8_packed", ("intsgd", "dense8"): "intsgd8"}.get(
-        (comp, wire), comp)
+    shape = ShapeConfig("chip-smoke", 2048, n_workers * microbatches, "train")
+    compressor = compressor_name(comp, wire)
     route = "fused" if fused else f"ZeRO-1, {microbatches} microbatch(es)"
-    print(f"{label}: {cfg.name} d_model {cfg.d_model} layers {layers} workers {N_WORKERS} "
-          f"seq {shape.seq_len} global batch {shape.global_batch} steps {steps}: {opt} / "
-          f"{compressor} / {wire}, lr {lr}, {route}, {param_dtype} params", flush=True)
+    backend = "local backend" if group is None else "a one-rank NCCL group"
+    print(f"{label}: {cfg.name} d_model {cfg.d_model} layers {layers} workers {n_workers} "
+          f"({backend}) seq {shape.seq_len} global batch {shape.global_batch} steps {steps}: "
+          f"{opt} / {compressor} / {wire}, lr {lr}, {route}, wire overlap {overlap}, "
+          f"{param_dtype} params", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     params, history = train_loop(
-        cfg, shape, n_workers=N_WORKERS, compressor=compressor, wire=wire, steps=steps,
+        cfg, shape, n_workers=n_workers, compressor=compressor, wire=wire, steps=steps,
         lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0, microbatches=microbatches,
-        opt=opt, param_dtype=getattr(torch, param_dtype), device=device,
+        opt=opt, param_dtype=getattr(torch, param_dtype), device=device, group=group,
+        overlap=overlap,
     )
     launches, shifts = ops.launch_counts(), ops.shift_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -639,7 +672,7 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
               f"{rec['max_int']:.0f} bits {rec['bits']:.0f} ms {rec['ms']:.1f}", flush=True)
     checks.true(f"{label}: losses finite", all(math.isfinite(r["loss"]) for r in history))
     # the clip for the n·M sum; what one reduce carries is at most n·lim
-    lim_sum = N_WORKERS * clip_limit(8, N_WORKERS * microbatches)
+    lim_sum = n_workers * clip_limit(8, n_workers * microbatches)
     checks.true(f"{label}: max_int <= {lim_sum} on every compressed step",
                 all(r["max_int"] <= lim_sum for r in history[1:]))
     if comp == "none":
@@ -654,7 +687,8 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
                     len(vals) == n_leaves and all(math.isfinite(a) and a > 0 for a in vals)
                     and len(set(vals)) > 1)
     want, want_shift = expected_launches(ops, n_leaves, steps, opt, comp, wire, fused=fused,
-                                         microbatches=microbatches)
+                                         microbatches=microbatches,
+                                         n_local=n_workers if group is None else 1)
     for name in want:
         checks.true(f"{label}: {name} launches {launches[name]} (expected {want[name]}), "
                     f"with shift {shifts[name]} (expected {want_shift[name]})",
@@ -772,7 +806,184 @@ def cross_route_phase(checks, histories) -> None:
           f"{intsgd - fused_ms:.1f} ms)", flush=True)
 
 
+# phase 11: the corners four real ranks run, sharing the card through gloo:
+# (label, layers, steps, optimizer, compressor, wire, lr, fused, microbatches,
+# overlap). Four ranks of the AdamW/IntDIANA corner do not fit in 80 GB at
+# depth 2 (each holds its params, h_local, h_global and the int32 image
+# accumulator whole), so that corner runs at depth 1.
+RANK_CORNERS = (
+    ("ranks zero1-sgd", 2, 3, "sgd", "intsgd", "packed8", 0.3, False, 1, "off"),
+    ("ranks zero1-adamw-intdiana-m2", 1, 3, "adamw", "intdiana", "dense8", 3e-4, False, 2,
+     "off"),
+    ("ranks fused-sgd-ring", 2, 3, "sgd", "intsgd", "packed8", 0.3, True, 1, "ring"),
+)
+CHECKSUM_CHUNK = 1 << 24
+
+
+def params_checksums(torch, params) -> list:
+    """Two int64 checksums per leaf of the float32 params' bits, on the
+    card: the sum of the int32 words and their position-weighted sum
+    (wrapping), in chunks. Two ranks agree on them when their params are
+    bit-identical."""
+    out = []
+    for k in sorted(params):
+        words = params[k].reshape(-1).view(torch.int32)
+        s1 = torch.zeros((), dtype=torch.int64, device=words.device)
+        s2 = torch.zeros_like(s1)
+        for off in range(0, words.numel(), CHECKSUM_CHUNK):
+            w = words[off:off + CHECKSUM_CHUNK].to(torch.int64)
+            pos = torch.arange(off + 1, off + 1 + w.numel(), device=w.device)
+            s1 += w.sum()
+            s2 += (w * pos).sum()
+        out.append((int(s1), int(s2)))
+    return out
+
+
+def rank_corners(group, rank, corners, device):
+    """One rank of phase 11: each corner through ``train_loop`` on the
+    process group, on the one card ``device``; per corner the history, the
+    params' checksums after every step, the launch counts and the peak
+    memory."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    out = []
+    for label, layers, steps, opt, comp, wire, lr, fused, micro, overlap in corners:
+        cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=layers)
+        shape = ShapeConfig("chip-smoke", 2048, N_WORKERS * micro, "train")
+        sums = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        params, history = train_loop(
+            cfg, shape, n_workers=N_WORKERS, compressor=compressor_name(comp, wire),
+            wire=wire, steps=steps, lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0,
+            microbatches=micro, opt=opt, device=device, group=group, overlap=overlap,
+            on_step=lambda i, p: sums.append(params_checksums(torch, p)),
+        )
+        out.append(dict(history=history, checksums=sums, n_leaves=len(params),
+                        launches=ops.launch_counts(), shifts=ops.shift_launch_counts(),
+                        peak=torch.cuda.max_memory_allocated() / 2**30))
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def ranks_phase(torch, ops, checks, device) -> dict:
+    """Phase 11: each corner on the local backend at n = 4, then on four
+    real ranks (one spawn for all corners) sharing the card through gloo.
+    Returns the launch counts of both."""
+    from repro_torch.kernels.int_compress import clip_limit
+    from repro_torch.parallel.spawn import run_ranks
+
+    launches = collections.Counter()
+    local = {}
+    for label, layers, steps, opt, comp, wire, lr, fused, micro, overlap in RANK_CORNERS:
+        counts, local[label], _ = train_phase(
+            torch, ops, checks, device, label=f"{label} (local n = 4)", layers=layers,
+            steps=steps, opt=opt, comp=comp, wire=wire, lr=lr, fused=fused,
+            microbatches=micro, overlap=overlap)
+        launches.update(counts)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"ranks: before the spawn this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the card has "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(rank_corners, N_WORKERS, args=(RANK_CORNERS, str(device)),
+                      backend="gloo", timeout_s=900)
+    print(f"ranks: {N_WORKERS} gloo ranks on one card, all corners in "
+          f"{time.perf_counter() - t0:.1f}s (spawn included); every payload reached gloo as a CUDA tensor (the port stages "
+          f"none through host memory itself; gloo copies CUDA tensors through the host)",
+          flush=True)
+    for ci, (label, layers, steps, opt, comp, wire, lr, fused, micro, overlap) in enumerate(
+            RANK_CORNERS):
+        res = [r[ci] for r in ranks]
+        hists = [r["history"] for r in res]
+        for step in range(steps):
+            sums = [r["checksums"][step] for r in res]
+            checks.true(f"{label}: step {step}: params bit-identical on the {N_WORKERS} ranks "
+                        f"({len(sums[0])} leaves' checksums)", all(x == sums[0] for x in sums))
+            recs = [h[step] for h in hists]
+            checks.true(f"{label}: step {step}: alpha and max_int identical on every rank",
+                        all(r["alpha"] == recs[0]["alpha"] and r["max_int"] == recs[0]["max_int"]
+                            for r in recs))
+        lim_sum = N_WORKERS * clip_limit(8, N_WORKERS * micro)
+        checks.true(f"{label}: max_int <= {lim_sum} on every compressed step",
+                    all(r["max_int"] <= lim_sum for r in hists[0][1:]))
+        gaps = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                for g, w in zip(hists[0], local[label])]
+        print(f"  {label}: losses {[r['loss'] for r in hists[0]]!r} on the ranks, "
+              f"{[r['loss'] for r in local[label]]!r} local; relative gaps "
+              f"{[float(f'{g:.3g}') for g in gaps]}", flush=True)
+        checks.true(f"{label}: losses within 1e-2 relative of the local backend's at every step",
+                    len(gaps) == steps and all(g < 1e-2 for g in gaps))
+        want, want_shift = expected_launches(ops, res[0]["n_leaves"], steps, opt, comp, wire,
+                                             fused=fused, microbatches=micro, n_local=1)
+        for rank, r in enumerate(res):
+            ok = all(r["launches"][k] == want[k] and r["shifts"][k] == want_shift[k] for k in want)
+            checks.true(f"{label}: rank {rank} launches {r['launches']} (expected {want}), "
+                        f"with shift {r['shifts']} (expected {want_shift})", ok)
+            launches.update(r["launches"])
+            print(f"  {label}: rank {rank}: peak {r['peak']:.1f} GiB, step ms "
+                  f"{[round(h['ms'], 1) for h in r['history']]} (4 processes time-sharing one "
+                  f"card, collectives host-staged by gloo: not a transport speed)", flush=True)
+    return launches
+
+
+def nccl_phase(torch, ops, checks, device) -> dict:
+    """Phase 12: a one-rank NCCL group in this process: int32 words and
+    int8 lanes through its all-reduce, and zero1-sgd's corner (2 layers,
+    3 steps) on it beside the local backend at n = 1. Returns the launch
+    counts of both."""
+    import tempfile
+    from repro_torch.parallel import collectives as coll
+
+    launches = collections.Counter()
+    gen = torch.Generator(device=device).manual_seed(77)
+    words = torch.randint(-(2**31), 2**31 - 1, (RAGGED,), generator=gen, device=device,
+                          dtype=torch.int32)
+    lanes = torch.randint(-127, 128, (RAGGED,), generator=gen, device=device, dtype=torch.int8)
+    corner = dict(layers=2, steps=3, opt="sgd", comp="intsgd", wire="packed8", lr=0.3,
+                  fused=False, n_workers=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        group = coll.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                        world_size=1, device=device, timeout_s=300)
+        try:
+            checks.true(f"nccl-1: backend {coll.group_backend(group)}, world size "
+                        f"{coll.group_size(group)}",
+                        coll.group_backend(group) == "nccl" and coll.group_size(group) == 1)
+            got = coll.psum_wire_words([{"words": words, "lanes": lanes}], group)
+            checks.equal("nccl-1: int32 words all-reduced over one rank == the words sent",
+                         got["words"], words)
+            checks.equal("nccl-1: int8 lanes all-reduced over one rank == the lanes sent",
+                         got["lanes"], lanes)
+            counts, hist, _ = train_phase(torch, ops, checks, device, label="nccl-1 zero1-sgd",
+                                          group=group, **corner)
+            launches.update(counts)
+        finally:
+            coll.destroy_process_group()
+    counts, local, _ = train_phase(torch, ops, checks, device,
+                                   label="nccl-1 zero1-sgd (local n = 1)", **corner)
+    launches.update(counts)
+    gaps = [abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(hist, local)]
+    checks.true(f"nccl-1: losses within 1e-2 relative of the local backend at n = 1 "
+                f"(gaps {[float(f'{g:.3g}') for g in gaps]})",
+                len(gaps) == 3 and all(g < 1e-2 for g in gaps))
+    print(f"nccl-1: step ms on the one-rank NCCL group {[round(r['ms'], 1) for r in hist]}, "
+          f"local n = 1 {[round(r['ms'], 1) for r in local]}", flush=True)
+    return launches
+
+
 def main() -> None:
+    # segments that grow in place keep the cache from fragmenting, here and
+    # in phase 11's ranks (which inherit it), as four processes share 80 GB
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -822,6 +1033,18 @@ def main() -> None:
 
     # 10. step 1 replayed for one leaf: unpack(sum of words) == sum of images
     wire_phase(torch, checks, device)
+
+    # 11. four real ranks (gloo) sharing the card, against the local backend
+    t0 = time.perf_counter()
+    for name, c in ranks_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"ranks phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 12. a one-rank NCCL group: int32 and int8 payloads, and a ZeRO-1 path
+    t0 = time.perf_counter()
+    for name, c in nccl_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"nccl phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     # the kernel line, the card line, the result
     kernels = []

@@ -2,16 +2,20 @@
 mean, the uncompressed baseline, IntSGD with a global or blockwise α rule,
 and IntDIANA, on a psum wire).
 
-Interface, on the local n-worker backend (:mod:`repro_torch.core.comm`)::
+Interface, on the local n-worker backend or a process group
+(:mod:`repro_torch.core.comm`)::
 
-    init(params, n_workers)                        -> state
+    init(params, n_local)                          -> state
     aggregate_wire(state, worker_grads, *, seeds, eta, ctx, dims)
         -> (WireAggregate, alphas, state, metrics)
 
-``worker_grads`` yields each worker's local gradient dict in worker order;
-the JAX package runs the same per-worker code under ``vmap``/``shard_map``
-and sums inside the collective. IntSGD's α depends on r_k, which depends
-on the model update of the previous step: the trainer calls
+``worker_grads`` yields the gradient dict of each of the context's local
+workers (``ctx.local_workers()``: all n locally, the rank alone on a
+group) in worker order; the JAX package runs the same per-worker code
+under ``vmap``/``shard_map`` and sums inside the collective.
+
+IntSGD's α depends on r_k, which depends on the model update of the
+previous step: the trainer calls
 ``observe_update(state, dx_stats)`` after applying the step. The first step
 is exact (paper §4.1 "the first communication is exact"): train steps use
 :func:`aggregate_exact` at k = 0.
@@ -46,8 +50,10 @@ Tree = Dict[str, torch.Tensor]
 
 
 def aggregate_exact(worker_grads: Iterable[Tree], ctx: CommCtx) -> Tree:
-    """Full-precision mean over workers (step-0 path)."""
-    return ctx.pmean(worker_grads)
+    """Full-precision mean over workers (step-0 path), summed in worker
+    order on a process group too: the step-0 update then matches the local
+    backend bit for bit, and so does every later integer image."""
+    return ctx.pmean(worker_grads, ordered=True)
 
 
 def leaf_seeds(generator: torch.Generator, n_workers: int, n_leaves: int,
@@ -103,8 +109,9 @@ class Compressor:
     fused_local_state: ClassVar[bool] = False
 
     def init(self, params, n_workers: int = 1) -> Any:
-        """Initial state for ``n_workers`` workers simulated on one device
-        (only per-worker state, such as IntDIANA's h_local, depends on n)."""
+        """Initial state for the ``n_workers`` workers this process runs
+        (``CommCtx.n_local``: all n locally, 1 per rank on a group; only
+        per-worker state, such as IntDIANA's h_local, depends on it)."""
         return ()
 
     def fused_shift(self, state):
@@ -218,7 +225,7 @@ class IntSGD(Compressor):
         alphas = {}
 
         def images():
-            for w, grads in enumerate(worker_grads):
+            for w, grads in zip(ctx.local_workers(), worker_grads):
                 ints, a = self.encode_ints(
                     state, grads, seeds=seeds, eta=eta, ctx=ctx.at_worker(w),
                     dims=dims,
@@ -269,10 +276,12 @@ class IntSGD(Compressor):
 class IntDIANA(Compressor):
     """Algorithm 3: compress gradient differences against local shifts.
 
-    State ``{"alpha": AlphaState, "h_local": {leaf: (n, *shape)},
-    "h_global": {leaf: shape}}``. The local shift h_i is per worker: on one
-    device it is one tensor per leaf with a leading worker axis, row w
-    read and advanced by worker w. The global shift h is replicated.
+    State ``{"alpha": AlphaState, "h_local": {leaf: (n_local, *shape)},
+    "h_global": {leaf: shape}}``. The local shift h_i is per worker: one
+    tensor per leaf with a leading axis over the workers this process runs,
+    row ``ctx.local_slot(w)`` read and advanced by worker w (all n rows on
+    the local backend, the rank's own row on a process group). The global
+    shift h is replicated.
 
     Wire-level split (fused_capable): ``aggregate_wire`` encodes the
     difference image Int(α(g_i − h_i)), advances h_i off that LOCAL image
@@ -281,7 +290,7 @@ class IntDIANA(Compressor):
     which takes h as its ``shift`` and emits the new h (= ĝ) in the same
     pass (``fused_shift`` / ``fused_store_shift``).
 
-    Memory: h_local costs n copies of the params, so ``aggregate_wire``
+    Memory: h_local costs n_local copies of the params, so ``aggregate_wire``
     advances it in place (the JAX package returns a new tree), and each
     leaf's g − h_i difference is freed as soon as it is encoded.
     """
@@ -328,6 +337,7 @@ class IntDIANA(Compressor):
         image)."""
         n = ctx.n
         w = ctx.worker_index()
+        slot = ctx.local_slot(w)
         wf = self.wire_format
         dims = dims if dims is not None else local_tree_dims(grads)
         names = leaf_names(grads)
@@ -336,7 +346,7 @@ class IntDIANA(Compressor):
         h_local = state["h_local"]
         ints = {
             k: wf.encode(
-                grads[k].to(torch.float32) - h_local[k][w], alphas[k], row[j],
+                grads[k].to(torch.float32) - h_local[k][slot], alphas[k], row[j],
                 n_workers=n * n_accum, stochastic=self.stochastic,
             )
             for j, k in enumerate(names)
@@ -355,15 +365,16 @@ class IntDIANA(Compressor):
         alphas = {}
 
         def images():
-            for w, grads in enumerate(worker_grads):
+            for w, grads in zip(ctx.local_workers(), worker_grads):
                 ints, a = self.encode_ints(
                     state, grads, seeds=seeds, eta=eta, ctx=ctx.at_worker(w),
                     dims=dims,
                 )
                 alphas.update(a)
                 del grads
+                slot = ctx.local_slot(w)
                 for k, s in ints.items():
-                    h_local[k][w].add_(s.to(torch.float32) / a[k])
+                    h_local[k][slot].add_(s.to(torch.float32) / a[k])
                 yield ints
                 del ints
 
@@ -393,8 +404,8 @@ class IntDIANA(Compressor):
     def finish_pipelined(self, state, int_sum_acc: Tree, local_int_acc: Tree,
                          alphas, *, ctx: CommCtx, n_accum: int):
         """Decode of the accumulated images and the shift advance:
-        h_i += (Σ_m ints_i^m)/(M·α), off each worker's integer local sum
-        ``local_int_acc`` ({leaf: (n, *shape) int32}, advanced in place as
+        h_i += (Σ_m ints_i^m)/(M·α), off each local worker's integer sum
+        ``local_int_acc`` ({leaf: (n_local, *shape)} integers, advanced in place as
         ``aggregate_wire`` does); mean_q = Σ_m Σ_i ints/(n·M·α);
         ĝ = h + mean_q, which is also the new global shift. Returns
         ``(ghat, state)``."""

@@ -1,19 +1,23 @@
-"""Train step construction (port of ``repro/launch/step.py`` on the local
-n-worker backend): the fused route and the ZeRO-1 route, with microbatch
-wire pipelining on the latter.
+"""Train step construction (port of ``repro/launch/step.py``): the fused
+route and the ZeRO-1 route, with microbatch wire pipelining on the latter,
+on the local n-worker backend (one process runs the n workers in turn) or
+on a ``torch.distributed`` process group (one process per worker; every
+rank runs the same step for its one worker, and everything after the sums
+is identical on every rank).
 
 One step, as the JAX package's ``_make_train_body`` runs it:
 
-  1. for each of the n workers in turn: forward and backward on that
-     worker's slice of the global batch (bf16 activations; f32 params, or
+  1. for each of this process's workers in turn: forward and backward on
+     that worker's slice of the global batch (bf16 activations; f32 params, or
      bf16 with ``param_dtype``); on the compressed steps its gradients
      (IntDIANA: minus its local shift) are encoded Int(α∘g) and packed into
      transport words at once and freed, the words folding into the word sum
      with the wire type's wrap-around (``Compressor.aggregate_wire``); step
      0 is exact (paper §4.1) and sums float gradients instead. With M > 1
-     microbatches on the ZeRO-1 route each microbatch m runs the n workers
-     in turn, encodes each image clipped for the n·M sum, reduces it and
-     adds the summed image to an int32 accumulator
+     microbatches on the ZeRO-1 route each microbatch m runs the workers
+     in turn, encodes each image clipped for the n·M sum, reduces it (the
+     reduce waited on after the next microbatch's backward) and adds the
+     summed image to an int32 accumulator
      (``_pipelined_grad_stage``); a compressor without wire-level
      aggregation (``none``) and the exact step average the M microbatch
      gradients in f32 first (``_accum_grad_stage``);
@@ -32,8 +36,9 @@ One step, as the JAX package's ``_make_train_body`` runs it:
      α (Alg. 2) each leaf's.
 
 α, η, the clip factor and the kernels' scalar vectors stay on the card: the
-step makes no host sync. The overlapped ring transport and tensor
-parallelism are not ported yet.
+step makes no host sync. ``overlap="ring"`` sends the integer wire in
+buckets (:mod:`repro_torch.wire.bucketing`). Tensor parallelism is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -54,7 +59,9 @@ from repro_torch.models.transformer import lm_loss, param_shapes
 from repro_torch.optim import base as optb
 from repro_torch.optim.base import Optimizer
 from repro_torch.optim.zero1 import zero1_init, zero1_update
+from repro_torch.parallel import collectives as coll
 from repro_torch.utils.tree import leaf_names, tree_abs_max
+from repro_torch.wire import WireTransportError, bucketing
 
 Tree = Dict[str, torch.Tensor]
 
@@ -73,7 +80,7 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """What every stage of the step shares: config, the n-worker context,
+    """What every stage of the step shares: config, the workers' context,
     the model's dimensionality (α's d and each leaf's d_l) and leaf order,
     the device."""
 
@@ -126,65 +133,85 @@ def _accum_grad_stage(layout: Layout, params: Tree, batch, n_micro: int):
     return loss_acc / n_micro, {k: g / n_micro for k, g in g_acc.items()}
 
 
+_INT_OF_WIDTH = {8: torch.int8, 16: torch.int16, 32: torch.int32}
+
+
 def _pipelined_grad_stage(layout: Layout, compressor: Compressor, cs, params: Tree,
                           batch, seeds: torch.Tensor, eta, n_micro: int):
-    """Microbatch wire pipelining: for each microbatch m, the n workers in
-    turn, each image Int(α g_i^m) clipped for the full n·M accumulated sum
-    (``encode_ints(n_accum=M)``, so the int32 accumulator cannot wrap) and
-    packed and folded into microbatch m's word sum as soon as its backward
-    ends; the summed image is unpacked once and added to the accumulator.
+    """Microbatch wire pipelining: for each microbatch m, the local workers
+    in turn, each image Int(α g_i^m) clipped for the full n·M accumulated
+    sum (``encode_ints(n_accum=M)``, so the int32 accumulator cannot wrap)
+    and packed as soon as its backward ends; microbatch m's reduce is
+    issued then and waited on only after microbatch m+1's backward passes
+    (on a process group the transfer runs behind them), then its summed
+    image is unpacked and added to the accumulator, in microbatch order.
     The M summed images add exactly, so
 
         ĝ = Σ_m Σ_i Int(α g_i^m) / (n·M·α)
 
     (``compressor.finish_pipelined``, which also advances the compressor's
-    state; IntDIANA's h_i reads each worker's local integer sum, kept here
-    when ``fused_local_state`` is set). ``seeds`` is (M, n, n_leaves).
-    Returns ``(ghat, state, loss, max_int, alphas)``; max_int is the largest
-    |summed image| of one microbatch, what one reduce carried."""
+    state; IntDIANA's h_i reads each local worker's integer sum, kept here
+    in the wire width's integer type when ``fused_local_state`` is set).
+    ``seeds`` is (M, n, n_leaves). Returns ``(ghat, state, loss, max_int,
+    alphas)``; max_int is the largest |summed image| of one microbatch,
+    what one reduce carried."""
     ctx = layout.ctx
     n = ctx.n
     wf = compressor.wire_format
     track_local = compressor.fused_local_state
-    worker_loss = [None] * n
-    int_acc, local_acc, alphas, max_int = None, {}, {}, None
-    for m in range(n_micro):
-        def images():
-            for w in range(n):
-                loss_m, grads = _forward_backward(
-                    layout, params, _microbatch(_microbatch(batch, w, n), m, n_micro)
-                )
-                worker_loss[w] = loss_m if m == 0 else worker_loss[w] + loss_m
-                ints, a = compressor.encode_ints(
-                    cs, grads, seeds=seeds[m], eta=eta, ctx=ctx.at_worker(w),
-                    dims=layout.dims, n_accum=n_micro,
-                )
-                alphas.update(a)
-                del grads
-                if track_local:
-                    for k, v in ints.items():
-                        if k not in local_acc:
-                            local_acc[k] = torch.zeros((n, *v.shape), dtype=v.dtype,
-                                                       device=v.device)
-                        local_acc[k][w].add_(v)
-                yield ints
-                del ints
+    # a worker's local sum over the M images is within ±(2^(bits-1)-1)//n
+    # (each image is clipped for the n·M sum), so the narrowest signed type
+    # of the wire's width holds it exactly
+    acc_dtype = _INT_OF_WIDTH[min(b for b in _INT_OF_WIDTH if b >= wf.bits)]
+    worker_loss = {}
+    local_acc, alphas = {}, {}
+    acc = {"ints": None, "max_int": None}
 
-        _, int_sum = ctx.psum_wire(images(), wf)
+    def images(m):
+        for w in ctx.local_workers():
+            loss_m, grads = _forward_backward(
+                layout, params, _microbatch(_microbatch(batch, w, n), m, n_micro)
+            )
+            worker_loss[w] = loss_m if m == 0 else worker_loss[w] + loss_m
+            ints, a = compressor.encode_ints(
+                cs, grads, seeds=seeds[m], eta=eta, ctx=ctx.at_worker(w),
+                dims=layout.dims, n_accum=n_micro,
+            )
+            alphas.update(a)
+            del grads
+            if track_local:
+                slot = ctx.local_slot(w)
+                for k, v in ints.items():
+                    if k not in local_acc:
+                        local_acc[k] = torch.zeros((ctx.n_local, *v.shape), dtype=acc_dtype,
+                                                   device=v.device)
+                    local_acc[k][slot].add_(v.to(acc_dtype))
+            yield ints
+            del ints
+
+    def fold(reduced):
+        _, int_sum = reduced
         peak = tree_abs_max(int_sum)
-        max_int = peak if max_int is None else torch.maximum(max_int, peak)
-        if int_acc is None:
-            int_acc = int_sum
+        acc["max_int"] = peak if acc["max_int"] is None else torch.maximum(acc["max_int"], peak)
+        if acc["ints"] is None:
+            acc["ints"] = int_sum
         else:
             for k, v in int_sum.items():
-                int_acc[k].add_(v)
-        del int_sum
+                acc["ints"][k].add_(v)
+
+    pending = None
+    for m in range(n_micro):
+        issued = ctx.psum_wire_start(images(m), wf)  # microbatch m's backward runs here
+        if pending is not None:
+            fold(pending.wait())
+        pending = issued
+    fold(pending.wait())
     ghat, cs = compressor.finish_pipelined(
-        cs, int_acc, local_acc if track_local else None, alphas, ctx=ctx,
+        cs, acc["ints"], local_acc if track_local else None, alphas, ctx=ctx,
         n_accum=n_micro,
     )
-    loss = torch.sum(torch.stack([wl / n_micro for wl in worker_loss])) / n
-    return ghat, cs, loss, max_int, alphas
+    loss = ctx.mean_scalars(worker_loss[w] / n_micro for w in ctx.local_workers())
+    return ghat, cs, loss, acc["max_int"], alphas
 
 
 def _fused_plan(base_opt: Optimizer, compressor: Compressor) -> str:
@@ -314,7 +341,7 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
             losses = []
 
             def worker_grads():
-                for w in range(ctx.n):
+                for w in ctx.local_workers():
                     local = _microbatch(batch, w, ctx.n)
                     if microbatches > 1:
                         loss_w, grads = _accum_grad_stage(layout, params, local, microbatches)
@@ -341,7 +368,7 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
                     dims=layout.dims,
                 )
                 metrics = (m.max_int, m.bits_per_coord, m.alphas)
-            loss = torch.sum(torch.stack(losses)) / ctx.n
+            loss = ctx.mean_scalars(losses)
 
         # the replicated global shift the fused decode adds (IntDIANA's
         # h_global; None for shift-free compressors, the exact step and the
@@ -371,7 +398,7 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
         else:
             new_params, new_opt = zero1_update(
                 base_opt, opt_state, ghat, eta, n_dp=ctx.n, param_dtype=param_dtype,
-                params_like=params,
+                params_like=params, group=ctx.group,
             )
         del ghat, words
         cs = _observe_dx(compressor, base_opt, cs, new_params, params)
@@ -394,13 +421,19 @@ def build_train_step(
     wire=None,
     microbatches: int = 1,
     device=None,
+    group=None,
+    overlap: str = "off",
+    bucket_words: int = bucketing.DEFAULT_BUCKET_WORDS,
 ) -> StepArtifacts:
     """The exact (step-0) and compressed train steps of ``cfg`` with
-    ``n_workers`` data-parallel workers simulated on one device (the card
-    by default; ``device="cpu"`` runs the kernels' plain versions). The
-    update runs on the ZeRO-1 route, or with ``fused=True`` through the
-    fused decode + update kernels; ``param_dtype`` is the compute params'
-    type (the ZeRO-1 route gathers its f32 master rows into it)."""
+    ``n_workers`` data-parallel workers: simulated in turn on one device, or
+    with a ``torch.distributed`` ``group`` one per rank (``n_workers`` must
+    then be its world size). The device is the card by default;
+    ``device="cpu"`` runs the kernels' plain versions. The update runs on
+    the ZeRO-1 route, or with ``fused=True`` through the fused decode +
+    update kernels; ``param_dtype`` is the compute params' type (the ZeRO-1
+    route gathers its f32 master rows into it). ``overlap="ring"`` sends
+    the integer wire in buckets of ``bucket_words`` words."""
     device = resolve_device(device)
     # float32 matmuls in full float32 on the card (no TF32), as in the JAX
     # package: the bf16 forward is the train path's only reduced precision
@@ -415,6 +448,16 @@ def build_train_step(
         )
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    if group is None:
+        ctx = CommCtx(n_workers=n_workers, overlap=overlap, bucket_words=bucket_words)
+    else:
+        ctx = CommCtx.on_group(group, overlap=overlap, bucket_words=bucket_words)
+        if ctx.n != n_workers:
+            raise ValueError(
+                f"{n_workers} workers on a process group of {ctx.n} ranks: one "
+                "rank per worker"
+            )
+        _check_group_wire(compressor)
     if fused:
         _fused_plan(base_opt, compressor)
         if param_dtype != torch.float32:
@@ -442,7 +485,7 @@ def build_train_step(
         leaf_dims={k: float(math.prod(s)) for k, s in shapes.items()},
     )
     layout = Layout(
-        cfg=cfg, ctx=CommCtx(n_workers=n_workers), dims=dims,
+        cfg=cfg, ctx=ctx, dims=dims,
         names=tuple(leaf_names(shapes)), device=device,
     )
 
@@ -458,15 +501,36 @@ def build_train_step(
                          layout=layout)
 
 
+def _check_group_wire(compressor: Compressor) -> None:
+    """A process group sums int8 and int32 lanes only: refuse a 16-bit
+    dense wire before the first step."""
+    wf = getattr(compressor, "wire_format", None)
+    lane = getattr(wf, "lane_dtype", None)
+    if lane is not None and lane not in coll.GROUP_WIRE_DTYPES:
+        raise WireTransportError(
+            f"the dense{wf.bits} wire sends {lane} lanes, which no process group "
+            "sums (gloo refuses int16, NCCL has no 16-bit integer type); use "
+            f"packed{wf.bits}, which costs the same {wf.bits // 8} bytes per coordinate"
+        )
+
+
 def build_init_state(params: Tree, *, n_workers: int, compressor: Compressor,
-                     base_opt: Optimizer, fused: bool = False):
+                     base_opt: Optimizer, fused: bool = False, group=None):
     """``(opt_state, comp_state)`` for ``params``: ZeRO-1 masters (equal to
     the params) with the optimizer state in their row layout by default, the
     fused route's f32 state tree with ``fused=True``; the compressor's state
-    for ``n_workers`` workers."""
+    for the workers this process runs. With a process ``group`` (of
+    ``n_workers`` ranks) the ZeRO-1 rows and IntDIANA's local shift are
+    the rank's alone."""
+    rank = None
+    if group is not None:
+        if coll.group_size(group) != n_workers:
+            raise ValueError(f"{n_workers} workers on a process group of "
+                             f"{coll.group_size(group)} ranks")
+        rank = coll.group_rank(group)
     if fused:
         _fused_plan(base_opt, compressor)
         opt_state = optb.fused_state_init(base_opt, params)
     else:
-        opt_state = zero1_init(base_opt, params, n_workers)
-    return opt_state, compressor.init(params, n_workers)
+        opt_state = zero1_init(base_opt, params, n_workers, rank=rank)
+    return opt_state, compressor.init(params, n_workers if rank is None else 1)

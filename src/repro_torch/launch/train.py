@@ -1,11 +1,22 @@
 """Training loop and CLI (port of ``repro/launch/train.py``): the compressed
-data-parallel IntSGD loop with n workers simulated on one card.
+data-parallel IntSGD loop, with n workers simulated on one card or one
+process per worker under ``torchrun``.
 
 CLI (runs on the card; ``--device cpu`` runs the kernels' plain versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
       --smoke --steps 8 --workers 4 --batch 8 --seq 32 \\
       --compressor intsgd8_packed --wire packed8 --opt sgd [--microbatches 2]
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch granite-8b --smoke --workers 4 \\
+      --batch 8 --seq 32 --device cpu [--overlap ring --bucket-words 4096]
+
+Under ``torchrun`` (its ``RANK``/``WORLD_SIZE`` environment) each process
+is one worker: the process group is NCCL on the card (one card per rank)
+and gloo on the CPU; ``--dist-backend gloo`` lets ranks share one card.
+``--workers`` (or ``--data``) must equal the world size, and only rank 0
+prints the step lines.
 
 The update runs on the ZeRO-1 route (f32 master rows, the JAX package's
 default) unless ``--fused`` asks for the fused decode + update kernels;
@@ -16,14 +27,16 @@ intsgd, intsgd_block (blockwise α, Alg. 2), intsgd_determ (round half to
 even), intsgd4, intsgd8, intsgd8_packed, intsgd4_packed or intdiana;
 ``--wire`` dense4/8/16/32 or packed4/8/16 (a compressor whose name carries
 no width — intsgd, intsgd_block, intsgd_determ, intdiana — takes the
-wire's). ``--layers N`` cuts the depth (full width kept). Not ported yet,
-and raising so: ``--ckpt-dir``, ``--overlap ring`` and ``--data``/``--model``
-meshes.
+wire's). ``--layers N`` cuts the depth (full width kept). ``--overlap
+ring`` sends the integer wire in buckets of ``--bucket-words`` words. Not
+ported yet, and raising so: ``--ckpt-dir`` and ``--model`` > 1 (tensor
+parallelism).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
@@ -38,7 +51,8 @@ from repro_torch.models.transformer import init_lm_params
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.schedules import constant, warmup_wrap
 from repro_torch.optim.sgd import sgd
-from repro_torch.wire import make_wire_format, wire_format_names
+from repro_torch.parallel import collectives as coll
+from repro_torch.wire import bucketing, make_wire_format, wire_format_names
 
 OPTIMIZERS = {
     "sgd": lambda: sgd(momentum=0.9, weight_decay=1e-4),
@@ -65,15 +79,23 @@ def train_loop(
     opt: str = "sgd",
     param_dtype=torch.float32,
     device=None,
+    group=None,
+    overlap: str = "off",
+    bucket_words: int = bucketing.DEFAULT_BUCKET_WORDS,
+    on_step=None,
 ):
     """Train ``cfg`` for ``steps`` steps (step 0 exact, the rest compressed)
     on synthetic data, on the ZeRO-1 route or, with ``fused=True``, the
-    fused one. Weights come from a ``torch.Generator`` seeded with ``seed``
-    on the device (in ``param_dtype``), encode seeds from a host generator
-    with the same seed. Returns ``(params, history)``: one record per step
-    with loss, max_int, bits, each leaf's α (``alpha``, empty on the exact
-    step and for a float compressor) and the step's wall time in ms (the
-    step ends in a sync)."""
+    fused one; the n workers simulated in turn, or one per rank of a
+    ``torch.distributed`` ``group`` (every rank draws the same weights,
+    batches and encode seeds and uses its own share; only rank 0 prints).
+    Weights come from a ``torch.Generator`` seeded with ``seed`` on the
+    device (in ``param_dtype``), encode seeds from a host generator with the
+    same seed. Returns ``(params, history)``: one record per step with
+    loss, max_int, bits, each leaf's α (``alpha``, empty on the exact step
+    and for a float compressor) and the step's wall time in ms (the step
+    ends in a sync). ``on_step(i, params)``, if given, is called after each
+    step with its new params."""
     device = resolve_device(device)
     if opt not in OPTIMIZERS:
         raise ValueError(f"optimizer {opt!r}; options {sorted(OPTIMIZERS)}")
@@ -88,7 +110,8 @@ def train_loop(
     art = build_train_step(
         cfg, shape, n_workers=n_workers, compressor=comp, base_opt=base_opt,
         lr_schedule=sched, param_dtype=param_dtype, fused=fused,
-        clip_norm=clip_norm, microbatches=microbatches, device=device,
+        clip_norm=clip_norm, microbatches=microbatches, device=device, group=group,
+        overlap=overlap, bucket_words=bucket_words,
     )
     params = init_lm_params(
         cfg, generator=torch.Generator(device=device).manual_seed(seed),
@@ -96,6 +119,7 @@ def train_loop(
     )
     opt_state, comp_state = build_init_state(
         params, n_workers=n_workers, compressor=comp, base_opt=base_opt, fused=fused,
+        group=group,
     )
     seed_gen = torch.Generator().manual_seed(seed)
     data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=seed)
@@ -113,18 +137,29 @@ def train_loop(
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the step's one host sync
         ms = (time.perf_counter() - t0) * 1e3
+        if on_step is not None:
+            on_step(i, params)
         alphas = metrics[2]
         alpha_vals = torch.stack(list(alphas.values())).tolist() if alphas else []
         rec = dict(step=i, loss=float(loss), max_int=float(metrics[0]),
                    bits=float(metrics[1]), alpha=dict(zip(alphas, alpha_vals)), ms=ms)
         history.append(rec)
-        if i % log_every == 0 or i == steps - 1:
+        if art.layout.ctx.worker_index() == 0 and (i % log_every == 0 or i == steps - 1):
             print(
                 f"[train] step {i:5d} loss {rec['loss']:.4f} "
                 f"max_int {rec['max_int']:.0f} bits {rec['bits']:.0f} "
                 f"dt {ms:.1f}ms", flush=True,
             )
     return params, history
+
+
+def _torchrun_rank():
+    """``(rank, world_size, local_rank)`` from torchrun's environment, or
+    None outside it."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    return (int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+            int(os.environ.get("LOCAL_RANK", os.environ["RANK"])))
 
 
 def main(argv=None):
@@ -136,8 +171,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--batch", type=int, default=8, help="global batch")
-    ap.add_argument("--workers", type=int, default=1,
-                    help="data-parallel workers simulated on the device")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="data-parallel workers: simulated on the device, or "
+                         "under torchrun the world size (default: 1, or the "
+                         "world size)")
     ap.add_argument("--lr", type=float, default=0.3)
     ap.add_argument("--compressor", default="intsgd",
                     help="gradient compressor: " + ", ".join(compressor_names()))
@@ -149,10 +186,16 @@ def main(argv=None):
                          "kernels (default: the ZeRO-1 route)")
     ap.add_argument("--clip-norm", type=float, default=1.0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend under torchrun (default: nccl "
+                         "on cuda, gloo on cpu; gloo lets ranks share a card)")
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--data", type=int, default=None,
+                    help="data-parallel degree (the JAX CLI's mesh axis): as --workers")
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--overlap", default="off", choices=["off", "ring"])
+    ap.add_argument("--bucket-words", type=int, default=bucketing.DEFAULT_BUCKET_WORDS,
+                    help="words per bucket of the --overlap ring wire")
     ap.add_argument("--microbatches", type=int, default=1,
                     help="pipelined microbatches per step (ZeRO-1 route)")
     args = ap.parse_args(argv)
@@ -160,24 +203,44 @@ def main(argv=None):
     not_ported = [
         flag for flag, on in (
             ("--ckpt-dir", args.ckpt_dir is not None),
-            ("--overlap ring", args.overlap != "off"),
-            ("--data/--model meshes", args.data > 1 or args.model > 1),
+            ("--model > 1 (tensor parallelism)", args.model > 1),
         ) if on
     ]
     if not_ported:
         raise NotImplementedError(", ".join(not_ported) + ": not ported yet")
+    if args.workers is not None and args.data is not None and args.workers != args.data:
+        raise ValueError(f"--workers {args.workers} and --data {args.data} disagree")
+    workers = args.workers if args.workers is not None else args.data
+    run = _torchrun_rank()
+    if run is not None and workers is not None and workers != run[1]:
+        raise ValueError(
+            f"--workers {workers} under torchrun with {run[1]} processes: one "
+            "process per worker"
+        )
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
-    train_loop(
-        cfg, shape, n_workers=args.workers, compressor=args.compressor,
-        steps=args.steps, lr=args.lr, fused=args.fused,
+    kw = dict(
+        compressor=args.compressor, steps=args.steps, lr=args.lr, fused=args.fused,
         clip_norm=args.clip_norm, wire=args.wire, microbatches=args.microbatches,
-        opt=args.opt, device=args.device,
+        opt=args.opt, overlap=args.overlap, bucket_words=args.bucket_words,
     )
+    if run is None:
+        train_loop(cfg, shape, n_workers=workers or 1, device=args.device, **kw)
+        return
+    rank, world, local_rank = run
+    device = resolve_device(args.device)
+    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda":  # NCCL: one card per rank; gloo ranks may share
+        device = torch.device("cuda", local_rank % torch.cuda.device_count())
+    group = coll.init_process_group(backend, device=device)
+    try:
+        train_loop(cfg, shape, n_workers=world, device=device, group=group, **kw)
+    finally:
+        coll.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -159,7 +159,15 @@ def opt_state_from_jax(state_of_numpy, device) -> Dict[str, object]:
     }
 
 
-def zero1_state_from_jax(opt_state_of_numpy, comp_state_of_numpy, device):
+def _rank_rows(tree: dict, rank) -> dict:
+    """Every leaf's row ``rank`` (kept as a (1, ...) tensor), or the tree
+    itself with ``rank`` None."""
+    if rank is None:
+        return tree
+    return {k: v[rank:rank + 1].clone() for k, v in tree.items()}
+
+
+def zero1_state_from_jax(opt_state_of_numpy, comp_state_of_numpy, device, rank=None):
     """JAX ZeRO-1 state as ``build_init_state(fused=False)`` and the train
     step hold it globally — ``{"master": tree, "base": state}``, every
     tensor leaf in its ``(n_dp, ceil(k/n_dp))`` row layout with the leading
@@ -168,17 +176,19 @@ def zero1_state_from_jax(opt_state_of_numpy, comp_state_of_numpy, device):
     name (``optim.zero1``'s layout), the base state as the port's optimizer
     holds it (SGD: a leaf dict of momentum rows; AdamW: ``{"mu", "nu",
     "count"}``), the compressor state as :func:`comp_state_from_jax` gives
-    it."""
+    it. With ``rank``: the state that rank of a process group holds — row
+    ``rank`` of the masters, the optimizer state and IntDIANA's h_local."""
     base = opt_state_of_numpy["base"]
     if isinstance(base, dict) and "count" in base:
         base = opt_state_from_jax(base, device)
+        base = dict(base, mu=_rank_rows(base["mu"], rank), nu=_rank_rows(base["nu"], rank))
     elif isinstance(base, dict):
-        base = params_from_jax(base, device)
+        base = _rank_rows(params_from_jax(base, device), rank)
     else:  # SGD without momentum keeps no state
         base = ()
-    opt_state = {"master": params_from_jax(opt_state_of_numpy["master"], device),
-                 "base": base}
-    return opt_state, comp_state_from_jax(comp_state_of_numpy, device)
+    master = _rank_rows(params_from_jax(opt_state_of_numpy["master"], device), rank)
+    opt_state = {"master": master, "base": base}
+    return opt_state, comp_state_from_jax(comp_state_of_numpy, device, rank)
 
 
 def _first(v, device) -> torch.Tensor:
@@ -196,13 +206,14 @@ def _alpha_state_from_jax(alpha, device) -> AlphaState:
     return AlphaState(r=r, step=_first(alpha.step, device))
 
 
-def comp_state_from_jax(state_of_numpy, device):
+def comp_state_from_jax(state_of_numpy, device, rank=None):
     """JAX compressor state, stacked over the workers as the JAX step and
     ``vmap_workers`` hold it (every leaf with a leading worker axis) -> the
     port's. IntSGD's is a bare ``AlphaState(r, step)`` (r a per-leaf tree
     for blockwise α), taken from worker 0. IntDIANA's is ``{"alpha":
     AlphaState, "h_local": tree, "h_global": tree}``: h_local kept stacked
-    ``(n, *shape)`` per leaf, the replicated h_global and α state taken
+    ``(n, *shape)`` per leaf (with ``rank``, that rank's row alone, as a
+    process group holds it), the replicated h_global and α state taken
     from worker 0. The float baseline's is empty."""
     if isinstance(state_of_numpy, tuple) and not state_of_numpy:
         return ()
@@ -210,7 +221,7 @@ def comp_state_from_jax(state_of_numpy, device):
         return _alpha_state_from_jax(state_of_numpy, device)
     return {
         "alpha": _alpha_state_from_jax(state_of_numpy["alpha"], device),
-        "h_local": params_from_jax(state_of_numpy["h_local"], device),
+        "h_local": _rank_rows(params_from_jax(state_of_numpy["h_local"], device), rank),
         "h_global": {
             k: v[0].clone()
             for k, v in params_from_jax(state_of_numpy["h_global"], device).items()

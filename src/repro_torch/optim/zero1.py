@@ -8,7 +8,9 @@ end)::
     master, optimizer state: (n_dp, ceil(k / n_dp)) f32 — row w is worker w's
 
 AdamW's ``count`` stays an int32 scalar on the card. On the local n-worker
-backend one process holds all n rows of every leaf.
+backend one process holds all n rows of every leaf; on a process group
+each rank holds and updates only its own row, a (1, ceil(k / n_dp)) tensor
+(``rank=``).
 
 Step protocol, as the JAX package runs it inside ``shard_map``:
 
@@ -19,10 +21,11 @@ Step protocol, as the JAX package runs it inside ``shard_map``:
   3. the new master rows are cast to ``param_dtype`` and all-gathered back
      to the leaf's shape (``collectives.all_gather_rows``).
 
-Every ported optimizer is elementwise, so here the n workers' rows of a
-leaf are updated as one (n_dp, k / n_dp) tensor op; the gather goes through
-the collectives module, where a process group can take the local backend's
-place without touching this call site.
+Every ported optimizer is elementwise, so on the local backend the n
+workers' rows of a leaf are updated as one (n_dp, k / n_dp) tensor op, and
+a rank's own row on a group comes out bit-equal to row w of it. The gather
+goes through the collectives module (``dist.all_gather`` in rank order on a
+group).
 """
 from __future__ import annotations
 
@@ -50,21 +53,34 @@ def shard_leaf(x: torch.Tensor, n_dp: int) -> torch.Tensor:
     return _pad_rows(x.reshape(-1).to(torch.float32, copy=True), n_dp)
 
 
-def zero1_init(base: Optimizer, params: Tree, n_dp: int):
+def _own_rows(rows: torch.Tensor, rank) -> torch.Tensor:
+    """All n rows locally (``rank`` None), or the rank's (1, per) row (a
+    view)."""
+    return rows if rank is None else rows[rank:rank + 1]
+
+
+def zero1_init(base: Optimizer, params: Tree, n_dp: int, rank=None):
     """``{"master": {leaf: rows}, "base": base.init(masters)}``: the masters
-    equal the params, the optimizer state has the masters' layout."""
-    masters = {k: shard_leaf(p, n_dp) for k, p in params.items()}
+    equal the params, the optimizer state has the masters' layout; all n
+    rows, or with ``rank`` that rank's row alone."""
+    masters = {k: _own_rows(shard_leaf(p, n_dp), rank) for k, p in params.items()}
+    if rank is not None:  # keep the row, not the n rows it views
+        masters = {k: m.clone() for k, m in masters.items()}
     return {"master": masters, "base": base.init(masters)}
 
 
 def zero1_update(base: Optimizer, state, ghat: Tree, eta, *, n_dp: int,
-                 param_dtype=torch.float32, params_like: Tree):
-    """One ZeRO-1 step of every worker's rows. Returns ``(new_params,
+                 param_dtype=torch.float32, params_like: Tree, group=None):
+    """One ZeRO-1 step of this process's rows: every worker's locally, the
+    rank's own on a process ``group``. Returns ``(new_params,
     new_state)``: the gathered params in ``param_dtype`` with
-    ``params_like``'s shapes, and the new master rows and optimizer state."""
+    ``params_like``'s shapes, and the new master rows and optimizer
+    state."""
     masters = state["master"]
+    rank = None if group is None else coll.group_rank(group)
     g_rows = {
-        k: _pad_rows(ghat[k].reshape(-1).to(torch.float32), n_dp) for k in masters
+        k: _own_rows(_pad_rows(ghat[k].reshape(-1).to(torch.float32), n_dp), rank)
+        for k in masters
     }
     updates, new_base = base.update(g_rows, state["base"], masters, eta)
     del g_rows
@@ -74,7 +90,7 @@ def zero1_update(base: Optimizer, state, ghat: Tree, eta, *, n_dp: int,
     def gather_param(rows, like):
         # with f32 params and no padding the leaf is a view of the new master
         # rows (nothing writes either in place)
-        full = coll.all_gather_rows(rows.to(param_dtype))
+        full = coll.all_gather_rows(rows.to(param_dtype), group)
         return full[: like.numel()].reshape(like.shape)
 
     new_params = {k: gather_param(new_master[k], params_like[k]) for k in masters}

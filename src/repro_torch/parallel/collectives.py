@@ -1,24 +1,105 @@
-"""Collectives of the local n-worker backend (port of the matching subset of
-``repro/parallel/collectives.py``).
+"""Collectives of the port (port of the matching subset of
+``repro/parallel/collectives.py``), on two backends.
 
-One process drives one card and simulates the n data-parallel workers in
-turn, the role ``vmap_workers`` plays in the JAX package: what would cross
-the wire between workers meets here instead. Every reduction the train step
-needs goes through this module, so a process-group backend (NCCL) can take
-its place later without touching the call sites.
+- **Local** (``group=None``): one process drives one card and simulates the
+  n data-parallel workers in turn, the role ``vmap_workers`` plays in the
+  JAX package. Each function takes the workers' contributions as an
+  iterable in worker order, and what would cross the wire meets here.
+- **Process group** (``group`` a ``torch.distributed`` group): one process
+  per worker. The iterable holds exactly this rank's one contribution, and
+  the function is the library's collective over the group (NCCL across
+  cards, or gloo, which also lets several ranks share one card).
+
+Every ``torch.distributed`` call of the port lives in this module (the
+JAX package's collectives-shim rule), so the call sites read the same on
+both backends.
 
 The integer-only guard carries over: gradient payloads summed here must be
-integer transport words — the paper's floatless wire is structural.
+integer transport words — the paper's floatless wire is structural. On a
+group they are summed in their own type (int32 packed words, int8 or int32
+dense lanes), which wraps as the local backend's explicit wrap does. Neither
+gloo nor NCCL sums int16, so a ``dense16`` payload is refused on a group.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+import datetime
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.ref import wrap_int
 
 Tree = Dict[str, torch.Tensor]
+# the integer lane types gloo and NCCL both sum
+GROUP_WIRE_DTYPES = (torch.int8, torch.int32)
+# elements per all_gather of the rank-ordered float mean
+ORDERED_GATHER_CHUNK = 1 << 24
+
+
+class Pending:
+    """An issued collective: ``wait()`` blocks on its works (none on the
+    local backend, where the result is already computed) and returns the
+    result."""
+
+    def __init__(self, works: Sequence, result: Callable[[], object]):
+        self._works = list(works)
+        self._result = result
+
+    def wait(self):
+        for work in self._works:
+            work.wait()
+        self._works = []
+        return self._result()
+
+    def then(self, fn: Callable) -> "Pending":
+        """The same works, the result passed through ``fn``."""
+        return Pending(self._works, lambda: fn(self._result()))
+
+
+def init_process_group(backend: str, *, init_method: str = "env://",
+                       rank: Optional[int] = None, world_size: Optional[int] = None,
+                       timeout_s: float = 600.0, device: Optional[torch.device] = None):
+    """Join the default process group and return it. NCCL is bound to
+    ``device`` (one card per rank); gloo takes tensors on the CPU or on a
+    card, so several ranks can share one."""
+    kw = {}
+    if rank is not None:
+        kw.update(rank=rank, world_size=world_size)
+    if backend == "nccl":
+        kw["device_id"] = device
+    dist.init_process_group(backend, init_method=init_method,
+                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    return dist.group.WORLD
+
+
+def destroy_process_group() -> None:
+    dist.destroy_process_group()
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return dist.get_rank(group)
+
+
+def group_backend(group) -> str:
+    return str(dist.get_backend(group))
+
+
+def barrier(group) -> None:
+    dist.barrier(group)
+
+
+def _only(worker_trees: Iterable, what: str):
+    """This rank's one contribution on a group."""
+    trees = list(worker_trees)
+    if len(trees) != 1:
+        raise ValueError(f"{what} on a process group takes this rank's one "
+                         f"contribution, got {len(trees)}")
+    return trees[0]
 
 
 def check_wire_dtypes(words: Tree) -> None:
@@ -28,6 +109,18 @@ def check_wire_dtypes(words: Tree) -> None:
                 f"wire payload {name!r} must be integer, got {v.dtype} — the "
                 "IntSGD wire carries no floats (float reductions go through "
                 "pmean_tree)"
+            )
+
+
+def check_group_wire_dtypes(words: Tree) -> None:
+    check_wire_dtypes(words)
+    for name, v in words.items():
+        if v.dtype not in GROUP_WIRE_DTYPES:
+            raise TypeError(
+                f"wire payload {name!r} is {v.dtype}: a process group sums only "
+                f"{[str(d) for d in GROUP_WIRE_DTYPES]} lanes (gloo refuses "
+                "int16, NCCL has no 16-bit integer type); use packed16 for a "
+                "16-bit wire"
             )
 
 
@@ -56,45 +149,150 @@ def add_wire_words(acc: Optional[Tree], words: Tree) -> Tree:
     }
 
 
-def psum_wire_words(worker_words: Iterable[Tree]) -> Tree:
-    """The integer all-reduce of the n workers' word planes."""
-    acc = None
-    for words in worker_words:
-        acc = add_wire_words(acc, words)
-    if acc is None:
-        raise ValueError("psum over zero workers")
-    return acc
+def _all_reduce_copies(tree: Tree, group, op=dist.ReduceOp.SUM, *,
+                       inplace: bool = False) -> Pending:
+    """One async all-reduce per leaf, all issued before any is waited on;
+    on a copy (the library reduces in place) unless ``inplace``."""
+    out = dict(tree) if inplace else {k: v.clone() for k, v in tree.items()}
+    works = [dist.all_reduce(v, op=op, group=group, async_op=True) for v in out.values()]
+    return Pending(works, lambda: out)
 
 
-def pmean_tree(worker_trees: Iterable[Tree], n: int) -> Tree:
-    """Float mean over the n workers (the exact step-0 aggregation), summed
-    in worker order in f32."""
-    acc = None
-    count = 0
-    for tree in worker_trees:
-        count += 1
+def psum_wire_words(worker_words: Iterable[Tree], group=None, *,
+                    async_op: bool = False, inplace: bool = False):
+    """The integer all-reduce of the workers' word planes: locally the
+    wrap-around sum over the n workers in turn; on a group one
+    ``all_reduce(SUM)`` per leaf payload in its own integer type, into the
+    payload itself with ``inplace`` (for a caller that owns it; no copy).
+    Returns the summed tree, or a :class:`Pending` of it with
+    ``async_op``."""
+    if group is None:
+        acc = None
+        for words in worker_words:
+            acc = add_wire_words(acc, words)
         if acc is None:
-            acc = {k: v.to(torch.float32).clone() for k, v in tree.items()}
-        else:
-            for k, v in tree.items():
-                acc[k].add_(v.to(torch.float32))
-    if count != n:
-        raise ValueError(f"pmean over {count} workers, expected {n}")
-    return {k: v / n for k, v in acc.items()}
+            raise ValueError("psum over zero workers")
+        pending = Pending((), lambda: acc)
+    else:
+        words = _only(worker_words, "psum_wire_words")
+        check_group_wire_dtypes(words)
+        pending = _all_reduce_copies(words, group, inplace=inplace)
+    return pending if async_op else pending.wait()
 
 
-def all_gather_tree(worker_trees: Iterable[Tree], n: int) -> Tree:
+def psum_wire_words_bucketed(worker_buckets: Iterable[List[torch.Tensor]], group=None, *,
+                             async_op: bool = False, inplace: bool = False):
+    """The bucketed integer all-reduce (``overlap="ring"``): each worker's
+    payload cut into fixed-size 1-D buckets (:mod:`repro_torch.wire.bucketing`),
+    each bucket reduced on its own. On a group every bucket's
+    ``all_reduce(SUM)`` is issued async and all are waited on together, so
+    the transfers queue behind one another while the caller goes on; the
+    library's all-reduce is already a ring (NCCL's), so the JAX package's
+    hand-written ``ring_allreduce_int`` has no counterpart here. Integer
+    addition is exact in any order: bit-identical to
+    :func:`psum_wire_words` on the debucketized tree. Returns the list of
+    summed buckets, or a :class:`Pending` of it."""
+    as_tree = ({str(i): b for i, b in enumerate(buckets)} for buckets in worker_buckets)
+    pending = psum_wire_words(as_tree, group, async_op=True, inplace=inplace).then(
+        lambda tree: [tree[str(i)] for i in range(len(tree))])
+    return pending if async_op else pending.wait()
+
+
+def pmean_tree(worker_trees: Iterable[Tree], n: int, group=None, *,
+               ordered: bool = False) -> Tree:
+    """Float mean over the n workers. Locally the f32 sum runs in worker
+    order. On a group it is ``all_reduce(SUM)/n`` in the library's order —
+    what the uncompressed baseline pays every step — unless ``ordered``:
+    then each leaf is gathered and summed in rank order, one leaf at a time,
+    bit-identical to the local backend (the exact step 0, where one ULP
+    would move every later integer image; n× the bytes, once per run)."""
+    if group is None:
+        acc = None
+        count = 0
+        for tree in worker_trees:
+            count += 1
+            if acc is None:
+                acc = {k: v.to(torch.float32).clone() for k, v in tree.items()}
+            else:
+                for k, v in tree.items():
+                    acc[k].add_(v.to(torch.float32))
+        if count != n:
+            raise ValueError(f"pmean over {count} workers, expected {n}")
+        return {k: v / n for k, v in acc.items()}
+    tree = _only(worker_trees, "pmean_tree")
+    _check_size(n, group)
+    if not ordered:
+        summed = _all_reduce_copies({k: v.to(torch.float32) for k, v in tree.items()},
+                                    group).wait()
+        return {k: v / n for k, v in summed.items()}
+    out = {}
+    for k, v in tree.items():
+        flat = v.reshape(-1)
+        acc = torch.empty(flat.shape, dtype=torch.float32, device=flat.device)
+        # in chunks, so that n copies of one chunk (not of a whole leaf) are
+        # alive at a time; the sum is elementwise, so chunking changes no bit
+        for off in range(0, flat.numel(), ORDERED_GATHER_CHUNK):
+            parts = _gather_leaf(flat[off:off + ORDERED_GATHER_CHUNK], n, group)
+            part_acc = acc[off:off + ORDERED_GATHER_CHUNK]
+            part_acc.copy_(parts[0])
+            for part in parts[1:]:
+                part_acc.add_(part.to(torch.float32))
+            del parts
+        out[k] = (acc / n).reshape(v.shape)
+    return out
+
+
+def _check_size(n: int, group) -> None:
+    if dist.get_world_size(group) != n:
+        raise ValueError(f"a collective over {n} workers on a group of "
+                         f"{dist.get_world_size(group)} ranks")
+
+
+def _gather_leaf(v: torch.Tensor, n: int, group) -> List[torch.Tensor]:
+    """Every rank's ``v``, in rank order (the list form of all_gather)."""
+    out = [torch.empty_like(v) for _ in range(n)]
+    dist.all_gather(out, v.contiguous(), group=group)
+    return out
+
+
+def all_gather_tree(worker_trees: Iterable[Tree], n: int, group=None) -> Tree:
     """Each leaf gathered over the n workers: a leading worker axis of size
     n, worker order (the JAX package's ``all_gather_flat`` per leaf)."""
+    if group is not None:
+        tree = _only(worker_trees, "all_gather_tree")
+        _check_size(n, group)
+        return {k: torch.stack(_gather_leaf(v, n, group)) for k, v in tree.items()}
     trees = list(worker_trees)
     if len(trees) != n:
         raise ValueError(f"all_gather over {len(trees)} workers, expected {n}")
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
-def all_gather_rows(rows: torch.Tensor) -> torch.Tensor:
+def pmax_tree(worker_trees: Iterable[Tree], group=None) -> Tree:
+    """Elementwise max over the workers (``lax.pmax`` per leaf)."""
+    if group is not None:
+        tree = _only(worker_trees, "pmax_tree")
+        return _all_reduce_copies(tree, group, dist.ReduceOp.MAX).wait()
+    acc = None
+    for tree in worker_trees:
+        acc = dict(tree) if acc is None else {
+            k: torch.maximum(acc[k], v) for k, v in tree.items()}
+    if acc is None:
+        raise ValueError("pmax over zero workers")
+    return acc
+
+
+def all_gather_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
     """The ZeRO-1 param all-gather (``all_gather_concat`` over flat rows in
-    the JAX package): row w of ``rows`` (n, per) is worker w's; returns
-    every worker's row concatenated in worker order, flat (n·per,). On the
-    local backend the n rows already sit side by side."""
-    return rows.reshape(-1)
+    the JAX package): every worker's row concatenated in worker order, flat
+    (n·per,). Locally ``rows`` is (n, per), row w worker w's, already side by
+    side; on a group it is this rank's (1, per) row, gathered in rank
+    order."""
+    if group is None:
+        return rows.reshape(-1)
+    n = dist.get_world_size(group)
+    out = torch.empty((n, *rows.shape[1:]), dtype=rows.dtype, device=rows.device)
+    # gathered straight into the rows of the result: no concatenated copy
+    dist.all_gather(list(out.unbind(0)), rows.reshape(rows.shape[1:]).contiguous(),
+                    group=group)
+    return out.reshape(-1)

@@ -9,13 +9,14 @@ name raises saying so.
 """
 from __future__ import annotations
 
-from repro_torch.wire.base import WireFormat, WireRangeError, clip_limit
+from repro_torch.wire.base import WireFormat, WireRangeError, WireTransportError, clip_limit
 from repro_torch.wire.dense import DenseInt
 from repro_torch.wire.packed import PackedInt
 
 __all__ = [
     "WireFormat",
     "WireRangeError",
+    "WireTransportError",
     "DenseInt",
     "PackedInt",
     "clip_limit",

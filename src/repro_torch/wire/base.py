@@ -26,13 +26,19 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import INT_LIM
 
-__all__ = ["WireFormat", "WireRangeError", "clip_limit"]
+__all__ = ["WireFormat", "WireRangeError", "WireTransportError", "clip_limit"]
 
 
 class WireRangeError(ValueError):
     """The wire configuration cannot represent the n-worker sum: the §5.1
     clip limit ``(2^(b-1)-1) // n_workers`` degenerates to 0, which would
     silently zero every gradient (e.g. 256 workers on an int8 wire)."""
+
+
+class WireTransportError(ValueError):
+    """The wire's lanes cannot ride the transport: a process group sums
+    int8 and int32 lanes only, so ``dense16`` (int16 lanes) is refused
+    there in favour of ``packed16``, which costs the same bytes."""
 
 
 def clip_limit(*, n_workers: int, bits: int) -> int:

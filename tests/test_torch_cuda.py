@@ -371,3 +371,66 @@ def test_zero1_pipelined_step_on_the_card_matches_the_cpu(dev):
     assert all(torch.equal(acc_gpu[k], acc_cpu[k]) for k in acc_cpu)
     assert any(bool(v.any()) for v in acc_cpu.values())
     assert all(torch.equal(rounds["cuda"][3][k], rounds["cpu"][3][k]) for k in acc_cpu)
+
+
+def _cuda_ranks_drive(group, rank, corner):
+    """Three steps of a smoke corner on ``group`` (gloo ranks sharing
+    cuda:0, or the local backend with ``group`` None); per step the loss
+    and the params, and the rank's kernel launch counts."""
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
+    from repro_torch.launch.train import train_loop
+
+    opt, compressor, wire, fused, micro, overlap = corner
+    cfg = smoke_config(get_arch("granite-8b"))
+    ops.reset_launch_counts()
+    params_by_step = []
+    _, history = train_loop(
+        cfg, ShapeConfig("t", 32, 2 * micro, "train"), n_workers=2, compressor=compressor,
+        wire=wire, steps=3, lr=0.3 if opt == "sgd" else 3e-4, log_every=100, seed=1,
+        fused=fused, microbatches=micro, opt=opt, device="cuda:0", group=group,
+        overlap=overlap, bucket_words=1000,
+        on_step=lambda i, p: params_by_step.append({k: v.cpu() for k, v in p.items()}),
+    )
+    return [r["loss"] for r in history], params_by_step, ops.launch_counts()
+
+
+@pytest.mark.parametrize("corner", [
+    ("adamw", "intdiana", "dense8", False, 2, "off"),
+    ("sgd", "intsgd8_packed", "packed8", True, 1, "ring"),
+])
+def test_two_gloo_ranks_on_the_card_agree_bit_for_bit(dev, corner):
+    """Two gloo ranks sharing the card: the same params on both after every
+    step (int8 lanes and int32 words through gloo's CUDA path), losses
+    within 1e-2 of the local backend at n = 2 on the card (its bf16
+    backward is not bit-reproducible), and each rank launching one worker's
+    share of the encode kernel."""
+    from repro_torch.parallel.spawn import run_ranks
+
+    ranks = run_ranks(_cuda_ranks_drive, 2, args=(corner,))
+    local_losses, _, local_counts = _cuda_ranks_drive(None, 0, corner)
+    for step in range(3):
+        a, b = ranks[0][1][step], ranks[1][1][step]
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    np.testing.assert_allclose(ranks[0][0], local_losses, rtol=1e-2)
+    for _, _, counts in ranks:
+        assert 2 * counts["int_compress"] == local_counts["int_compress"] > 0
+        assert counts["block_norms"] == local_counts["block_norms"] > 0
+
+
+def _nccl_one_rank(group, rank):
+    from repro_torch.parallel.collectives import group_backend
+
+    dev = torch.device("cuda", 0)
+    words = torch.tensor([2**31 - 1, -(2**31), 7], dtype=torch.int32, device=dev)
+    lanes = torch.tensor([127, -127, 3], dtype=torch.int8, device=dev)
+    got = psum_wire_words([{"words": words, "lanes": lanes}], group)
+    return group_backend(group), got["words"], got["lanes"], words, lanes
+
+
+def test_one_rank_nccl_group_passes_int32_and_int8_payloads(dev):
+    from repro_torch.parallel.spawn import run_ranks
+
+    ((backend, words_sum, lanes_sum, words, lanes),) = run_ranks(
+        _nccl_one_rank, 1, backend="nccl", device="cuda:0")
+    assert backend == "nccl"
+    assert torch.equal(words_sum, words) and torch.equal(lanes_sum, lanes)

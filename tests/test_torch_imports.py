@@ -33,6 +33,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.launch.train" in mods and "repro_torch.kernels.ops" in mods
     assert "repro_torch.optim.adamw" in mods and "repro_torch.wire.dense" in mods
+    assert "repro_torch.parallel.spawn" in mods and "repro_torch.wire.bucketing" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -95,9 +96,16 @@ def test_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys):
     assert "step     0" in out and "step     1" in out
     base = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--fused",
             "--compressor", "intsgd8_packed"]
-    for extra in (["--ckpt-dir", "x"], ["--overlap", "ring"], ["--data", "2"]):
+    for extra in (["--ckpt-dir", "x"], ["--model", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(base + extra)
+    # ported since: the bucketed wire, and --data as the data-parallel degree
+    train.main(base + ["--overlap", "ring", "--bucket-words", "1000", "--data", "2",
+                       "--steps", "2", "--batch", "2", "--seq", "8"])
+    out = capsys.readouterr().out
+    assert "step     1" in out
+    with pytest.raises(ValueError, match="disagree"):
+        train.main(base + ["--workers", "2", "--data", "4"])
     # the JAX package's refusal: the fused route consumes one image per step
     with pytest.raises(ValueError, match="use the zero1 route"):
         train.main(base + ["--microbatches", "2"])

@@ -55,6 +55,17 @@ from repro_torch.optim.sgd import sgd  # noqa: E402
 STEPS, SEQ, BATCH = 4, 32, 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """The port's smoke-size steps on one intra-op thread: at these sizes
+    more threads only spin, and under a parallel test run they contend for
+    the cores (both sides of every bit-equality here run alike)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batches():
     rng = np.random.default_rng(5)
     out = []
@@ -193,14 +204,30 @@ def _port_run(*, fused, opt, compressor, wire, micro=1, steps=STEPS):
     )
 
 
+@pytest.fixture(scope="module")
+def port_run():
+    """``_port_run`` with each distinct run made once per module: the
+    ZeRO-1 SGD/packed8 run at one microbatch serves two tests."""
+    done = {}
+
+    def run(*, fused, opt, compressor, wire, micro=1):
+        key = (fused, opt, compressor, wire, micro)
+        if key not in done:
+            done[key] = _port_run(fused=fused, opt=opt, compressor=compressor, wire=wire,
+                                  micro=micro)
+        return done[key]
+
+    return run
+
+
 @pytest.mark.parametrize("opt,compressor,wire", [
     ("sgd", "intsgd8_packed", "packed8"),
     ("adamw", "intsgd8", "dense8"),
     ("adamw", "intdiana", "dense8"),
 ])
-def test_fused_route_matches_zero1_n4(opt, compressor, wire):
-    p_ref, h_ref = _port_run(fused=False, opt=opt, compressor=compressor, wire=wire)
-    p_fus, h_fus = _port_run(fused=True, opt=opt, compressor=compressor, wire=wire)
+def test_fused_route_matches_zero1_n4(port_run, opt, compressor, wire):
+    p_ref, h_ref = port_run(fused=False, opt=opt, compressor=compressor, wire=wire)
+    p_fus, h_fus = port_run(fused=True, opt=opt, compressor=compressor, wire=wire)
     np.testing.assert_allclose([r["loss"] for r in h_fus], [r["loss"] for r in h_ref], rtol=1e-6)
     assert [r["max_int"] for r in h_fus] == [r["max_int"] for r in h_ref]
     assert h_ref[-1]["max_int"] > 0
@@ -209,10 +236,10 @@ def test_fused_route_matches_zero1_n4(opt, compressor, wire):
 
 
 @pytest.mark.parametrize("micro", [1, 2])
-def test_packed_wire_matches_dense_on_zero1_n4(micro):
-    p_d, h_d = _port_run(fused=False, opt="sgd", compressor="intsgd8", wire="dense8", micro=micro)
-    p_p, h_p = _port_run(fused=False, opt="sgd", compressor="intsgd8_packed", wire="packed8",
-                         micro=micro)
+def test_packed_wire_matches_dense_on_zero1_n4(port_run, micro):
+    p_d, h_d = port_run(fused=False, opt="sgd", compressor="intsgd8", wire="dense8", micro=micro)
+    p_p, h_p = port_run(fused=False, opt="sgd", compressor="intsgd8_packed", wire="packed8",
+                        micro=micro)
     strip = lambda h: [{k: v for k, v in r.items() if k != "ms"} for r in h]
     assert strip(h_d) == strip(h_p)
     assert all(torch.equal(p_d[k], p_p[k]) for k in p_d)
