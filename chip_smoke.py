@@ -15,7 +15,15 @@ Phases, each of which must pass for the exit code to be 0:
                (built with --fmad=false and IEEE sqrt/division; tolerance
                0) — packed SGD with shift, packed AdamW with and without
                shift, dense SGD and AdamW on int8/int16/int32 lanes with and
-               without shift. Checks the wrap-around psum law with saturated
+               without shift; the bf16 variants (a bf16 gradient into the
+               encode, a bf16 param through the packed8 and int8-lane
+               fused updates, with and without shift; at the ragged size
+               also with NaNs in the param, compared as NaN) the same way.
+               The encode runs as the main path calls it, raising an amax
+               scalar to its image's |max|, which must equal the plain
+               version's (also on an unclipped 32-bit image whose one
+               planted peak lies in the grid-stride loop's last round), and
+               is timed with and without amax in turns. Checks the wrap-around psum law with saturated
                fields (packed) and the lane-type sum at its extremes
                (dense), and times each kernel variant (median per launch
                over batches of 20 launches, CUDA events) and its plain
@@ -45,25 +53,35 @@ Phases, each of which must pass for the exit code to be 0:
   6. train-block — IntSGD with blockwise α (Alg. 2, one α per leaf) on
                the packed8 fused-SGD route, 4 layers, 4 steps: each leaf's
                α on the first compressed step is printed and must be
-               finite, positive and not all equal;
+               finite, positive and not all equal; then the fused route
+               with bf16 params (the JAX step's default), each printed
+               beside its float32 counterpart: train-bf16 and
+               train-sgd-bf16 (the headline and train-sgd corners, 4
+               layers, 4 steps), family sgd/intsgd/dense8 bf16 and family
+               adamw/intdiana/dense8 bf16 (2 layers, 3 steps);
   7. zero1   — the ZeRO-1 route (f32 master rows, the update in plain
                PyTorch, the JAX package's default): zero1-sgd (SGD /
                IntSGD / packed8, 4 layers, 4 steps), zero1-adamw-m2 (AdamW,
                2 pipelined microbatches, global batch 8, 4 layers, 4
                steps), zero1-intdiana-m2 (SGD / IntDIANA / dense8, 2
                microbatches, 2 layers, 3 steps), zero1-bf16 (zero1-sgd's
-               corner with bf16 params, 2 layers, 3 steps);
+               corner with bf16 params, 4 layers, 4 steps);
   8. baseline-none — uncompressed SGD (`none`, a float mean) on the ZeRO-1
                route, 4 layers, 4 steps.
                In phases 3-8 the launch counts are zeroed just before each
-               path and read just after: every kernel's count (and count
-               of launches with an IntDIANA shift) must equal what that
-               path implies, losses must be finite and max_int <= 4·lim(8,
-               4·M); each path's step times and peak memory are printed;
+               path and read just after: every kernel's count (and counts
+               of launches with an IntDIANA shift and of bf16 variants)
+               must equal what that path implies, losses must be finite,
+               max_int <= 4·lim(8, 4·M) and max_local_int <= lim(8, 4·M),
+               and step 1's max_local_int must equal the largest |image|
+               its encodes wrote (each image read back; at the leaves of
+               at most 2^20 elements also held to the plain version's);
+               each path's step times and peak memory are printed;
   9. cross-route — zero1-sgd's losses at steps 1-3 within 1e-2 relative of
                train-sgd's (same seed, weights, data and encode seeds), and
                baseline-none's step time beside zero1-sgd's and
-               train-sgd's;
+               train-sgd's; train-sgd-bf16's losses beside zero1-bf16's
+               (printed only: the fused route keeps no f32 master);
  10. wire    — step 1 of the headline path replayed for one leaf: the
                unpacked word sum equals the sum of the four workers' images;
  11. ranks   — four real ranks (``repro_torch.parallel.spawn``, one spawn
@@ -86,9 +104,19 @@ Phases, each of which must pass for the exit code to be 0:
  12. nccl-1  — a one-rank NCCL process group in this process: int32 words
                and int8 lanes all-reduced over it come back as sent, and
                zero1-sgd's corner (2 layers, 3 steps) on it is held to the
-               local backend at n = 1 (losses within 1e-2), both timed.
+               local backend at n = 1 (losses within 1e-2), both timed;
+ 13. simulator — core.simulate.SimTrainer on the card (the unfused
+               aggregate path: the encode kernel and block_norms): the
+               convergence milestone at the test sizes (IntSGD, Determ.
+               and blockwise α reach the quadratic's optimum within 1e-5;
+               IntSGD with momentum within 10 % of SGD's terminal logreg
+               loss; the aggregate's variance does not grow with n;
+               IntDIANA's max_local_int < 64 where IntGD's passes 1e4),
+               then logreg at 12 workers x 4,096 rows, d = 300, 200 steps,
+               within the 10 % band and timed; launch counts per run.
 
-Prints one JSON line of per-kernel numbers, then the card's name and power
+Prints one JSON line of per-kernel numbers (each variant timed at the
+largest leaf, and the launches of the bf16 variants), then the card's name and power
 limit (nvidia-smi), then {"ok": true, "device": {...}} as the last line.
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository.
@@ -138,7 +166,7 @@ MAIN_VARIANT = {
     "fused_apply_sgd": "int8", "fused_apply_adamw": "int8",
     "block_norms": "float32",
 }
-STATE_BYTES = {"sgd": 16, "adamw": 24}  # f32 p and state, read and written
+STATE_BYTES = {"sgd": 8, "adamw": 16}  # f32 optimizer state, read and written
 
 
 def fail(msg: str) -> None:
@@ -146,20 +174,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bytes_moved(name: str, d: int, lane_bytes: float, shift: bool = False) -> int:
+def bytes_moved(name: str, d: int, lane_bytes: float, shift: bool = False,
+                float_bytes: int = 4) -> int:
     """Bytes the function must move: each input read once, each output
     written once. ``lane_bytes`` is the integer payload per element (4/k
-    for packed words, 1, 2 or 4 for dense lanes)."""
+    for packed words, 1, 2 or 4 for dense lanes); ``float_bytes`` that of
+    the encode's input or the fused update's param (2 for bf16)."""
     payload = int(round(lane_bytes * d))
     fixed = {
-        "int_compress": 8 * d,
+        "int_compress": (float_bytes + 4) * d,
         "pack_words": 4 * d + payload,
         "unpack_words": payload + 4 * d,
     }
     if name in fixed:
         return fixed[name]
     kernel = name.rsplit("_", 1)[1]
-    return payload + STATE_BYTES[kernel] * d + (8 * d if shift else 0)
+    return (payload + STATE_BYTES[kernel] * d + 2 * float_bytes * d
+            + (8 * d if shift else 0))
 
 
 def bound(name: str, nbytes: int, d: int):
@@ -235,9 +266,16 @@ class Checks:
         self.failed = []
 
     def equal(self, what: str, got, want) -> float:
+        """Bit for bit; a NaN is compared as NaN (at the same places in
+        both), not by its bit pattern."""
+        nan = got.isnan() if got.is_floating_point() else None
+        same_nan = nan is None or (got.shape == want.shape and bool((nan == want.isnan()).all()))
+        if nan is not None and same_nan:
+            got, want = got[~nan], want[~nan]
         err = (got.to(want.dtype) - want).abs().max().item() if got.numel() else 0.0
-        ok = got.shape == want.shape and got.dtype == want.dtype and err == 0
-        print(f"  [{'ok' if ok else 'MISMATCH'}] {what}: max_abs_err {err}", flush=True)
+        ok = got.shape == want.shape and got.dtype == want.dtype and err == 0 and same_nan
+        nans = "" if nan is None or not bool(nan.any()) else f", {int(nan.sum())} NaN alike"
+        print(f"  [{'ok' if ok else 'MISMATCH'}] {what}: max_abs_err {err}{nans}", flush=True)
         if not ok:
             self.failed.append(what)
         return float(err)
@@ -307,10 +345,12 @@ def compare(checks, what, got, want, labels):
     return max(checks.equal(f"{what} {lab}", g, w) for lab, g, w in zip(labels, got, want))
 
 
-def fused_inputs(torch, gen, device, d, kernel, shift):
-    """p, optimizer state, scalar vector and shift at the main path's
-    magnitudes."""
-    p = torch.randn(d, generator=gen, device=device) * 0.02
+def fused_inputs(torch, gen, device, d, kernel, shift, param_dtype, nan):
+    """p (with a NaN every 1000th element when ``nan``), optimizer state,
+    scalar vector and shift at the main path's magnitudes."""
+    p = (torch.randn(d, generator=gen, device=device) * 0.02).to(param_dtype)
+    if nan:
+        p[::1000] = float("nan")
     m = torch.randn(d, generator=gen, device=device) * 1e-3
     inv_nalpha = 1.0 / (N_WORKERS * 9000.0)
     if kernel == "sgd":
@@ -327,14 +367,19 @@ def fused_inputs(torch, gen, device, d, kernel, shift):
 
 
 def fused_variants(torch, ops, checks, timings, gen, device, d, big, *, payload,
-                   lane_bytes, tag, ops_and_kw):
+                   lane_bytes, tag, ops_and_kw, param_dtypes=("float32",)):
     """Each fused kernel variant on one summed payload against its plain
-    version (and timed at the largest leaf)."""
+    version (and timed at the largest leaf); a bf16 param also with NaNs
+    at the ragged size."""
+    cases = [(dt, nan) for dt in param_dtypes
+             for nan in ((False,) if big or dt == "float32" else (False, True))]
     for op, kw, shifts in ops_and_kw:
         kernel = op.name.rsplit("_", 1)[1]
-        for shift in shifts:
-            p, state, sc, h = fused_inputs(torch, gen, device, d, kernel, shift)
-            variant = tag + ("+shift" if shift else "")
+        for shift, (dt, nan) in ((sh, c) for sh in shifts for c in cases):
+            p, state, sc, h = fused_inputs(torch, gen, device, d, kernel, shift,
+                                           getattr(torch, dt), nan)
+            variant = (tag + ("+shift" if shift else "") + ("" if dt == "float32" else " bf16")
+                       + (" NaN" if nan else ""))
             cuda = lambda: op.cuda(payload, p, *state, sc, shift=h, **kw)
             plain = lambda: op.plain(payload, p, *state, sc, shift=h, **kw)
             got, want = cuda(), plain()
@@ -342,7 +387,7 @@ def fused_variants(torch, ops, checks, timings, gen, device, d, big, *, payload,
             err = compare(checks, f"{op.name} [{variant}]", got, want,
                           labels + (("shift'",) if shift else ()))
             del got, want
-            nbytes = bytes_moved(op.name, d, lane_bytes, shift)
+            nbytes = bytes_moved(op.name, d, lane_bytes, shift, p.element_size())
             if big:
                 timings.add(op.name, variant, d, nbytes, err, cuda, plain, plain_reps=2)
             else:
@@ -362,24 +407,59 @@ def kernels_phase(torch, ops, checks, device):
     for d in (LARGEST_LEAF, RAGGED):
         big = d == LARGEST_LEAF
         print(f"kernels at d = {d}", flush=True)
-        # encode: gradient-like values, alpha on the card, both modes
-        x = torch.randn(d, generator=gen, device=device) * 3e-3
+        # encode: gradient-like values, alpha on the card, both modes, a
+        # float32 and a bf16 gradient
+        x32 = torch.randn(d, generator=gen, device=device) * 3e-3
         alpha = torch.full((), 9000.0, device=device)
         seed = torch.full((), -123456789, dtype=torch.int32, device=device)
-        for stochastic in (True, False):
+        for x, stochastic in ((x, st) for x in (x32, x32.to(torch.bfloat16))
+                              for st in (True, False)):
             kw = dict(n_workers=N_WORKERS, bits=8, stochastic=stochastic)
-            got = ops.int_compress.cuda(x, alpha, seed, **kw)
-            want = ops.int_compress.plain(x, alpha, seed, **kw)
-            err = checks.equal(f"int_compress stochastic={stochastic}", got, want)
+            bf16 = x.dtype == torch.bfloat16
+            variant = ("stochastic" if stochastic else "half-even") + (" bf16" if bf16 else "")
+            # as the main path calls it: with amax, which the launch raises
+            # to the image's |max| (here saturated at lim)
+            a, b = torch.zeros((), device=device), torch.zeros((), device=device)
+            got = ops.int_compress.cuda(x, alpha, seed, amax=a, **kw)
+            want = ops.int_compress.plain(x, alpha, seed, amax=b, **kw)
+            err = checks.equal(f"int_compress [{variant}]", got, want)
+            checks.equal(f"int_compress [{variant}] amax", a, b)
+            checks.equal(f"int_compress [{variant}] without amax",
+                         ops.int_compress.cuda(x, alpha, seed, **kw), want)
+            if bf16:  # the widening is exact: the float32 kernel's image on x.float()
+                checks.equal(f"int_compress [{variant}] == [float32] on x.float()", got,
+                             ops.int_compress.cuda(x.float(), alpha, seed, **kw))
             del got, want
-            variant = "stochastic" if stochastic else "half-even"
             if big and stochastic:
-                timings.add("int_compress", variant, d, bytes_moved("int_compress", d, 4), err,
-                            lambda: ops.int_compress.cuda(x, alpha, seed, **kw),
-                            lambda: ops.int_compress.plain(x, alpha, seed, **kw))
+                nbytes = bytes_moved("int_compress", d, 4, float_bytes=x.element_size())
+                ms = interleaved_ms(torch, [
+                    lambda: ops.int_compress.cuda(x, alpha, seed, amax=a, **kw),
+                    lambda: ops.int_compress.cuda(x, alpha, seed, **kw)])
+                timings.add("int_compress", variant, d, nbytes, err,
+                            plain_fn=lambda: ops.int_compress.plain(x, alpha, seed, amax=b, **kw),
+                            ms=ms[0])
+                timings.add("int_compress", variant + ", no amax", d, nbytes, err,
+                            plain_fn=lambda: ops.int_compress.plain(x, alpha, seed, **kw),
+                            ms=ms[1])
             else:
                 timings.add("int_compress", variant, d, 0, err)
-        del x
+            # an unclipped image (32-bit wire) whose |max| is one planted
+            # element in the grid-stride loop's last round, amax starting
+            # above the rest of the image: each thread's running max across
+            # the rounds must carry it to the one atomicMax
+            xp = x.clone()
+            xp[d - 5] = -0.25  # -2250 exactly, past the N(0, 27) image's tail
+            kw32 = dict(kw, bits=32)
+            a, b = torch.full((), 1000.0, device=device), torch.full((), 1000.0, device=device)
+            got = ops.int_compress.cuda(xp, alpha, seed, amax=a, **kw32)
+            want = ops.int_compress.plain(xp, alpha, seed, amax=b, **kw32)
+            err = checks.equal(f"int_compress [{variant}] bits=32, one planted peak", got, want)
+            checks.equal(f"int_compress [{variant}] bits=32 amax", a, b)
+            checks.true(f"int_compress [{variant}] bits=32 amax {a.item()} == 2250.0",
+                        a.item() == 2250.0)
+            timings.add("int_compress", variant, d, 0, err)
+            del got, want, xp
+        del x, x32
 
         for bits in (4, 8, 16):
             lim = clip_limit(bits, N_WORKERS)
@@ -435,7 +515,7 @@ def kernels_phase(torch, ops, checks, device):
                     lane_bytes=4 / (32 // bits), tag=tag, ops_and_kw=(
                         (ops.fused_unpack_sgd, dict(bits=8, n_summed=N_WORKERS), (False, True)),
                         (ops.fused_unpack_adamw, dict(bits=8, n_summed=N_WORKERS), (False, True)),
-                    ),
+                    ), param_dtypes=("float32", "bfloat16"),
                 )
             del wsum
             torch.cuda.empty_cache()
@@ -465,7 +545,7 @@ def kernels_phase(torch, ops, checks, device):
                 lane_bytes=wf.lane_dtype.itemsize, tag=tag, ops_and_kw=(
                     (ops.fused_apply_sgd, {}, (False, True)),
                     (ops.fused_apply_adamw, {}, (False, True)),
-                ),
+                ), param_dtypes=("float32", "bfloat16") if bits == 8 else ("float32",),
             )
             del lanes
             torch.cuda.empty_cache()
@@ -589,9 +669,10 @@ def block_norms_phase(torch, ops, checks, timings, device):
 
 
 def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire, *,
-                      fused: bool, microbatches: int, n_local: int = N_WORKERS):
-    """Launch counts (all, and with an IntDIANA shift) a path implies in one
-    process running ``n_local`` workers (all n on the local backend, one
+                      fused: bool, microbatches: int, n_local: int = N_WORKERS,
+                      param_dtype: str = "float32"):
+    """Launch counts (all, with an IntDIANA shift, and of bf16 variants) a
+    path implies in one process running ``n_local`` workers (all n on the local backend, one
     per rank on a process group). Per compressed step: encode for every
     (microbatch, local worker, leaf); pack for every (microbatch, local
     worker, leaf) and unpack for every (microbatch, leaf)
@@ -602,30 +683,74 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
     ||Σints_l||² after; on IntDIANA paths only the exact step's, its shift
     form being plain PyTorch). The ZeRO-1 route runs no fused kernel and
     block_norms twice per leaf and step, for ||ĝ_l||² and ||Δx_l||², whatever
-    the compressor; ``none`` runs no integer kernel at all."""
+    the compressor; ``none`` runs no integer kernel at all. With bf16
+    params IntSGD encodes the bf16 gradient (IntDIANA the float32 g − h_i)
+    and the fused update reads and writes the bf16 param."""
     c = steps - 1  # step 0 is exact: no kernel but block_norms
     want = {k.name: 0 for k in ops.KERNELS}
-    want_shift = dict(want)
+    want_shift, want_bf16 = dict(want), dict(want)
+    bf16 = param_dtype == "bfloat16"
     if comp != "none":
         want["int_compress"] = microbatches * n_local * n_leaves * c
+        if bf16 and comp != "intdiana":
+            want_bf16["int_compress"] = want["int_compress"]
         if wire.startswith("packed"):
             want["pack_words"] = microbatches * n_local * n_leaves * c
             want["unpack_words"] = microbatches * n_leaves * c
     if not fused:
         want["block_norms"] = 2 * n_leaves * steps
-        return want, want_shift
+        return want, want_shift, want_bf16
     want["block_norms"] = n_leaves * steps + (
         n_leaves if comp == "intdiana" else n_leaves * steps)
     fused_op = f"fused_unpack_{opt}" if wire.startswith("packed") else f"fused_apply_{opt}"
     want[fused_op] = n_leaves * c
     if comp == "intdiana":
         want_shift[fused_op] = n_leaves * c
-    return want, want_shift
+    if bf16:
+        want_bf16[fused_op] = n_leaves * c
+    return want, want_shift, want_bf16
 
 
 def compressor_name(comp: str, wire) -> str:
     return {("intsgd", "packed8"): "intsgd8_packed", ("intsgd", "dense8"): "intsgd8"}.get(
         (comp, wire), comp)
+
+
+class EncodeSpy:
+    """Wraps the encode kernel's wrapper for a path's first compressed
+    step: after every launch with ``amax`` (every one on the main path) it
+    reads the |max| of the image the kernel wrote (``torch.aminmax``, no
+    copy), and at leaves of at most ``SMALL`` elements holds the image
+    against the plain version's on the same inputs. Launch counts are
+    unchanged (they are counted by the ``KernelOp``); step 1 is not timed."""
+
+    SMALL = 1 << 20
+
+    def __init__(self, torch, ops):
+        self.torch, self.op, self.real = torch, ops.int_compress, ops.int_compress.cuda
+        self.peaks, self.small, self.small_equal = [], 0, True
+        self.op.cuda = self
+
+    @property
+    def calls(self) -> int:
+        return len(self.peaks)
+
+    def __call__(self, x, alpha, seed, *, amax=None, **kw):
+        out = self.real(x, alpha, seed, amax=amax, **kw)
+        if amax is not None:
+            lo, hi = self.torch.aminmax(out)
+            self.peaks.append(self.torch.maximum(lo.abs(), hi.abs()))
+            if x.numel() <= self.SMALL:
+                self.small += 1
+                want = self.op.plain(x, alpha, seed, **kw)
+                self.small_equal &= bool(self.torch.equal(out, want))
+        return out
+
+    def stop(self) -> None:
+        self.op.cuda = self.real
+
+    def peak(self) -> float:
+        return float(self.torch.stack(self.peaks).max()) if self.peaks else float("nan")
 
 
 def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, wire, lr,
@@ -651,33 +776,52 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
           f"{param_dtype} params", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    spy = EncodeSpy(torch, ops)
     ops.reset_launch_counts()
-    params, history = train_loop(
-        cfg, shape, n_workers=n_workers, compressor=compressor, wire=wire, steps=steps,
-        lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0, microbatches=microbatches,
-        opt=opt, param_dtype=getattr(torch, param_dtype), device=device, group=group,
-        overlap=overlap,
-    )
+    try:
+        params, history = train_loop(
+            cfg, shape, n_workers=n_workers, compressor=compressor, wire=wire, steps=steps,
+            lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0,
+            microbatches=microbatches, opt=opt, param_dtype=getattr(torch, param_dtype),
+            device=device, group=group, overlap=overlap,
+            on_step=lambda i, _: spy.stop() if i >= 1 else None,
+        )
+    finally:
+        spy.stop()
     launches, shifts = ops.launch_counts(), ops.shift_launch_counts()
+    bf16s = ops.bf16_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_leaves = len(params)
-    print(f"{label}: launches {launches}; with shift {shifts}; {n_leaves} leaves, "
-          f"{tree_size(params)} parameters; peak memory {peak:.1f} GiB", flush=True)
+    print(f"{label}: launches {launches}; with shift {shifts}; bf16 variants {bf16s}; "
+          f"{n_leaves} leaves, {tree_size(params)} parameters; peak memory {peak:.1f} GiB",
+          flush=True)
     checks.true(f"{label}: params are {param_dtype}",
                 all(p.dtype == getattr(torch, param_dtype) for p in params.values()))
     del params
     torch.cuda.empty_cache()
     for rec in history:
         print(f"  {label} step {rec['step']}: loss {rec['loss']:.4f} max_int "
-              f"{rec['max_int']:.0f} bits {rec['bits']:.0f} ms {rec['ms']:.1f}", flush=True)
+              f"{rec['max_int']:.0f} max_local_int {rec['max_local_int']:.0f} bits "
+              f"{rec['bits']:.0f} ms {rec['ms']:.1f}", flush=True)
     checks.true(f"{label}: losses finite", all(math.isfinite(r["loss"]) for r in history))
-    # the clip for the n·M sum; what one reduce carries is at most n·lim
-    lim_sum = n_workers * clip_limit(8, n_workers * microbatches)
-    checks.true(f"{label}: max_int <= {lim_sum} on every compressed step",
-                all(r["max_int"] <= lim_sum for r in history[1:]))
+    # the clip for the n·M sum; what one reduce carries is at most n·lim,
+    # what one worker sends at most lim
+    lim = clip_limit(8, n_workers * microbatches)
+    checks.true(f"{label}: max_int <= {n_workers * lim} and max_local_int <= {lim} on every "
+                f"compressed step", all(r["max_int"] <= n_workers * lim
+                                        and r["max_local_int"] <= lim for r in history[1:]))
+    if comp != "none":
+        # step 1's max_local_int against each encode's image as written
+        # (and, at the small leaves, the plain version's image)
+        checks.true(f"{label}: step 1 max_local_int {history[1]['max_local_int']:.0f} == the "
+                    f"largest |image| of its {spy.calls} encodes ({spy.peak():.0f}); "
+                    f"{spy.small} small leaves' images equal to the plain version's",
+                    spy.calls > 0 and history[1]["max_local_int"] == spy.peak()
+                    and spy.small > 0 and spy.small_equal)
     if comp == "none":
-        checks.true(f"{label}: max_int 0 and 32 bits on every compressed step",
-                    all(r["max_int"] == 0 and r["bits"] == 32 for r in history[1:]))
+        checks.true(f"{label}: max_int, max_local_int 0 and 32 bits on every compressed step",
+                    all(r["max_int"] == 0 == r["max_local_int"] and r["bits"] == 32
+                        for r in history[1:]))
     if comp == "intsgd_block":  # one α per leaf, from that leaf's own ||Δx_l||²
         alpha = history[1]["alpha"]
         for leaf, a in alpha.items():
@@ -686,13 +830,15 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
         checks.true(f"{label}: step 1 has one α per leaf, finite, positive, not all equal",
                     len(vals) == n_leaves and all(math.isfinite(a) and a > 0 for a in vals)
                     and len(set(vals)) > 1)
-    want, want_shift = expected_launches(ops, n_leaves, steps, opt, comp, wire, fused=fused,
-                                         microbatches=microbatches,
-                                         n_local=n_workers if group is None else 1)
+    want, want_shift, want_bf16 = expected_launches(
+        ops, n_leaves, steps, opt, comp, wire, fused=fused, microbatches=microbatches,
+        n_local=n_workers if group is None else 1, param_dtype=param_dtype)
     for name in want:
         checks.true(f"{label}: {name} launches {launches[name]} (expected {want[name]}), "
-                    f"with shift {shifts[name]} (expected {want_shift[name]})",
-                    launches[name] == want[name] and shifts[name] == want_shift[name])
+                    f"with shift {shifts[name]} (expected {want_shift[name]}), bf16 "
+                    f"{bf16s[name]} (expected {want_bf16[name]})",
+                    launches[name] == want[name] and shifts[name] == want_shift[name]
+                    and bf16s[name] == want_bf16[name])
     return launches, history, peak
 
 
@@ -725,7 +871,8 @@ def wire_phase(torch, checks, device):
     sched = warmup_wrap(constant(3e-4), 5)
     art = build_train_step(
         cfg, shape, n_workers=N_WORKERS, compressor=comp, base_opt=base_opt,
-        lr_schedule=sched, fused=True, clip_norm=1.0, device=device,
+        lr_schedule=sched, param_dtype=torch.float32, fused=True, clip_norm=1.0,
+        device=device,
     )
     params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
                             device=device)
@@ -762,8 +909,17 @@ def wire_phase(torch, checks, device):
 
 
 # the paths phases 3-8 drive: (label, layers, steps, optimizer, compressor,
-# wire, lr, route options); the headline path first
+# wire, lr, route options); the headline path first. The four "bf16" fused
+# paths run the JAX step's default bf16 params through the kernels' bf16
+# variants, each beside its float32 counterpart.
 FUSED = dict(fused=True)
+FUSED_BF16 = dict(fused=True, param_dtype="bfloat16")
+# bf16 path -> its float32 counterpart
+BF16_OF = {
+    "train-bf16": "train", "train-sgd-bf16": "train-sgd",
+    "family sgd/intsgd/dense8 bf16": "family sgd/intsgd/dense8",
+    "family adamw/intdiana/dense8 bf16": "family adamw/intdiana/dense8",
+}
 PATHS = (
     ("train", 4, 4, "adamw", "intsgd", "packed8", 3e-4, FUSED),
     ("train-sgd", 4, 4, "sgd", "intsgd", "packed8", 0.3, FUSED),
@@ -774,12 +930,17 @@ PATHS = (
     ("family adamw/intdiana/packed8", 2, 3, "adamw", "intdiana", "packed8", 3e-4, FUSED),
     ("family adamw/intdiana/dense8", 2, 3, "adamw", "intdiana", "dense8", 3e-4, FUSED),
     ("train-block", 4, 4, "sgd", "intsgd_block", "packed8", 0.3, FUSED),
+    ("train-bf16", 4, 4, "adamw", "intsgd", "packed8", 3e-4, FUSED_BF16),
+    ("train-sgd-bf16", 4, 4, "sgd", "intsgd", "packed8", 0.3, FUSED_BF16),
+    ("family sgd/intsgd/dense8 bf16", 2, 3, "sgd", "intsgd", "dense8", 0.3, FUSED_BF16),
+    ("family adamw/intdiana/dense8 bf16", 2, 3, "adamw", "intdiana", "dense8", 3e-4,
+     FUSED_BF16),
     ("zero1-sgd", 4, 4, "sgd", "intsgd", "packed8", 0.3, dict(fused=False)),
     ("zero1-adamw-m2", 4, 4, "adamw", "intsgd", "packed8", 3e-4,
      dict(fused=False, microbatches=2)),
     ("zero1-intdiana-m2", 2, 3, "sgd", "intdiana", "dense8", 0.3,
      dict(fused=False, microbatches=2)),
-    ("zero1-bf16", 2, 3, "sgd", "intsgd", "packed8", 0.3,
+    ("zero1-bf16", 4, 4, "sgd", "intsgd", "packed8", 0.3,
      dict(fused=False, param_dtype="bfloat16")),
     ("baseline-none", 4, 4, "sgd", "none", None, 0.3, dict(fused=False)),
 )
@@ -804,6 +965,13 @@ def cross_route_phase(checks, histories) -> None:
           f"(IntSGD's encode, pack, word sum and decode cost {intsgd - base:.1f} ms a step), "
           f"train-sgd (fused) {fused_ms:.1f} (ZeRO-1 update over the fused one "
           f"{intsgd - fused_ms:.1f} ms)", flush=True)
+    # bf16 params: the fused route keeps no f32 master (as in the JAX
+    # package), ZeRO-1 does, so their losses part; printed, not held
+    fused16, zero16 = histories["train-sgd-bf16"], histories["zero1-bf16"]
+    for i, (f, z) in enumerate(zip(fused16, zero16)):
+        print(f"cross-route bf16: step {i}: train-sgd-bf16 loss {f['loss']!r}, zero1-bf16 loss "
+              f"{z['loss']!r}, relative gap {abs(f['loss'] - z['loss']) / abs(z['loss']):.3g}",
+              flush=True)
 
 
 # phase 11: the corners four real ranks run, sharing the card through gloo:
@@ -910,9 +1078,11 @@ def ranks_phase(torch, ops, checks, device) -> dict:
             checks.true(f"{label}: step {step}: params bit-identical on the {N_WORKERS} ranks "
                         f"({len(sums[0])} leaves' checksums)", all(x == sums[0] for x in sums))
             recs = [h[step] for h in hists]
-            checks.true(f"{label}: step {step}: alpha and max_int identical on every rank",
-                        all(r["alpha"] == recs[0]["alpha"] and r["max_int"] == recs[0]["max_int"]
-                            for r in recs))
+            checks.true(f"{label}: step {step}: alpha, max_int and max_local_int identical on "
+                        f"every rank", all(r["alpha"] == recs[0]["alpha"]
+                                           and r["max_int"] == recs[0]["max_int"]
+                                           and r["max_local_int"] == recs[0]["max_local_int"]
+                                           for r in recs))
         lim_sum = N_WORKERS * clip_limit(8, N_WORKERS * micro)
         checks.true(f"{label}: max_int <= {lim_sum} on every compressed step",
                     all(r["max_int"] <= lim_sum for r in hists[0][1:]))
@@ -923,8 +1093,9 @@ def ranks_phase(torch, ops, checks, device) -> dict:
               f"{[float(f'{g:.3g}') for g in gaps]}", flush=True)
         checks.true(f"{label}: losses within 1e-2 relative of the local backend's at every step",
                     len(gaps) == steps and all(g < 1e-2 for g in gaps))
-        want, want_shift = expected_launches(ops, res[0]["n_leaves"], steps, opt, comp, wire,
-                                             fused=fused, microbatches=micro, n_local=1)
+        want, want_shift, _ = expected_launches(ops, res[0]["n_leaves"], steps, opt, comp,
+                                                wire, fused=fused, microbatches=micro,
+                                                n_local=1)
         for rank, r in enumerate(res):
             ok = all(r["launches"][k] == want[k] and r["shifts"][k] == want_shift[k] for k in want)
             checks.true(f"{label}: rank {rank} launches {r['launches']} (expected {want}), "
@@ -980,6 +1151,116 @@ def nccl_phase(torch, ops, checks, device) -> dict:
     return launches
 
 
+def simulator_phase(torch, ops, checks, device) -> dict:
+    """Phase 13: the n-worker simulator (``core.simulate.SimTrainer``, the
+    unfused ``aggregate`` path) on the card. The convergence milestone at
+    the sizes and bounds of ``tests/test_convergence.py``, then logistic
+    regression at n = 12 workers, 4,096 rows a worker, d = 300, IntSGD with
+    momentum 0.9 against ``none`` over 200 steps (10 % terminal-loss band),
+    timed. Launch counts are zeroed before each run and read after it: the
+    encode kernel runs n per compressed step (dense int32 wire: no pack),
+    block_norms once per step for ||Δx||². Returns the launch counts."""
+    from repro_torch.core.comm import CommCtx
+    from repro_torch.core.compressor import IntSGD, leaf_seeds, make_compressor
+    from repro_torch.core.scaling import AlphaLastStep, AlphaState
+    from repro_torch.core.simulate import SimTrainer
+    from repro_torch.data.logreg import make_logreg
+    from repro_torch.optim.schedules import constant
+    from repro_torch.optim.sgd import sgd
+
+    launches = collections.Counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def quadratic(n, d, scale):
+        bs = torch.randn(n, d, generator=gen, device=device) * scale
+        return (lambda p, b: 0.5 * torch.sum((p["x"] - b) ** 2)), bs
+
+    def run(label, loss, data, n, comp, d, steps, lr, momentum=0.0):
+        """``steps`` rounds; returns the trainer's state, each round's
+        max_local_int and ms a round. Checks the launch counts."""
+        tr = SimTrainer(loss, n, comp, sgd(momentum=momentum), constant(lr), device=device)
+        st = tr.init({"x": torch.zeros(d, device=device)})
+        ops.reset_launch_counts()
+        local = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, m = tr.step(st, data)
+            local.append(0.0 if m is None else m.max_local_int)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts = ops.launch_counts()
+        launches.update(counts)
+        want = {k: 0 for k in counts}
+        want["block_norms"] = steps
+        if comp.name != "none":
+            want["int_compress"] = n * (steps - 1)
+        checks.true(f"sim {label}: launches {counts} (expected {want})", counts == want)
+        return st, [float(v) for v in local], ms
+
+    # Thm 2: every IntSGD variant reaches the optimum like exact SGD
+    n = 8
+    loss, bs = quadratic(n, 20, 1.0)
+    for name in ("none", "intsgd", "intsgd_determ", "intsgd_block"):
+        st, _, ms = run(f"quadratic {name}", loss, bs, n, make_compressor(name), 20, 400, 0.2)
+        err = float(torch.linalg.norm(st.params["x"] - bs.mean(0)))
+        checks.true(f"sim quadratic {name}: |x - x*| = {err:.3g} < 1e-5 after 400 steps "
+                    f"({ms:.2f} ms a step)", err < 1e-5)
+
+    # Table 2's parity: momentum 0.9 on heterogeneous logreg, 10 % band
+    def logreg_band(label, n, m, d, steps):
+        prob = make_logreg(torch.Generator(device=device).manual_seed(1), n_workers=n, m=m,
+                           d=d, device=device)
+        out = {}
+        for name in ("none", "intsgd"):
+            st, _, ms = run(f"{label} {name}", prob.worker_loss, prob.worker_data(), n,
+                            make_compressor(name), d, steps, 0.3, momentum=0.9)
+            out[name] = (float(prob.full_loss(st.params["x"])), ms)
+        gap = abs(out["intsgd"][0] - out["none"][0]) / out["none"][0]
+        checks.true(f"sim {label}: terminal loss intsgd {out['intsgd'][0]!r}, none "
+                    f"{out['none'][0]!r}: gap {gap:.3g} < 0.10; ms a step intsgd "
+                    f"{out['intsgd'][1]:.2f}, none {out['none'][1]:.2f}", gap < 0.10)
+
+    logreg_band("logreg n=8 m=64 d=50", 8, 64, 50, 250)
+
+    # Cor. 2: the aggregate's quantization variance does not grow with n
+    g = torch.full((64,), 0.37, device=device)
+    host = torch.Generator().manual_seed(0)
+
+    def var_for(n):
+        ctx = CommCtx(n_workers=n)
+        state = AlphaState(r=torch.tensor(1e-4, device=device),
+                           step=torch.tensor(1, dtype=torch.int32, device=device))
+        errs = [
+            IntSGD().aggregate(state, ({"w": g} for _ in range(n)),
+                               seeds=leaf_seeds(host, n, 1, device),
+                               eta=torch.tensor(0.1, device=device), ctx=ctx)[0]["w"] - g
+            for _ in range(50)]
+        return float(torch.var(torch.stack(errs), unbiased=False))
+
+    v2, v16 = var_for(2), var_for(16)
+    checks.true(f"sim variance: n=16 {v16:.3g} < 4 x n=2 {v2:.3g}", 0 < v2 and v16 < 4 * v2)
+
+    # Fig. 6: IntGD's per-worker payload blows up, IntDIANA's stays small
+    loss, bs = quadratic(n, 30, 3.0)
+    trace = {}
+    for label, comp in (("intgd", IntSGD(alpha_rule=AlphaLastStep())),
+                        ("intdiana", make_compressor("intdiana"))):
+        st, local, _ = run(f"heterogeneous {label}", loss, bs, n, comp, 30, 120, 0.5)
+        err = float(torch.linalg.norm(st.params["x"] - bs.mean(0)))
+        trace[label] = (local, err)
+        print(f"  sim heterogeneous {label}: |x - x*| = {err:.3g}, max_local_int at steps "
+              f"1, 60, 119: {local[1]:.0f}, {local[60]:.0f}, {local[-1]:.0f}", flush=True)
+    checks.true("sim heterogeneous: both converge (< 1e-4), IntGD's last max_local_int > 1e4, "
+                "IntDIANA's < 64 throughout",
+                trace["intgd"][1] < 1e-4 and trace["intdiana"][1] < 1e-4
+                and trace["intgd"][0][-1] > 1e4 and max(trace["intdiana"][0]) < 64)
+
+    # the w8a-width logreg at a real per-worker size
+    logreg_band("logreg n=12 m=4096 d=300", 12, 4096, 300, 200)
+    return launches
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -1015,6 +1296,7 @@ def main() -> None:
 
     # 3-8. the paths through the user entry point, counts read per path
     launches = {k.name: 0 for k in ops.KERNELS}
+    bf16_launches = collections.Counter()  # only these paths have bf16 params
     histories, peaks = {}, {}
     for label, layers, steps, opt, comp, wire, lr, route in PATHS:
         t0 = time.perf_counter()
@@ -1023,10 +1305,15 @@ def main() -> None:
             comp=comp, wire=wire, lr=lr, **route)
         for name, c in counts.items():
             launches[name] += c
+        bf16_launches.update(ops.bf16_launch_counts())  # this path's, read just after it
         print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
     for label, h in histories.items():
         print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
               f"peak {peaks[label]:.1f} GiB", flush=True)
+    for b16, f32 in BF16_OF.items():
+        print(f"bf16 params: {b16} {compressed_ms(histories[b16]):.1f} ms a step (median of "
+              f"steps 2+), peak {peaks[b16]:.1f} GiB; float32 {f32} "
+              f"{compressed_ms(histories[f32]):.1f} ms, {peaks[f32]:.1f} GiB", flush=True)
 
     # 9. the ZeRO-1 route against the fused one, and the baseline's gap
     cross_route_phase(checks, histories)
@@ -1046,6 +1333,12 @@ def main() -> None:
         launches[name] += c
     print(f"nccl phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # 13. the n-worker simulator: the convergence milestone and logreg
+    t0 = time.perf_counter()
+    for name, c in simulator_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"simulator phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
     # the kernel line, the card line, the result
     kernels = []
     for op in ops.KERNELS:
@@ -1057,6 +1350,12 @@ def main() -> None:
             "max_abs_err": timings.err[op.name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "bf16_launches": bf16_launches[op.name],
+            # every variant timed at the largest leaf (the main one first)
+            "variants": [{k: r[k] for k in ("variant", "ms", "plain_ms", "bound_ms", "bound_by",
+                                            "bytes", "library_ms")}
+                         for r in sorted(timings.rows, key=lambda r: r is not row)
+                         if r["name"] == op.name],
         })
     for k in kernels:
         lib = "" if k["library_ms"] is None else f", library {k['library_ms']:.3f} ms"

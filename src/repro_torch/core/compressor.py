@@ -84,6 +84,10 @@ class Metrics:
     max_int: torch.Tensor  # max |aggregated integer| on the wire
     bits_per_coord: torch.Tensor  # estimated wire bits per coordinate
     payload_bytes: float  # static bytes sent per worker per step
+    # max over the workers of the LOCAL payload |Int(α g_i)|∞: the per-worker
+    # wire width, which blows up for IntGD on heterogeneous data and which
+    # IntDIANA bounds (Appendix A.2 / Fig. 6); 0 for a float compressor
+    max_local_int: torch.Tensor
     # the step's α per leaf (empty for a float compressor), so that a
     # decode-here caller can report it
     alphas: Tree = dataclasses.field(default_factory=dict)
@@ -94,10 +98,23 @@ def wire_bits(max_int: torch.Tensor) -> torch.Tensor:
     return 1.0 + torch.ceil(torch.log2(torch.clamp(max_int, min=1.0) + 1.0))
 
 
-def _wire_metrics(wf: WireFormat, int_sum: Tree, alphas: Tree) -> Metrics:
+def new_peak(like: torch.Tensor) -> torch.Tensor:
+    """A float32 0 on ``like``'s device for ``encode_ints(amax=...)`` to
+    raise to one worker's |image|∞."""
+    return torch.zeros((), dtype=torch.float32, device=like.device)
+
+
+def max_over_workers(local_peaks, ctx: CommCtx) -> torch.Tensor:
+    """The largest of this process's workers' values, and on a process
+    group the largest over the ranks (``lax.pmax`` in the JAX package)."""
+    peak = torch.stack(list(local_peaks)).max()
+    return ctx.pmax([{"v": peak}])["v"]
+
+
+def _wire_metrics(wf: WireFormat, int_sum: Tree, alphas: Tree, max_local) -> Metrics:
     max_int = tree_abs_max(int_sum)
     payload = float(sum(wf.wire_bytes(v.numel()) for v in int_sum.values()))
-    return Metrics(max_int, wire_bits(max_int), payload, alphas)
+    return Metrics(max_int, wire_bits(max_int), payload, max_local, alphas)
 
 
 class Compressor:
@@ -146,11 +163,9 @@ class NoCompression(Compressor):
         d = sum(g.numel() for g in ghat.values())
         payload = 4.0 * d * (ctx.n if self.use_allgather else 1)
         device = next(iter(ghat.values())).device
-        m = Metrics(
-            torch.zeros((), dtype=torch.float32, device=device),
-            torch.full((), 32.0, dtype=torch.float32, device=device),
-            payload,
-        )
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        m = Metrics(zero, torch.full((), 32.0, dtype=torch.float32, device=device),
+                    payload, zero)
         return ghat, state, m
 
 
@@ -195,10 +210,11 @@ class IntSGD(Compressor):
 
     def encode_ints(self, state, grads: Tree, *, seeds: torch.Tensor, eta,
                     ctx: CommCtx, dims: TreeDims | None = None,
-                    n_accum: int = 1):
+                    n_accum: int = 1, amax: torch.Tensor | None = None):
         """One worker's §5.1-clipped integer image Int(α∘g) and the α dict,
         no wire traffic. Leaf j (in :func:`leaf_names` order) of worker w
-        encodes with ``seeds[w, j]``."""
+        encodes with ``seeds[w, j]``. ``amax`` (:func:`new_peak`), if given,
+        is raised to the image's |·|∞ by the encode itself."""
         n = ctx.n
         wf = self.wire_format
         dims = dims if dims is not None else local_tree_dims(grads)
@@ -208,7 +224,7 @@ class IntSGD(Compressor):
         ints = {
             k: wf.encode(
                 grads[k], alphas[k], row[j], n_workers=n * n_accum,
-                stochastic=self.stochastic,
+                stochastic=self.stochastic, amax=amax,
             )
             for j, k in enumerate(names)
         }
@@ -222,13 +238,14 @@ class IntSGD(Compressor):
         1/(nα) into the optimizer step). Returns
         ``(WireAggregate, alphas, state, metrics)``."""
         wf = self.wire_format
-        alphas = {}
+        alphas, peaks = {}, []
 
         def images():
             for w, grads in zip(ctx.local_workers(), worker_grads):
+                peaks.append(new_peak(seeds))
                 ints, a = self.encode_ints(
                     state, grads, seeds=seeds, eta=eta, ctx=ctx.at_worker(w),
-                    dims=dims,
+                    dims=dims, amax=peaks[-1],
                 )
                 alphas.update(a)
                 del grads  # the caller's generator drops its reference too
@@ -240,7 +257,7 @@ class IntSGD(Compressor):
             WireAggregate(words=words_sum, ints=int_sum),
             alphas,
             state,
-            _wire_metrics(wf, int_sum, alphas),
+            _wire_metrics(wf, int_sum, alphas, max_over_workers(peaks, ctx)),
         )
 
     def aggregate(self, state, worker_grads: Iterable[Tree], *,
@@ -331,10 +348,10 @@ class IntDIANA(Compressor):
 
     def encode_ints(self, state, grads: Tree, *, seeds: torch.Tensor, eta,
                     ctx: CommCtx, dims: TreeDims | None = None,
-                    n_accum: int = 1):
+                    n_accum: int = 1, amax: torch.Tensor | None = None):
         """One worker's difference image Int(α(g − h_i)) and the α dict.
         h_i is not advanced here (``aggregate_wire`` does it, off the same
-        image)."""
+        image). ``amax`` as for IntSGD."""
         n = ctx.n
         w = ctx.worker_index()
         slot = ctx.local_slot(w)
@@ -347,7 +364,7 @@ class IntDIANA(Compressor):
         ints = {
             k: wf.encode(
                 grads[k].to(torch.float32) - h_local[k][slot], alphas[k], row[j],
-                n_workers=n * n_accum, stochastic=self.stochastic,
+                n_workers=n * n_accum, stochastic=self.stochastic, amax=amax,
             )
             for j, k in enumerate(names)
         }
@@ -362,13 +379,14 @@ class IntDIANA(Compressor):
         ``(WireAggregate, alphas, state, metrics)``."""
         wf = self.wire_format
         h_local = state["h_local"]
-        alphas = {}
+        alphas, peaks = {}, []
 
         def images():
             for w, grads in zip(ctx.local_workers(), worker_grads):
+                peaks.append(new_peak(seeds))
                 ints, a = self.encode_ints(
                     state, grads, seeds=seeds, eta=eta, ctx=ctx.at_worker(w),
-                    dims=dims,
+                    dims=dims, amax=peaks[-1],
                 )
                 alphas.update(a)
                 del grads
@@ -383,7 +401,7 @@ class IntDIANA(Compressor):
             WireAggregate(words=words_sum, ints=int_sum),
             alphas,
             dict(state, h_local=h_local),
-            _wire_metrics(wf, int_sum, alphas),
+            _wire_metrics(wf, int_sum, alphas, max_over_workers(peaks, ctx)),
         )
 
     def aggregate(self, state, worker_grads: Iterable[Tree], *,

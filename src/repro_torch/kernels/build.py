@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 # C signature of every entry point (all return int: cudaGetLastError())
 SIGNATURES = {
-    "repro_int_compress": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    # x, out, alpha, seed, n, lim, stochastic, amax, stream
+    "repro_int_compress": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp),
     "repro_pack_words": (_vp, _vp, _i64, _i64, _i32, _i32, _i32, _vp),
     "repro_unpack_words": (_vp, _vp, _i64, _i64, _i32, _i32, _i32, _vp),
     # words, p, mom, h, scalars, p', m', h', d, m, k, bits, nlim, stream
@@ -62,6 +63,12 @@ SIGNATURES = {
     # ctas, stream
     "repro_block_norms": (_vp, _i32, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _vp),
 }
+# the bf16 variants (a bf16 x for the encode, a bf16 param for the fused
+# updates) take the same arguments as their float32 entry points
+for _name in ("repro_int_compress", "repro_fused_unpack_sgd", "repro_fused_unpack_adamw",
+              "repro_fused_apply_sgd", "repro_fused_apply_adamw"):
+    SIGNATURES[_name + "_bf16"] = SIGNATURES[_name]
+del _name
 
 
 class KernelBuildError(RuntimeError):

@@ -21,6 +21,12 @@ g_agg = Σints·inv_nalpha + h and the kernel also writes g_agg, the new
 global shift, before the clip. Each wrapper returns fresh tensors:
 ``(p', *state')``, then ``h'`` when a shift was given.
 
+The param is float32 or bf16 (the JAX step's default ``param_dtype``):
+with a bf16 param the kernels read and write it as bf16 and run the same
+float32 arithmetic, p' rounded to nearest even (the ``_bf16`` entry points
+of the CUDA source); the state tensors and the shift are float32 either way.
+Any other dtype raises: nothing is cast on the way in.
+
 Every function here has a ``*_cuda`` launcher and a ``*_plain`` version of
 the same signature; :mod:`repro_torch.kernels.ops` dispatches between them.
 """
@@ -37,6 +43,8 @@ from repro_torch.kernels.ref import (
 from repro_torch.kernels.wire_pack import words_len
 
 PACKED_BITS = (4, 8, 16)
+# the params the kernels update; state, shift and scalars are float32
+PARAM_DTYPES = (torch.float32, torch.bfloat16)
 # dense integer lanes the kernel reads, and their width in bytes
 LANE_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
 SCALARS = {
@@ -47,6 +55,11 @@ SCALARS = {
 
 
 def _check_state(param, states, scalars, shift, kernel):
+    if param.dtype not in PARAM_DTYPES:
+        raise ValueError(f"the fused kernels update float32 or bfloat16 params, got {param.dtype}")
+    for s in (*states, *(() if shift is None else (shift,))):
+        if s.dtype != torch.float32:
+            raise ValueError(f"optimizer state and shift are float32, got {s.dtype}")
     for s in states:
         if s.shape != param.shape:
             raise ValueError(
@@ -80,7 +93,7 @@ def _outputs(param, states, scalars, shift):
     """Require what the kernels take and allocate their fresh outputs
     ``[p', *state', (h')]``."""
     dev = param.device
-    build.require(param, "param", torch.float32, dev)
+    build.require(param, "param", param.dtype, dev)
     for i, s in enumerate(states):
         build.require(s, f"state {i}", torch.float32, dev)
     build.require(scalars, "scalars", torch.float32, dev)
@@ -93,6 +106,11 @@ def _outputs(param, states, scalars, shift):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _entry(name, param):
+    """The C entry point for ``param``'s dtype (``_bf16`` for bf16)."""
+    return getattr(build.library(), name + ("_bf16" if param.dtype == torch.bfloat16 else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +137,7 @@ def fused_unpack_sgd_cuda(words, param, mom, scalars, *, shift=None, bits: int,
     """Launch the packed SGD kernel: ``(p', m')`` (``+ (h',)`` with shift)."""
     _check_packed(words, param, (mom,), scalars, shift, "sgd", bits)
     return _launch_unpack(
-        build.library().repro_fused_unpack_sgd, "fused_unpack_sgd", words,
+        _entry("repro_fused_unpack_sgd", param), "fused_unpack_sgd", words,
         param, (mom,), scalars, shift, bits, n_summed,
     )
 
@@ -140,7 +158,7 @@ def fused_unpack_adamw_cuda(words, param, mu, nu, scalars, *, shift=None,
     """Launch the packed AdamW kernel: ``(p', mu', nu')`` (``+ (h',)``)."""
     _check_packed(words, param, (mu, nu), scalars, shift, "adamw", bits)
     return _launch_unpack(
-        build.library().repro_fused_unpack_adamw, "fused_unpack_adamw", words,
+        _entry("repro_fused_unpack_adamw", param), "fused_unpack_adamw", words,
         param, (mu, nu), scalars, shift, bits, n_summed,
     )
 
@@ -180,7 +198,7 @@ def fused_apply_sgd_cuda(ints, param, mom, scalars, *, shift=None):
     """Launch the dense-lane SGD kernel: ``(p', m')`` (``+ (h',)``)."""
     _check_dense(ints, param, (mom,), scalars, shift, "sgd")
     return _launch_apply(
-        build.library().repro_fused_apply_sgd, "fused_apply_sgd", ints, param,
+        _entry("repro_fused_apply_sgd", param), "fused_apply_sgd", ints, param,
         (mom,), scalars, shift,
     )
 
@@ -199,7 +217,7 @@ def fused_apply_adamw_cuda(ints, param, mu, nu, scalars, *, shift=None):
     """Launch the dense-lane AdamW kernel: ``(p', mu', nu')`` (``+ (h',)``)."""
     _check_dense(ints, param, (mu, nu), scalars, shift, "adamw")
     return _launch_apply(
-        build.library().repro_fused_apply_adamw, "fused_apply_adamw", ints,
+        _entry("repro_fused_apply_adamw", param), "fused_apply_adamw", ints,
         param, (mu, nu), scalars, shift,
     )
 

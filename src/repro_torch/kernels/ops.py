@@ -14,7 +14,9 @@ Dispatch is by the device of the first tensor:
 
 ``launches`` on each wrapper counts the kernel launches, and only those, so
 a run can show that its main path went through the kernels;
-``shift_launches`` counts those of them that carried an IntDIANA shift.
+``shift_launches`` counts those of them that carried an IntDIANA shift, and
+``bf16_launches`` those that ran the bf16 variant (a bf16 gradient into the
+encode, a bf16 param through a fused update).
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ class KernelOp:
         self.source = source  # path of the CUDA source within the package
         self.launches = 0
         self.shift_launches = 0  # of those, launches with an IntDIANA shift
+        self.bf16_launches = 0  # of those, launches of the bf16 variant
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
         if x.device.type == "cuda":
@@ -45,6 +48,8 @@ class KernelOp:
             self.launches += 1
             if kwargs.get("shift") is not None:
                 self.shift_launches += 1
+            if any(t.dtype == torch.bfloat16 for t in (x, *args) if isinstance(t, torch.Tensor)):
+                self.bf16_launches += 1
             return out
         if x.device.type == "cpu":
             return self.plain(x, *args, **kwargs)
@@ -112,6 +117,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.shift_launches = 0
+        k.bf16_launches = 0
 
 
 def launch_counts() -> dict:
@@ -120,3 +126,7 @@ def launch_counts() -> dict:
 
 def shift_launch_counts() -> dict:
     return {k.name: k.shift_launches for k in KERNELS}
+
+
+def bf16_launch_counts() -> dict:
+    return {k.name: k.bf16_launches for k in KERNELS}

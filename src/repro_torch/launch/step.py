@@ -8,12 +8,13 @@ is identical on every rank).
 One step, as the JAX package's ``_make_train_body`` runs it:
 
   1. for each of this process's workers in turn: forward and backward on
-     that worker's slice of the global batch (bf16 activations; f32 params, or
-     bf16 with ``param_dtype``); on the compressed steps its gradients
-     (IntDIANA: minus its local shift) are encoded Int(α∘g) and packed into
-     transport words at once and freed, the words folding into the word sum
-     with the wire type's wrap-around (``Compressor.aggregate_wire``); step
-     0 is exact (paper §4.1) and sums float gradients instead. With M > 1
+     that worker's slice of the global batch (bf16 activations; bf16 params
+     by default, or f32 with ``param_dtype``); on the compressed steps its
+     gradients (IntDIANA: minus its local shift) are encoded Int(α∘g) and
+     packed into transport words at once and freed, the words folding into
+     the word sum with the wire type's wrap-around
+     (``Compressor.aggregate_wire``); step 0 is exact (paper §4.1) and sums
+     float gradients instead. With M > 1
      microbatches on the ZeRO-1 route each microbatch m runs the workers
      in turn, encodes each image clipped for the n·M sum, reduces it (the
      reduce waited on after the next microbatch's backward) and adds the
@@ -51,7 +52,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.comm import CommCtx
 from repro_torch.core.compressor import (
-    Compressor, aggregate_exact, wire_bits, with_wire,
+    Compressor, aggregate_exact, max_over_workers, new_peak, wire_bits, with_wire,
 )
 from repro_torch.core.stats import TreeDims, local_dx_stats, scale_dx_stats
 from repro_torch.kernels import ops
@@ -60,22 +61,11 @@ from repro_torch.optim import base as optb
 from repro_torch.optim.base import Optimizer
 from repro_torch.optim.zero1 import zero1_init, zero1_update
 from repro_torch.parallel import collectives as coll
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import leaf_names, tree_abs_max
 from repro_torch.wire import WireTransportError, bucketing
 
 Tree = Dict[str, torch.Tensor]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The entry points run on the card unless the caller asks for the CPU
-    (where every kernel wrapper runs its plain version)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card; pass device='cpu' "
-            "to run it on the CPU through the kernels' plain versions"
-        )
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,8 +143,9 @@ def _pipelined_grad_stage(layout: Layout, compressor: Compressor, cs, params: Tr
     state; IntDIANA's h_i reads each local worker's integer sum, kept here
     in the wire width's integer type when ``fused_local_state`` is set).
     ``seeds`` is (M, n, n_leaves). Returns ``(ghat, state, loss, max_int,
-    alphas)``; max_int is the largest |summed image| of one microbatch,
-    what one reduce carried."""
+    max_local_int, alphas)``; max_int is the largest |summed image| of one
+    microbatch, what one reduce carried, and max_local_int the largest
+    |image| one worker sent."""
     ctx = layout.ctx
     n = ctx.n
     wf = compressor.wire_format
@@ -164,7 +155,7 @@ def _pipelined_grad_stage(layout: Layout, compressor: Compressor, cs, params: Tr
     # of the wire's width holds it exactly
     acc_dtype = _INT_OF_WIDTH[min(b for b in _INT_OF_WIDTH if b >= wf.bits)]
     worker_loss = {}
-    local_acc, alphas = {}, {}
+    local_acc, alphas, peaks = {}, {}, []
     acc = {"ints": None, "max_int": None}
 
     def images(m):
@@ -173,9 +164,10 @@ def _pipelined_grad_stage(layout: Layout, compressor: Compressor, cs, params: Tr
                 layout, params, _microbatch(_microbatch(batch, w, n), m, n_micro)
             )
             worker_loss[w] = loss_m if m == 0 else worker_loss[w] + loss_m
+            peaks.append(new_peak(seeds))
             ints, a = compressor.encode_ints(
                 cs, grads, seeds=seeds[m], eta=eta, ctx=ctx.at_worker(w),
-                dims=layout.dims, n_accum=n_micro,
+                dims=layout.dims, n_accum=n_micro, amax=peaks[-1],
             )
             alphas.update(a)
             del grads
@@ -211,7 +203,7 @@ def _pipelined_grad_stage(layout: Layout, compressor: Compressor, cs, params: Tr
         n_accum=n_micro,
     )
     loss = ctx.mean_scalars(worker_loss[w] / n_micro for w in ctx.local_workers())
-    return ghat, cs, loss, acc["max_int"], alphas
+    return ghat, cs, loss, acc["max_int"], max_over_workers(peaks, ctx), alphas
 
 
 def _fused_plan(base_opt: Optimizer, compressor: Compressor) -> str:
@@ -317,8 +309,10 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
 
     def step(params, opt_state, comp_state, step_idx: int, batch, seeds=None):
         """-> (params', opt_state', comp_state', loss, (max_int, bits,
-        alphas)); ``alphas`` is the step's {leaf: 0-d α} (empty on the exact
-        step and for a float compressor). ``seeds``: int32 (n_workers,
+        alphas, max_local_int)); ``alphas`` is the step's {leaf: 0-d α}
+        (empty on the exact step and for a float compressor), max_int the
+        largest |summed integer| on the wire and max_local_int the largest
+        |integer| one worker sent (both 0 on the exact step). ``seeds``: int32 (n_workers,
         n_leaves) encode seeds on the card, (M, n_workers, n_leaves) with M
         pipelined microbatches (unused by the exact step)."""
         ctx = layout.ctx
@@ -333,10 +327,10 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
         wa = alphas = None
         cs = comp_state
         if not exact and pipelined:
-            ghat, cs, loss, max_int, alphas = _pipelined_grad_stage(
+            ghat, cs, loss, max_int, max_local, alphas = _pipelined_grad_stage(
                 layout, compressor, cs, params, batch, seeds, eta, microbatches,
             )
-            metrics = (max_int, wire_bits(max_int), alphas)
+            metrics = (max_int, wire_bits(max_int), alphas, max_local)
         else:
             losses = []
 
@@ -354,20 +348,20 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
             if exact:
                 ghat = aggregate_exact(worker_grads(), ctx)
                 zero = torch.zeros((), dtype=torch.float32, device=layout.device)
-                metrics = (zero, zero, {})
+                metrics = (zero, zero, {}, zero)
             elif fused:
                 wa, alphas, cs, m = compressor.aggregate_wire(
                     comp_state, worker_grads(), seeds=seeds, eta=eta, ctx=ctx,
                     dims=layout.dims,
                 )
                 ghat = None
-                metrics = (m.max_int, m.bits_per_coord, alphas)
+                metrics = (m.max_int, m.bits_per_coord, alphas, m.max_local_int)
             else:
                 ghat, cs, m = compressor.aggregate(
                     comp_state, worker_grads(), seeds=seeds, eta=eta, ctx=ctx,
                     dims=layout.dims,
                 )
-                metrics = (m.max_int, m.bits_per_coord, m.alphas)
+                metrics = (m.max_int, m.bits_per_coord, m.alphas, m.max_local_int)
             loss = ctx.mean_scalars(losses)
 
         # the replicated global shift the fused decode adds (IntDIANA's
@@ -415,7 +409,7 @@ def build_train_step(
     compressor: Compressor,
     base_opt: Optimizer,
     lr_schedule: Callable,
-    param_dtype=torch.float32,
+    param_dtype=torch.bfloat16,
     fused: bool = False,
     clip_norm: Optional[float] = None,
     wire=None,
@@ -431,8 +425,10 @@ def build_train_step(
     then be its world size). The device is the card by default;
     ``device="cpu"`` runs the kernels' plain versions. The update runs on
     the ZeRO-1 route, or with ``fused=True`` through the fused decode +
-    update kernels; ``param_dtype`` is the compute params' type (the ZeRO-1
-    route gathers its f32 master rows into it). ``overlap="ring"`` sends
+    update kernels; ``param_dtype`` is the params' type, bf16 by default as
+    in the JAX package (the ZeRO-1 route gathers its f32 master rows into
+    it; the fused kernels read and write a bf16 param themselves and keep
+    their state in f32). ``overlap="ring"`` sends
     the integer wire in buckets of ``bucket_words`` words."""
     device = resolve_device(device)
     # float32 matmuls in full float32 on the card (no TF32), as in the JAX
@@ -460,11 +456,6 @@ def build_train_step(
         _check_group_wire(compressor)
     if fused:
         _fused_plan(base_opt, compressor)
-        if param_dtype != torch.float32:
-            raise NotImplementedError(
-                f"{param_dtype} params on the fused route are not ported yet "
-                "(its kernels update float32 params); use the zero1 route"
-            )
     if shape.global_batch % n_workers:
         raise ValueError(
             f"global batch {shape.global_batch} does not split over "

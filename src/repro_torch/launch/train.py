@@ -46,12 +46,13 @@ from repro_torch.core.compressor import (
     compressor_names, leaf_seeds, make_compressor, with_wire,
 )
 from repro_torch.data.synthetic import SyntheticLMData
-from repro_torch.launch.step import build_init_state, build_train_step, resolve_device
+from repro_torch.launch.step import build_init_state, build_train_step
 from repro_torch.models.transformer import init_lm_params
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.schedules import constant, warmup_wrap
 from repro_torch.optim.sgd import sgd
 from repro_torch.parallel import collectives as coll
+from repro_torch.utils.device import resolve_device
 from repro_torch.wire import bucketing, make_wire_format, wire_format_names
 
 OPTIMIZERS = {
@@ -92,9 +93,9 @@ def train_loop(
     Weights come from a ``torch.Generator`` seeded with ``seed`` on the
     device (in ``param_dtype``), encode seeds from a host generator with the
     same seed. Returns ``(params, history)``: one record per step with
-    loss, max_int, bits, each leaf's α (``alpha``, empty on the exact step
-    and for a float compressor) and the step's wall time in ms (the step
-    ends in a sync). ``on_step(i, params)``, if given, is called after each
+    loss, max_int, bits, max_local_int, each leaf's α (``alpha``, empty on
+    the exact step and for a float compressor) and the step's wall time in
+    ms (the step ends in a sync). ``on_step(i, params)``, if given, is called after each
     step with its new params."""
     device = resolve_device(device)
     if opt not in OPTIMIZERS:
@@ -142,7 +143,8 @@ def train_loop(
         alphas = metrics[2]
         alpha_vals = torch.stack(list(alphas.values())).tolist() if alphas else []
         rec = dict(step=i, loss=float(loss), max_int=float(metrics[0]),
-                   bits=float(metrics[1]), alpha=dict(zip(alphas, alpha_vals)), ms=ms)
+                   bits=float(metrics[1]), max_local_int=float(metrics[3]),
+                   alpha=dict(zip(alphas, alpha_vals)), ms=ms)
         history.append(rec)
         if art.layout.ctx.worker_index() == 0 and (i % log_every == 0 or i == steps - 1):
             print(

@@ -1,5 +1,6 @@
 """Optimizer interface and the fused-route registry (port of
-``repro/optim/base.py``: the heavy-ball SGD and AdamW kernels).
+``repro/optim/base.py``: the heavy-ball SGD and AdamW kernels, plus
+``apply_updates`` and ``chain_clip_by_global_norm`` for the simulator).
 
 An Optimizer is a pair of functions, ``init(params) -> state`` and
 ``update(grads, state, params, lr) -> (updates, state)``, plus
@@ -26,6 +27,8 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
+from repro_torch.kernels import ops
+
 OptState = Any
 
 
@@ -37,6 +40,30 @@ class Optimizer:
     kind: str = "custom"
     hyper: Optional[Mapping[str, Any]] = None  # static hyperparameters
     fused_kernel: Optional[str] = None  # fused decode+update kernel capability
+
+
+def apply_updates(params, updates):
+    """x + Δ per leaf, in the param's own type (the sum in float32 for a
+    bf16 param, as the JAX package's type promotion computes it)."""
+    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+
+
+def chain_clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
+    """Gradient clipping wrapper (applied to the aggregated gradient):
+    g · min(1, max_norm / (||g|| + 1e-12)), ||g||² through the block-norms
+    kernel on the card. The wrapped update is opaque, so the fused
+    capability does not survive the chain (on the fused route use
+    ``build_train_step(clip_norm=...)``, which folds the clip factor into
+    the kernels' scalar vector)."""
+
+    def update(grads, state, params, lr):
+        gn = torch.sqrt(torch.sum(torch.stack([ops.sq_norm(g.float()) for g in grads.values()])))
+        # a tensor over a tensor: PyTorch's Python-scalar / tensor
+        # multiplies by the reciprocal, one rounding more than JAX's
+        scale = torch.clamp(torch.full_like(gn, max_norm) / (gn + 1e-12), max=1.0)
+        return opt.update({k: g * scale for k, g in grads.items()}, state, params, lr)
+
+    return dataclasses.replace(opt, update=update, kind="custom", fused_kernel=None)
 
 
 # per-param f32 state tensors each fused kernel reads and writes, in the

@@ -78,14 +78,21 @@ class WireFormat:
         *,
         n_workers: int,
         stochastic: bool = True,
+        amax: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """x -> Int(α ∘ x) clipped for the n-worker sum, canonical int32.
-        The kernel reads float32: a bf16 gradient is cast first, as the JAX
-        package's wrapper casts outside its kernel."""
+        The kernel reads float32 or bf16 (a bf16 gradient goes in as is and
+        is widened exactly inside it, so the integers are those of JAX's
+        wrapper, which casts outside its kernel); any other float type is
+        cast to float32 first, as the JAX wrapper casts it. ``amax`` (a
+        float32 scalar), if given, is raised to the image's largest |value|
+        in the same pass."""
         self.clip_limit(n_workers)  # typed error before the kernel's
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            x = x.to(torch.float32)
         return ops.int_compress(
-            x.to(torch.float32), alpha, seed, n_workers=n_workers, bits=self.bits,
-            stochastic=stochastic,
+            x, alpha, seed, n_workers=n_workers, bits=self.bits, stochastic=stochastic,
+            amax=amax,
         )
 
     def decode(

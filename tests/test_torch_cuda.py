@@ -50,6 +50,38 @@ def test_int_compress_kernel_matches_plain(dev, shape, bits, stochastic):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,n", [(8, 4), (32, 1)])
+def test_int_compress_kernel_amax_matches_plain(dev, dtype, bits, n):
+    """The kernel's |image| max (warp max, one atomicMax per warp) equals
+    the plain version's, also accumulated over two launches and at the int32
+    edge (|-2^31| as float32). The size takes the grid-stride loop round
+    three times and more (the grid is capped at 132·32 blocks of 256), and
+    the unsaturated int32 image has its peak in the last round, so each
+    thread's running max across rounds is what is held."""
+    rng = np.random.default_rng([bits, n, 4])
+    size = 3 * 132 * 32 * 256 + 1_001
+    x = rng.standard_normal(size) * 5
+    x[size - 3] = -40.0  # |image| 948 or 949, past the N(0, 118) tail
+    x = torch.from_numpy(x.astype(np.float32)).to(dev).to(dtype)
+    alpha = torch.tensor(23.7, device=dev)
+    seed = torch.tensor(11, dtype=torch.int32, device=dev)
+    kw = dict(n_workers=n, bits=bits)
+    got, want = torch.zeros((), device=dev), torch.zeros((), device=dev)
+    for scale in (1e-3, 1.0):
+        a = ops.int_compress(x * scale, alpha, seed, amax=got, **kw)
+        b = ops.int_compress.plain(x * scale, alpha, seed, amax=want, **kw)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert got.item() == want.item() == float(a.abs().max()) > 0
+    if bits == 32:
+        assert int(a.abs().argmax()) == size - 3 and got.item() >= 948
+    edge = torch.tensor([-3e9, 5.0], device=dev)
+    got = torch.zeros((), device=dev)
+    ops.int_compress(edge, torch.tensor(1.0, device=dev), seed, n_workers=1, bits=32,
+                     stochastic=False, amax=got)
+    assert got.item() == 2.0**31
+
+
 def test_int_compress_kernel_saturates_at_int32_edge(dev):
     x = torch.tensor([3e9, -3e9, 2147483647.0, 2.5, -0.5, float("nan")], device=dev)
     one = torch.tensor(1.0, device=dev)
@@ -172,6 +204,130 @@ def test_fused_apply_kernel_matches_plain_at_the_lane_extremes(dev, bits, kernel
     got = op(lanes, p, *state, sc, shift=h)
     assert op.launches == before + 1
     _bit_equal(got, op.plain(lanes, p, *state, sc, shift=h))
+
+
+def _bit_equal_nan(got, want):
+    """Bit for bit, a NaN compared as NaN (its pattern is not compared)."""
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        nan = torch.isnan(a)
+        assert torch.equal(nan, torch.isnan(b))
+        assert torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("codec", ["packed8", "dense8"])
+@pytest.mark.parametrize("kernel", ["sgd", "adamw"])
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("nan", [False, True])
+def test_fused_kernels_bf16_param_match_plain(dev, codec, kernel, shift, nan):
+    """The _bf16 entry points: p read and written as bf16 (rounded to
+    nearest even), state and shift float32, bit-equal to the plain version;
+    a NaN param stays NaN at the same places."""
+    n, d = 4, 1_000_003
+    lim = clip_limit(8, n)
+    rng = np.random.default_rng([len(codec), len(kernel), int(shift), int(nan)])
+    images = [_ints(rng, (d,), lim).to(dev) for _ in range(n)]
+    if codec == "packed8":
+        payload = psum_wire_words({"w": ops.pack_words(img, bits=8, n_workers=n)}
+                                  for img in images)["w"]
+        op = ops.fused_unpack_sgd if kernel == "sgd" else ops.fused_unpack_adamw
+        kw = dict(bits=8, n_summed=n)
+    else:
+        payload = psum_wire_words({"w": img.to(torch.int8)} for img in images)["w"]
+        op = ops.fused_apply_sgd if kernel == "sgd" else ops.fused_apply_adamw
+        kw = {}
+    p, state, sc, h = _family_inputs(dev, kernel, d, shift, 9)
+    p = p.to(torch.bfloat16)
+    if nan:
+        p[1::1000] = float("nan")
+    before, before16 = op.launches, op.bf16_launches
+    got = op(payload, p, *state, sc, shift=h, **kw)
+    assert op.launches == before + 1 and op.bf16_launches == before16 + 1
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+    _bit_equal_nan(got, op.plain(payload, p, *state, sc, shift=h, **kw))
+    if nan:
+        assert int(torch.isnan(got[0]).sum()) == len(range(1, d, 1000))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1_000_003,)])
+@pytest.mark.parametrize("stochastic", [True, False])
+def test_int_compress_kernel_bf16_input_matches_plain(dev, shape, stochastic):
+    rng = np.random.default_rng([len(shape), int(stochastic), 16])
+    x = torch.from_numpy((rng.standard_normal(shape) * 5).astype(np.float32)).to(dev)
+    x16 = x.to(torch.bfloat16)
+    alpha = torch.tensor(23.7, device=dev)
+    seed = torch.tensor(-987654321, dtype=torch.int32, device=dev)
+    kw = dict(n_workers=4, bits=8, stochastic=stochastic)
+    before16 = ops.int_compress.bf16_launches
+    got = ops.int_compress(x16, alpha, seed, **kw)
+    assert ops.int_compress.bf16_launches == before16 + 1
+    torch.testing.assert_close(got, ops.int_compress.plain(x16, alpha, seed, **kw),
+                               rtol=0, atol=0)
+    # the widening is exact: the float32 kernel's image on x16.float()
+    torch.testing.assert_close(got, ops.int_compress(x16.float(), alpha, seed, **kw),
+                               rtol=0, atol=0)
+
+
+def test_bf16_kernels_refuse_other_types(dev):
+    one = torch.tensor(1.0, device=dev)
+    seed = torch.tensor(0, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.int_compress(torch.zeros(8, dtype=torch.float16, device=dev), one, seed,
+                         n_workers=1, bits=8)
+    ints = torch.zeros(8, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16 params"):
+        ops.fused_apply_sgd(ints, torch.zeros(8, dtype=torch.float16, device=dev),
+                            torch.zeros(8, device=dev), torch.zeros(5, device=dev))
+
+
+def test_bf16_fused_step_on_the_card_matches_the_cpu(dev):
+    """One exact and one compressed step of granite-8b (smoke) with bf16
+    params, the default, on the fused SGD / IntSGD / packed8 route at
+    n = 4: losses within 2e-2 of the CPU's (the bf16 backward differs),
+    params bf16 and finite, and every encode and fused update launched as
+    its bf16 variant."""
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
+    from repro_torch.core.compressor import leaf_seeds, make_compressor
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.launch.step import build_init_state, build_train_step
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.optim.schedules import constant, warmup_wrap
+    from repro_torch.optim.sgd import sgd
+
+    cfg = smoke_config(get_arch("granite-8b"))
+    n = 4
+    shape = ShapeConfig("t", 32, n, "train")
+    comp = make_compressor("intsgd8_packed")
+    opt = sgd(momentum=0.9, weight_decay=1e-4)
+    data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
+    params0 = init_lm_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu",
+                             dtype=torch.bfloat16)
+    n_leaves = len(params0)
+    gen = torch.Generator().manual_seed(0)
+    seeds = [leaf_seeds(gen, n, n_leaves, "cpu") for _ in range(2)]
+    runs = {}
+    for device in (torch.device("cpu"), dev):
+        art = build_train_step(cfg, shape, n_workers=n, compressor=comp, base_opt=opt,
+                               lr_schedule=warmup_wrap(constant(0.3), 5), fused=True,
+                               clip_norm=1.0, device=device)
+        p = {k: v.to(device) for k, v in params0.items()}
+        o, cs = build_init_state(p, n_workers=n, compressor=comp, base_opt=opt, fused=True)
+        losses = []
+        ops.reset_launch_counts()
+        for i in range(2):
+            fn = art.steps["exact" if i == 0 else "compressed"]
+            p, o, cs, loss, met = fn(p, o, cs, i, data.batch(i, 0, device=device),
+                                     seeds[i].to(device))
+            losses.append(float(loss))
+        assert all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v).all())
+                   for v in p.values())
+        assert 0 < float(met[3]) <= clip_limit(8, n) and float(met[0]) <= n * clip_limit(8, n)
+        runs[device.type] = losses
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=2e-2)
+    counts, counts16 = ops.launch_counts(), ops.bf16_launch_counts()
+    assert counts["int_compress"] == counts16["int_compress"] == n * n_leaves
+    assert counts["fused_unpack_sgd"] == counts16["fused_unpack_sgd"] == n_leaves
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -315,7 +471,7 @@ def test_zero1_pipelined_step_on_the_card_matches_the_cpu(dev):
     for device in (torch.device("cpu"), dev):
         art = build_train_step(cfg, shape, n_workers=n, compressor=comp, base_opt=opt,
                                lr_schedule=sched, clip_norm=1.0, microbatches=micro,
-                               device=device)
+                               param_dtype=torch.float32, device=device)
         p = {k: v.to(device) for k, v in params0.items()}
         o, cs = build_init_state(p, n_workers=n, compressor=comp, base_opt=opt)
         losses, states = [], []

@@ -247,8 +247,8 @@ def _drive(group, corner):
     art = build_train_step(
         cfg, shape, n_workers=N, compressor=comp, base_opt=base_opt,
         lr_schedule=warmup_wrap(constant(0.3 if opt == "sgd" else 3e-4), 5), fused=fused,
-        clip_norm=1.0, microbatches=micro, device="cpu", group=group, overlap=overlap,
-        bucket_words=4096,
+        clip_norm=1.0, microbatches=micro, param_dtype=torch.float32, device="cpu",
+        group=group, overlap=overlap, bucket_words=4096,
     )
     params = init_lm_params(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
     opt_state, comp_state = build_init_state(params, n_workers=N, compressor=comp,
@@ -259,10 +259,10 @@ def _drive(group, corner):
     for i in range(STEPS):
         seeds = leaf_seeds(seed_gen, N, len(art.layout.names), "cpu", micro)
         fn = art.steps["exact"] if i == 0 else art.steps["compressed"]
-        params, opt_state, comp_state, loss, (max_int, _, alphas) = fn(
+        params, opt_state, comp_state, loss, (max_int, _, alphas, max_local) = fn(
             params, opt_state, comp_state, i, data.batch(i, 0, device="cpu"), seeds)
-        records.append({"loss": loss, "max_int": max_int, "alpha": dict(alphas),
-                        "params": dict(params)})
+        records.append({"loss": loss, "max_int": max_int, "max_local_int": max_local,
+                        "alpha": dict(alphas), "params": dict(params)})
     end = {}
     if not fused:
         end["master"] = opt_state["master"]
@@ -286,6 +286,8 @@ def test_four_ranks_match_the_local_backend_bit_for_bit(corner):
             where = f"rank {rank} step {step}"
             assert torch.equal(got["loss"], want["loss"]), where
             assert torch.equal(got["max_int"], want["max_int"]), where
+            # each rank's own |image| max, pmax-ed over the ranks
+            assert torch.equal(got["max_local_int"], want["max_local_int"]), where
             assert _equal_trees(got["alpha"], want["alpha"]), where
             assert _equal_trees(got["params"], want["params"]), where
         if "master" in local_end:  # the rank's own row, bit-equal to row w
@@ -367,7 +369,7 @@ def _jax_weights_rank(group, rank, ref, wire):
     art = build_train_step(
         cfg, ShapeConfig("t", SEQ, BATCH, "train"), n_workers=N, compressor=comp,
         base_opt=base_opt, lr_schedule=warmup_wrap(constant(0.3), 5), clip_norm=1.0,
-        device="cpu", group=group,
+        param_dtype=torch.float32, device="cpu", group=group,
     )
     params = params_from_jax(ref["params0"], "cpu")
     opt_state, comp_state = zero1_state_from_jax(ref["opt0"], ref["comp0"], "cpu", rank=rank)

@@ -34,6 +34,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.launch.train" in mods and "repro_torch.kernels.ops" in mods
     assert "repro_torch.optim.adamw" in mods and "repro_torch.wire.dense" in mods
     assert "repro_torch.parallel.spawn" in mods and "repro_torch.wire.bucketing" in mods
+    assert "repro_torch.core.simulate" in mods and "repro_torch.core.rounding" in mods
+    assert "repro_torch.data.logreg" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -92,3 +92,21 @@ def test_int_compress_cpu_runs_the_plain_version_and_counts_nothing():
 def test_clip_limit_degenerate_raises():
     with pytest.raises(ValueError, match="degenerates"):
         clip_limit(4, 8)
+
+
+@pytest.mark.parametrize("bits,n", [(8, 4), (32, 1), (4, 2)])
+def test_int_compress_amax_is_the_image_abs_max_and_accumulates(bits, n):
+    """``amax`` is raised to the image's largest |value| (as float32), the
+    max_local_int the JAX package takes as ``tree_abs_max`` of the image;
+    a second call raises it only if its image goes higher."""
+    rng = np.random.default_rng([bits, n, 3])
+    x = torch.from_numpy((rng.standard_normal(5000) * 5.0).astype(np.float32))
+    alpha, seed = torch.tensor(np.float32(23.7)), torch.tensor(-5, dtype=torch.int32)
+    amax = torch.zeros(())
+    out = ops.int_compress(x, alpha, seed, n_workers=n, bits=bits, amax=amax)
+    assert amax.dtype == torch.float32 and amax.item() == out.abs().max().item() > 0
+    small = ops.int_compress(x * 1e-3, alpha, seed, n_workers=n, bits=bits, amax=amax)
+    assert amax.item() == out.abs().max().item() > small.abs().max().item()
+    with pytest.raises(ValueError, match="amax"):
+        ops.int_compress(x, alpha, seed, n_workers=n, bits=bits,
+                         amax=torch.zeros((), dtype=torch.int32))

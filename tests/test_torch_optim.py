@@ -9,6 +9,14 @@ bit-equal over the first 200 steps (asserted); over a vector of 4000 counts
 2 ULP, so the vector check's tolerance is 2 ULP.
 ``fused_reference_update`` (the exact step 0): rtol=1e-6, atol=1e-9 — XLA
 may contract a product and a sum into one FMA, the port never does.
+
+The simulator's pieces: ``step_decay`` is bit-equal to JAX's over a step
+range; ``cosine_decay`` agrees to lr·2^-23 — within one float32 ULP of
+cos(πt), which XLA's CPU cos does not round correctly (about 1 % of
+arguments off by one ULP) and PyTorch's does. ``apply_updates`` is
+bit-equal, in float32 and bf16; ``chain_clip_by_global_norm``'s update at
+rtol 1e-6 (||g||² is summed in another order) and, like JAX's, not
+fused-capable.
 """
 import pytest
 
@@ -19,7 +27,9 @@ import numpy as np  # noqa: E402
 
 from repro.optim import adamw as jadamw, sgd as jsgd  # noqa: E402
 from repro.optim import base as jbase  # noqa: E402
+from repro.optim import schedules as jsched  # noqa: E402
 from repro_torch.optim import base  # noqa: E402
+from repro_torch.optim import schedules  # noqa: E402
 from repro_torch.optim.adamw import adamw  # noqa: E402
 from repro_torch.optim.sgd import sgd  # noqa: E402
 
@@ -125,3 +135,57 @@ def test_dx_scale_and_fused_capabilities_match_jax():
     st = base.fused_state_init(adamw(), {"w": torch.zeros(3, 4)})
     assert set(st) == {"mu", "nu", "count"} and st["count"].dtype == torch.int32
     assert st["mu"]["w"].shape == (3, 4) and int(st["count"]) == 0
+
+
+@pytest.mark.parametrize("lr,boundaries,factor", [(0.1, [30, 60, 90], 0.1), (0.3, [5, 7], 0.5),
+                                                  (1e-3, [2, 3, 100], 0.2)])
+def test_step_decay_matches_jax_bit_for_bit(lr, boundaries, factor):
+    j, t = jsched.step_decay(lr, boundaries, factor), schedules.step_decay(lr, boundaries, factor)
+    want = np.array([np.asarray(j(jnp.int32(s))) for s in range(120)], np.float32)
+    got = np.array([t(s).item() for s in range(120)], np.float32)
+    assert t(3).dtype == torch.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lr,total,final", [(0.1, 100, 0.1), (0.3, 1000, 0.0),
+                                            (3e-4, 777, 0.05)])
+def test_cosine_decay_matches_jax(lr, total, final):
+    j, t = jsched.cosine_decay(lr, total, final), schedules.cosine_decay(lr, total, final)
+    steps = range(0, total + 20)
+    want = np.array([np.asarray(j(jnp.int32(s))) for s in steps], np.float64)
+    got = np.array([t(s).item() for s in steps], np.float64)
+    assert t(3).dtype == torch.float32
+    assert np.abs(got - want).max() <= lr * 2.0**-23
+    assert (got == want).mean() > 0.9
+    assert got[-1] == want[-1] == np.float32(lr) * np.float32(final)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_updates_matches_jax(dtype):
+    rng = np.random.default_rng(11)
+    params, upd = _tree(rng, 0.02), _tree(rng, 1e-3)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jp = {k: jnp.asarray(v).astype(jdt) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v).to(tdt) for k, v in params.items()}
+    want = jbase.apply_updates(jp, {k: jnp.asarray(v) for k, v in upd.items()})
+    got = base.apply_updates(tp, {k: torch.from_numpy(v) for k, v in upd.items()})
+    for k in SHAPES:
+        assert got[k].dtype == tdt
+        np.testing.assert_array_equal(got[k].to(torch.float32).numpy(),
+                                      np.asarray(want[k]).astype(np.float32))
+
+
+@pytest.mark.parametrize("max_norm", [0.05, 100.0])
+def test_chain_clip_by_global_norm_matches_jax(max_norm):
+    rng = np.random.default_rng([int(max_norm * 100)])
+    params, grads, mom = _tree(rng, 0.02), _tree(rng, 0.01), _tree(rng, 1e-3)
+    jo = jbase.chain_clip_by_global_norm(jsgd(momentum=0.9, weight_decay=1e-4), max_norm)
+    to = base.chain_clip_by_global_norm(sgd(momentum=0.9, weight_decay=1e-4), max_norm)
+    assert to.fused_kernel is None and to.kind == "custom" and to.dx_scale == jo.dx_scale
+    j = lambda t: {k: jnp.asarray(v) for k, v in t.items()}  # noqa: E731
+    tt = lambda t: {k: torch.from_numpy(v) for k, v in t.items()}  # noqa: E731
+    jupd, jst = jo.update(j(grads), j(mom), j(params), jnp.float32(0.3))
+    tupd, tst = to.update(tt(grads), tt(mom), tt(params), torch.tensor(np.float32(0.3)))
+    for k in SHAPES:
+        np.testing.assert_allclose(tupd[k].numpy(), np.asarray(jupd[k]), **TOL)
+        np.testing.assert_allclose(tst[k].numpy(), np.asarray(jst[k]), **TOL)

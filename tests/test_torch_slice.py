@@ -4,7 +4,10 @@ config) on the fused route at n = 1: the packed8 IntSGD route with SGD
 IntSGD, packed8), (SGD, IntSGD, dense8) and (AdamW, IntDIANA, dense8)
 (``test_slice_family_matches_jax_four_steps``), and IntSGD's other α and
 rounding rules: blockwise α (Alg. 2) on packed8 and round-half-to-even on
-dense8, both with SGD (``test_slice_alpha_rules_match_jax_four_steps``).
+dense8, both with SGD (``test_slice_alpha_rules_match_jax_four_steps``); and
+with bf16 params (the JAX step's default ``param_dtype``), which the fused
+kernels read and write themselves, on (SGD, IntSGD, packed8) and (AdamW,
+IntDIANA, dense8) (``test_slice_bf16_params_match_jax_four_steps``).
 
 Reference: the JAX package's ``build_train_step`` on the single CPU device
 (``fused=True``, ``clip_norm=1.0``, ``sgd(0.9, 1e-4)`` or
@@ -15,7 +18,9 @@ Reference: the JAX package's ``build_train_step`` on the single CPU device
 batches and encode seeds (derived from the JAX step keys exactly as the JAX
 step derives them). Losses agree within rtol=2e-2 — the bf16 forward
 rounds differently in XLA and PyTorch, and a flipped rounding boundary
-moves a few integers — and max_int within ±1.
+moves a few integers — and max_int within ±1. At n = 1 the one worker's
+payload is the sum, so the port's max_local_int equals its max_int and
+JAX's max_int within ±1 too.
 """
 import pytest
 
@@ -83,16 +88,16 @@ def _corner(opt, comp, wire):
     return jo, jcomp, to, tcomp, lr
 
 
-def _jax_run(batches, jo, jcomp, lr):
+def _jax_run(batches, jo, jcomp, lr, jdt=jnp.float32):
     cfg = jsmoke(jget_arch("granite-8b"))
     mesh = mesh_from_counts(data=1, model=1)
     art = jbuild(
         cfg, mesh, JShape("slice", SEQ, BATCH, "train"), compressor=jcomp,
         base_opt=jo, lr_schedule=jwarmup(jconstant(lr), 5),
-        param_dtype=jnp.float32, fused=True, clip_norm=1.0,
+        param_dtype=jdt, fused=True, clip_norm=1.0,
     )
     key = jax.random.PRNGKey(0)
-    params = init_lm_params(key, cfg, tp=1, n_shards=1, dtype=jnp.float32)
+    params = init_lm_params(key, cfg, tp=1, n_shards=1, dtype=jdt)
     params0 = jax.tree.map(np.asarray, params)
     opt_state, comp_state = build_init_state(cfg, mesh, compressor=jcomp, base_opt=jo, fused=True)(params)
     opt0 = jax.tree.map(np.asarray, opt_state)
@@ -115,18 +120,21 @@ def _jax_run(batches, jo, jcomp, lr):
     return params0, opt0, comp0, losses, max_ints, seeds
 
 
-def _check_corner(opt, comp, wire):
+def _check_corner(opt, comp, wire, param_dtype="float32"):
     batches = _batches()
     jo, jcomp, to, tcomp, lr = _corner(opt, comp, wire)
-    params0, opt0, comp0, jlosses, jmax, jseeds = _jax_run(batches, jo, jcomp, lr)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[param_dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[param_dtype]
+    params0, opt0, comp0, jlosses, jmax, jseeds = _jax_run(batches, jo, jcomp, lr, jdt)
 
     cfg = smoke_config(get_arch("granite-8b"))
     art = build_train_step(
         cfg, ShapeConfig("slice", SEQ, BATCH, "train"), n_workers=1,
         compressor=tcomp, base_opt=to, lr_schedule=warmup_wrap(constant(lr), 5),
-        fused=True, clip_norm=1.0, device="cpu",
+        param_dtype=tdt, fused=True, clip_norm=1.0, device="cpu",
     )
     params = params_from_jax(params0, "cpu")
+    assert all(p.dtype == tdt for p in params.values())
     opt_state = opt_state_from_jax(opt0, "cpu")
     zeros = fused_state_init(to, params)
     assert set(opt_state) == set(zeros)
@@ -149,7 +157,7 @@ def _check_corner(opt, comp, wire):
     else:
         assert torch.equal(alpha0.r, zero_alpha.r)
     assert torch.equal(alpha0.step, zero_alpha.step)
-    losses, max_ints, alphas = [], [], []
+    losses, max_ints, max_local, alphas = [], [], [], []
     for i, (toks, labels) in enumerate(batches):
         fn = art.steps["exact"] if i == 0 else art.steps["compressed"]
         batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
@@ -160,11 +168,13 @@ def _check_corner(opt, comp, wire):
         losses.append(loss.item())
         max_ints.append(metrics[0].item())
         alphas.append({k: float(a) for k, a in metrics[2].items()})
+        max_local.append(metrics[3].item())
 
     np.testing.assert_allclose(losses, jlosses, rtol=2e-2)
     assert all(abs(a - b) <= 1 for a, b in zip(max_ints, jmax)), (max_ints, jmax)
+    assert max_local == max_ints, (max_local, max_ints)
     assert max_ints[0] == 0 and all(0 < v <= 127 for v in max_ints[1:])
-    assert all(np.isfinite(v.numpy()).all() for v in params.values())
+    assert all(p.dtype == tdt and torch.isfinite(p).all() for p in params.values())
     if opt == "adamw":
         assert int(opt_state["count"]) == STEPS
     if comp == "intdiana":  # the shift moved off zero
@@ -195,3 +205,19 @@ def test_slice_family_matches_jax_four_steps(opt, comp, wire):
 ])
 def test_slice_alpha_rules_match_jax_four_steps(opt, comp, wire):
     _check_corner(opt, comp, wire)
+
+
+@pytest.mark.parametrize("opt,comp,wire", [
+    ("sgd", "intsgd", "packed8"),
+    ("adamw", "intdiana", "dense8"),
+])
+def test_slice_bf16_params_match_jax_four_steps(opt, comp, wire):
+    _check_corner(opt, comp, wire, param_dtype="bfloat16")
+
+
+def test_build_train_step_defaults_to_bf16_params_like_jax():
+    import inspect
+
+    want = inspect.signature(jbuild).parameters["param_dtype"].default
+    got = inspect.signature(build_train_step).parameters["param_dtype"].default
+    assert want == jnp.bfloat16 and got == torch.bfloat16
