@@ -67,16 +67,31 @@ Phases, each of which must pass for the exit code to be 0:
                microbatches, 2 layers, 3 steps), zero1-bf16 (zero1-sgd's
                corner with bf16 params, 4 layers, 4 steps);
   8. baseline-none — uncompressed SGD (`none`, a float mean) on the ZeRO-1
-               route, 4 layers, 4 steps.
+               route, 4 layers, 4 steps; zero1-heuristic (SGD / Heuristic
+               IntSGD, Sapio et al.'s profiling max-reduce and fixed α /
+               packed8, 4 layers, 4 steps); then the paper's baselines on
+               the ZeRO-1 route at 2 layers, 3 steps: baseline-none-2l (the
+               yardstick at their depth), zero1-qsgd (two int8 lanes),
+               zero1-qsgd-packed8, zero1-natsgd, zero1-powersgd (rank 2),
+               zero1-signsgd, zero1-topk (k_frac 0.01) and
+               zero1-intsgd-topk8 (IntSGD on the sparse gather wire
+               topk8:1048576, with its EF21 residual, metered by Logged).
                In phases 3-8 the launch counts are zeroed just before each
                path and read just after: every kernel's count (and counts
                of launches with an IntDIANA shift and of bf16 variants)
                must equal what that path implies, losses must be finite,
-               max_int <= 4·lim(8, 4·M) and max_local_int <= lim(8, 4·M),
-               and step 1's max_local_int must equal the largest |image|
-               its encodes wrote (each image read back; at the leaves of
-               at most 2^20 elements also held to the plain version's);
-               each path's step times and peak memory are printed;
+               max_int <= 4·lim and max_local_int <= lim (lim(8, 4·M) on a
+               psum wire, 127 on topk8), and step 1's max_local_int must
+               equal the largest |image| its encodes wrote (each image read
+               back; at the leaves of at most 2^20 elements also held to the
+               plain version's) — Heuristic IntSGD reports max_local_int 0,
+               as the JAX package does, and its step-1 images are held
+               within ±lim(8, 4) = ±31 instead; the float baselines encode
+               nothing and report 0; zero1-intsgd-topk8's bytes metered at
+               step 1 must equal wire_bytes (packed by 4 workers, gathered
+               once). Each path's step times and peak memory are printed,
+               zero1-heuristic's less zero1-sgd's and each 2-layer
+               baseline's less baseline-none-2l's;
   9. cross-route — zero1-sgd's losses at steps 1-3 within 1e-2 relative of
                train-sgd's (same seed, weights, data and encode seeds), and
                baseline-none's step time beside zero1-sgd's and
@@ -92,7 +107,9 @@ Phases, each of which must pass for the exit code to be 0:
                (AdamW / IntDIANA / dense8, 2 pipelined microbatches whose
                reduces are issued async; 1 layer, as four ranks of it do not
                fit in 80 GB at 2), ranks fused-sgd-ring (fused SGD / IntSGD /
-               packed8 on the bucketed wire, default bucket size). Each
+               packed8 on the bucketed wire, default bucket size), ranks
+               zero1-intsgd-topk8 (SGD / IntSGD on topk8:1048576, the
+               planes all-gathered by gloo; 1 layer). Each
                corner also runs on the local backend at n = 4 first. After
                every step the params' checksums must be equal on the four
                ranks, α and max_int identical; max_int <= 4·lim(8, 4·M);
@@ -114,6 +131,20 @@ Phases, each of which must pass for the exit code to be 0:
                IntDIANA's max_local_int < 64 where IntGD's passes 1e4),
                then logreg at 12 workers x 4,096 rows, d = 300, 200 steps,
                within the 10 % band and timed; launch counts per run.
+ 14. baselines — each baseline's aggregate at the largest 2-layer leaf
+               (2 x 4096 x 14336 = 117,440,512 elements), four workers'
+               gradients from a seed, on the card and on CPU copies with
+               the same seeds and state: Heuristic IntSGD's ĝ, NatSGD's
+               exponents, signs and ĝ, TopK's indices, ĝ and error feedback
+               bit-equal; QSGD's levels bit-equal given the same norm and
+               uniforms, its ĝ within one level step (the norm is a
+               reduction: a level flips where u lies within an ULP of its
+               fraction); SignSGD's signs bit-equal, its ĝ and PowerSGD's
+               ĝ and error feedback within 1e-5 of the largest |value|
+               (reductions in another order); TopKInt's encode (n_workers
+               = 1), planes and unpacked 4-worker sum bit-equal; and an
+               image of values in -3..3 whose top-2^20 selection must be
+               the CPU's, ties to the lowest indices, on the card.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -668,9 +699,26 @@ def block_norms_phase(torch, ops, checks, timings, device):
     block_norms_leaf_times(torch, kernel, device)
 
 
+# the paper's float baselines: no encode kernel (QSGD on a packed codec
+# packs its levels with n_workers = 1 and unpacks each gathered worker's)
+FLOAT_BASELINES = ("qsgd", "natsgd", "powersgd", "signsgd", "topk")
+
+
+def wire_limits(comp: str, wire, n_workers: int, microbatches: int):
+    """(largest |image| one worker sends, largest |summed image|) a path
+    allows: the §5.1 clip for the n·M sum on a psum wire, the full signed
+    range on a top-k gather wire; 0 for a float compressor."""
+    from repro_torch.kernels.int_compress import clip_limit
+
+    if comp == "none" or comp in FLOAT_BASELINES:
+        return 0, 0
+    lim = 127 if wire and wire.startswith("topk8") else clip_limit(8, n_workers * microbatches)
+    return lim, n_workers * lim
+
+
 def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire, *,
                       fused: bool, microbatches: int, n_local: int = N_WORKERS,
-                      param_dtype: str = "float32"):
+                      param_dtype: str = "float32", n_workers: int = N_WORKERS):
     """Launch counts (all, with an IntDIANA shift, and of bf16 variants) a
     path implies in one process running ``n_local`` workers (all n on the local backend, one
     per rank on a process group). Per compressed step: encode for every
@@ -683,18 +731,25 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
     ||Σints_l||² after; on IntDIANA paths only the exact step's, its shift
     form being plain PyTorch). The ZeRO-1 route runs no fused kernel and
     block_norms twice per leaf and step, for ||ĝ_l||² and ||Δx_l||², whatever
-    the compressor; ``none`` runs no integer kernel at all. With bf16
+    the compressor; ``none`` runs no integer kernel at all, nor do the float
+    baselines but QSGD on a packed codec (pack per local worker and leaf,
+    unpack per gathered worker and leaf). A top-k wire packs without the
+    pack kernel. With bf16
     params IntSGD encodes the bf16 gradient (IntDIANA the float32 g − h_i)
     and the fused update reads and writes the bf16 param."""
     c = steps - 1  # step 0 is exact: no kernel but block_norms
     want = {k.name: 0 for k in ops.KERNELS}
     want_shift, want_bf16 = dict(want), dict(want)
     bf16 = param_dtype == "bfloat16"
-    if comp != "none":
+    if comp in FLOAT_BASELINES:
+        if wire and wire.startswith("packed"):
+            want["pack_words"] = n_local * n_leaves * c
+            want["unpack_words"] = n_workers * n_leaves * c
+    elif comp != "none":
         want["int_compress"] = microbatches * n_local * n_leaves * c
         if bf16 and comp != "intdiana":
             want_bf16["int_compress"] = want["int_compress"]
-        if wire.startswith("packed"):
+        if wire and wire.startswith("packed"):
             want["pack_words"] = microbatches * n_local * n_leaves * c
             want["unpack_words"] = microbatches * n_leaves * c
     if not fused:
@@ -712,17 +767,19 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
 
 
 def compressor_name(comp: str, wire) -> str:
+    """The registry name a path trains with (IntSGD's 8-bit names where
+    they exist; every other compressor its own)."""
     return {("intsgd", "packed8"): "intsgd8_packed", ("intsgd", "dense8"): "intsgd8"}.get(
         (comp, wire), comp)
 
 
 class EncodeSpy:
     """Wraps the encode kernel's wrapper for a path's first compressed
-    step: after every launch with ``amax`` (every one on the main path) it
-    reads the |max| of the image the kernel wrote (``torch.aminmax``, no
-    copy), and at leaves of at most ``SMALL`` elements holds the image
-    against the plain version's on the same inputs. Launch counts are
-    unchanged (they are counted by the ``KernelOp``); step 1 is not timed."""
+    step: after every launch it reads the |max| of the image the kernel
+    wrote (``torch.aminmax``, no copy), and at leaves of at most ``SMALL``
+    elements holds the image against the plain version's on the same
+    inputs. Launch counts are unchanged (they are counted by the
+    ``KernelOp``); step 1 is not timed."""
 
     SMALL = 1 << 20
 
@@ -737,13 +794,12 @@ class EncodeSpy:
 
     def __call__(self, x, alpha, seed, *, amax=None, **kw):
         out = self.real(x, alpha, seed, amax=amax, **kw)
-        if amax is not None:
-            lo, hi = self.torch.aminmax(out)
-            self.peaks.append(self.torch.maximum(lo.abs(), hi.abs()))
-            if x.numel() <= self.SMALL:
-                self.small += 1
-                want = self.op.plain(x, alpha, seed, **kw)
-                self.small_equal &= bool(self.torch.equal(out, want))
+        lo, hi = self.torch.aminmax(out)
+        self.peaks.append(self.torch.maximum(lo.abs(), hi.abs()))
+        if x.numel() <= self.SMALL:
+            self.small += 1
+            want = self.op.plain(x, alpha, seed, **kw)
+            self.small_equal &= bool(self.torch.equal(out, want))
         return out
 
     def stop(self) -> None:
@@ -761,9 +817,9 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
     peak memory in GiB. With a process ``group`` this process is one of
     its ``n_workers`` ranks."""
     from repro_torch.configs.base import ShapeConfig, get_arch
-    from repro_torch.kernels.int_compress import clip_limit
     from repro_torch.launch.train import train_loop
     from repro_torch.utils.tree import tree_size
+    from repro_torch.wire import Logged, make_wire_format
 
     cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=layers)
     shape = ShapeConfig("chip-smoke", 2048, n_workers * microbatches, "train")
@@ -774,17 +830,29 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
           f"({backend}) seq {shape.seq_len} global batch {shape.global_batch} steps {steps}: "
           f"{opt} / {compressor} / {wire}, lr {lr}, {route}, wire overlap {overlap}, "
           f"{param_dtype} params", flush=True)
+    # a top-k wire runs metered: the bytes its pack and unpack see
+    logged = Logged(make_wire_format(wire)) if wire and wire.startswith("topk") else None
+    metered = {}
+
+    def on_step(i, _):
+        if i >= 1:
+            spy.stop()
+        if logged is not None:
+            if i == 1:
+                metered.update(pack=logged.pack_bytes, unpack=logged.unpack_bytes)
+            logged.reset()
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     spy = EncodeSpy(torch, ops)
     ops.reset_launch_counts()
     try:
         params, history = train_loop(
-            cfg, shape, n_workers=n_workers, compressor=compressor, wire=wire, steps=steps,
+            cfg, shape, n_workers=n_workers, compressor=compressor,
+            wire=logged if logged is not None else wire, steps=steps,
             lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0,
             microbatches=microbatches, opt=opt, param_dtype=getattr(torch, param_dtype),
-            device=device, group=group, overlap=overlap,
-            on_step=lambda i, _: spy.stop() if i >= 1 else None,
+            device=device, group=group, overlap=overlap, on_step=on_step,
         )
     finally:
         spy.stop()
@@ -797,6 +865,14 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
           flush=True)
     checks.true(f"{label}: params are {param_dtype}",
                 all(p.dtype == getattr(torch, param_dtype) for p in params.values()))
+    if logged is not None:  # step 1: 4 workers packed, the planes gathered once
+        declared = sum(logged.wire_bytes(p.numel()) for p in params.values())
+        print(f"{label}: step 1 metered pack {metered['pack']} B, unpack {metered['unpack']} B; "
+              f"wire_bytes {declared} B a worker", flush=True)
+        checks.true(f"{label}: step 1 metered bytes: pack {metered['pack']} == {n_workers} x "
+                    f"{declared}, unpack {metered['unpack']} == {n_workers} x {declared}",
+                    metered["pack"] == (n_workers if group is None else 1) * declared
+                    and metered["unpack"] == n_workers * declared)
     del params
     torch.cuda.empty_cache()
     for rec in history:
@@ -804,13 +880,26 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
               f"{rec['max_int']:.0f} max_local_int {rec['max_local_int']:.0f} bits "
               f"{rec['bits']:.0f} ms {rec['ms']:.1f}", flush=True)
     checks.true(f"{label}: losses finite", all(math.isfinite(r["loss"]) for r in history))
-    # the clip for the n·M sum; what one reduce carries is at most n·lim,
-    # what one worker sends at most lim
-    lim = clip_limit(8, n_workers * microbatches)
-    checks.true(f"{label}: max_int <= {n_workers * lim} and max_local_int <= {lim} on every "
-                f"compressed step", all(r["max_int"] <= n_workers * lim
+    # the clip for the n·M sum (the full range on a top-k wire); what one
+    # reduce carries is at most n·lim, what one worker sends at most lim
+    lim, lim_sum = wire_limits(comp, wire, n_workers, microbatches)
+    checks.true(f"{label}: max_int <= {lim_sum} and max_local_int <= {lim} on every "
+                f"compressed step", all(r["max_int"] <= lim_sum
                                         and r["max_local_int"] <= lim for r in history[1:]))
-    if comp != "none":
+    if comp == "heuristic_intsgd":
+        # JAX reports max_local_int 0 for it; its images are held to the
+        # clip directly
+        hlim = wire_limits(comp, wire, n_workers, 1)[0]
+        checks.true(f"{label}: max_local_int 0 on every step (as JAX reports it); the "
+                    f"{spy.calls} step-1 images within ±{hlim} (largest {spy.peak():.0f}); "
+                    f"{spy.small} small leaves' images equal to the plain version's",
+                    all(r["max_local_int"] == 0 for r in history) and spy.calls > 0
+                    and spy.peak() <= hlim and spy.small > 0 and spy.small_equal)
+    elif comp in FLOAT_BASELINES:
+        checks.true(f"{label}: no encode at step 1 ({spy.calls}); max_int and max_local_int 0 on "
+                    f"every compressed step", spy.calls == 0
+                    and all(r["max_int"] == 0 == r["max_local_int"] for r in history[1:]))
+    elif comp != "none":
         # step 1's max_local_int against each encode's image as written
         # (and, at the small leaves, the plain version's image)
         checks.true(f"{label}: step 1 max_local_int {history[1]['max_local_int']:.0f} == the "
@@ -832,7 +921,8 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
                     and len(set(vals)) > 1)
     want, want_shift, want_bf16 = expected_launches(
         ops, n_leaves, steps, opt, comp, wire, fused=fused, microbatches=microbatches,
-        n_local=n_workers if group is None else 1, param_dtype=param_dtype)
+        n_local=n_workers if group is None else 1, param_dtype=param_dtype,
+        n_workers=n_workers)
     for name in want:
         checks.true(f"{label}: {name} launches {launches[name]} (expected {want[name]}), "
                     f"with shift {shifts[name]} (expected {want_shift[name]}), bf16 "
@@ -943,7 +1033,20 @@ PATHS = (
     ("zero1-bf16", 4, 4, "sgd", "intsgd", "packed8", 0.3,
      dict(fused=False, param_dtype="bfloat16")),
     ("baseline-none", 4, 4, "sgd", "none", None, 0.3, dict(fused=False)),
+    ("zero1-heuristic", 4, 4, "sgd", "heuristic_intsgd", "packed8", 0.3, dict(fused=False)),
+    ("baseline-none-2l", 2, 3, "sgd", "none", None, 0.3, dict(fused=False)),
+    ("zero1-qsgd", 2, 3, "sgd", "qsgd", None, 0.3, dict(fused=False)),
+    ("zero1-qsgd-packed8", 2, 3, "sgd", "qsgd", "packed8", 0.3, dict(fused=False)),
+    ("zero1-natsgd", 2, 3, "sgd", "natsgd", None, 0.3, dict(fused=False)),
+    ("zero1-powersgd", 2, 3, "sgd", "powersgd", None, 0.3, dict(fused=False)),
+    ("zero1-signsgd", 2, 3, "sgd", "signsgd", None, 0.3, dict(fused=False)),
+    ("zero1-topk", 2, 3, "sgd", "topk", None, 0.3, dict(fused=False)),
+    # about 0.9 % of the 117,440,512-element largest leaf
+    ("zero1-intsgd-topk8", 2, 3, "sgd", "intsgd", "topk8:1048576", 0.3, dict(fused=False)),
 )
+# the 2-layer baselines, each timed against baseline-none-2l
+BASELINE_PATHS = ("zero1-qsgd", "zero1-qsgd-packed8", "zero1-natsgd", "zero1-powersgd",
+                  "zero1-signsgd", "zero1-topk", "zero1-intsgd-topk8")
 
 
 def cross_route_phase(checks, histories) -> None:
@@ -965,6 +1068,15 @@ def cross_route_phase(checks, histories) -> None:
           f"(IntSGD's encode, pack, word sum and decode cost {intsgd - base:.1f} ms a step), "
           f"train-sgd (fused) {fused_ms:.1f} (ZeRO-1 update over the fused one "
           f"{intsgd - fused_ms:.1f} ms)", flush=True)
+    heur = compressed_ms(histories["zero1-heuristic"])
+    print(f"step ms (median of steps 2-3): zero1-heuristic {heur:.1f}, zero1-sgd {intsgd:.1f}: "
+          f"the profiling max-reduce and the held gradients cost {heur - intsgd:.1f} ms a step "
+          f"over IntSGD's adaptive α", flush=True)
+    base2 = compressed_ms(histories["baseline-none-2l"])
+    for label in BASELINE_PATHS:
+        ms = compressed_ms(histories[label])
+        print(f"step ms (step 2), 2 layers: {label} {ms:.1f}, baseline-none-2l {base2:.1f}: "
+              f"{ms - base2:+.1f} ms a step", flush=True)
     # bf16 params: the fused route keeps no f32 master (as in the JAX
     # package), ZeRO-1 does, so their losses part; printed, not held
     fused16, zero16 = histories["train-sgd-bf16"], histories["zero1-bf16"]
@@ -984,6 +1096,7 @@ RANK_CORNERS = (
     ("ranks zero1-adamw-intdiana-m2", 1, 3, "adamw", "intdiana", "dense8", 3e-4, False, 2,
      "off"),
     ("ranks fused-sgd-ring", 2, 3, "sgd", "intsgd", "packed8", 0.3, True, 1, "ring"),
+    ("ranks zero1-intsgd-topk8", 1, 3, "sgd", "intsgd", "topk8:1048576", 0.3, False, 1, "off"),
 )
 CHECKSUM_CHUNK = 1 << 24
 
@@ -1024,6 +1137,13 @@ def rank_corners(group, rank, corners, device):
         cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=layers)
         shape = ShapeConfig("chip-smoke", 2048, N_WORKERS * micro, "train")
         sums = []
+
+        def on_step(i, p):
+            sums.append(params_checksums(torch, p))
+            # four ranks share 80 GB: a rank's cached blocks go back to the
+            # card after every step, for the others' peaks
+            torch.cuda.empty_cache()
+
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -1031,7 +1151,7 @@ def rank_corners(group, rank, corners, device):
             cfg, shape, n_workers=N_WORKERS, compressor=compressor_name(comp, wire),
             wire=wire, steps=steps, lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0,
             microbatches=micro, opt=opt, device=device, group=group, overlap=overlap,
-            on_step=lambda i, p: sums.append(params_checksums(torch, p)),
+            on_step=on_step,
         )
         out.append(dict(history=history, checksums=sums, n_leaves=len(params),
                         launches=ops.launch_counts(), shifts=ops.shift_launch_counts(),
@@ -1045,7 +1165,6 @@ def ranks_phase(torch, ops, checks, device) -> dict:
     """Phase 11: each corner on the local backend at n = 4, then on four
     real ranks (one spawn for all corners) sharing the card through gloo.
     Returns the launch counts of both."""
-    from repro_torch.kernels.int_compress import clip_limit
     from repro_torch.parallel.spawn import run_ranks
 
     launches = collections.Counter()
@@ -1083,7 +1202,7 @@ def ranks_phase(torch, ops, checks, device) -> dict:
                                            and r["max_int"] == recs[0]["max_int"]
                                            and r["max_local_int"] == recs[0]["max_local_int"]
                                            for r in recs))
-        lim_sum = N_WORKERS * clip_limit(8, N_WORKERS * micro)
+        lim_sum = wire_limits(comp, wire, N_WORKERS, micro)[1]
         checks.true(f"{label}: max_int <= {lim_sum} on every compressed step",
                     all(r["max_int"] <= lim_sum for r in hists[0][1:]))
         gaps = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
@@ -1261,6 +1380,142 @@ def simulator_phase(torch, ops, checks, device) -> dict:
     return launches
 
 
+BASELINE_LEAF = (2, 4096, 14336)  # layers/mlp/w_* at 2 layers: 117,440,512 elements
+
+
+def baseline_phase(torch, checks, device) -> None:
+    """Phase 14: each baseline's aggregate at the largest 2-layer leaf on
+    the card and on CPU copies (same gradients, seeds and state), held as
+    the module docstring says, with both times printed; then TopKInt's
+    planes, and a tied image's top-k selection."""
+    from repro_torch.core.comm import CommCtx
+    from repro_torch.core.compressor import (
+        counter_uniform, leaf_seeds, make_compressor, qsgd_norm,
+    )
+    from repro_torch.wire import TopKInt
+    from repro_torch.wire.topk import select_topk
+
+    cpu = torch.device("cpu")
+    d = math.prod(BASELINE_LEAF)
+    gen = torch.Generator(device=device).manual_seed(2024)
+    grads = {"card": [torch.randn(BASELINE_LEAF, generator=gen, device=device) * 1e-3
+                      for _ in range(N_WORKERS)]}
+    grads["host"] = [g.cpu() for g in grads["card"]]
+    seeds = leaf_seeds(torch.Generator().manual_seed(5), N_WORKERS, 1, cpu)
+    ctx = CommCtx(n_workers=N_WORKERS)
+    print(f"baselines: one {BASELINE_LEAF} leaf ({d} elements), {N_WORKERS} workers, "
+          f"card against the CPU", flush=True)
+
+    def both(name, **kw):
+        """The aggregate on the card, then on the CPU: ((ĝ, state, m) on
+        each, moved to the CPU)."""
+        comp = make_compressor(name, **kw)
+        out = []
+        for dev, key in ((device, "card"), (cpu, "host")):
+            state = comp.init({"w": grads[key][0]}, N_WORKERS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ghat, state, m = comp.aggregate(
+                state, ({"w": g} for g in grads[key]), seeds=seeds.to(dev),
+                eta=torch.tensor(0.1, device=dev), ctx=ctx)
+            torch.cuda.synchronize()
+            out.append((ghat["w"].cpu(), state, m, time.perf_counter() - t0))
+        print(f"  baselines {name}{kw or ''}: aggregate {1e3 * out[0][3]:.1f} ms on the card, "
+              f"{out[1][3]:.1f} s on the CPU", flush=True)
+        return comp, out[0], out[1]
+
+    def within(what, got, want, frac):
+        """|got - want| <= frac · max|want| everywhere: a reduction summed in
+        another order moves each value by a few ULPs of the largest."""
+        err = (got.double() - want.double()).abs().max().item()
+        ok = got.shape == want.shape and err <= frac * want.abs().max().item()
+        checks.true(f"{what}: max_abs_err {err:.3g} <= {frac} x max|value| "
+                    f"{want.abs().max().item():.3g}", ok)
+
+    # Heuristic IntSGD (packed8): elementwise given the max
+    _, card, host = both("heuristic_intsgd", wire="packed8")
+    checks.equal("baselines heuristic_intsgd packed8 ĝ", card[0], host[0])
+    checks.true(f"baselines heuristic_intsgd max_int {float(card[2].max_int)} == CPU's, <= 124",
+                float(card[2].max_int) == float(host[2].max_int) <= 124)
+    # QSGD: the levels bit-equal given the same norm and uniforms
+    comp, card, host = both("qsgd")
+    g = grads["host"][0]
+    norm = qsgd_norm(g)
+    u = counter_uniform(g.shape, seeds[0, 0], cpu)  # worker 0's, NatSGD's too
+    u_card = counter_uniform(g.shape, seeds[0, 0].to(device), device)
+    checks.equal("baselines counter uniforms (worker 0)", u_card.cpu(), u)
+    checks.equal("baselines qsgd levels given the CPU's norm and uniforms",
+                 comp.quantize(grads["card"][0], norm.to(device), u_card).cpu(),
+                 comp.quantize(g, norm, u))
+    step = max(float(qsgd_norm(x)) for x in grads["host"]) / (
+        comp.levels * N_WORKERS)
+    diff = (card[0].double() - host[0].double()).abs()
+    big = int((diff > 1e-6 * host[0].abs().max().item()).sum())
+    checks.true(f"baselines qsgd ĝ: max_abs_err {diff.max().item():.3g} within one level step "
+                f"{step:.3g}; {big} of {d} elements past 1e-6 x max|value| (flipped levels)",
+                diff.max().item() <= step * (1 + 1e-5) and big <= 64)
+    del diff
+    # NatSGD: elementwise throughout
+    comp, card, host = both("natsgd")
+    checks.equal("baselines natsgd ĝ", card[0], host[0])
+    for part, got, want in zip(("exponents", "signs"),
+                               comp.natural(grads["card"][0], u_card), comp.natural(g, u)):
+        checks.equal(f"baselines natsgd {part} (worker 0)", got.cpu(), want)
+    del u, u_card
+    # PowerSGD and SignSGD: reductions in another order
+    _, card, host = both("powersgd")
+    within("baselines powersgd ĝ", card[0], host[0], 1e-5)
+    within("baselines powersgd error feedback", card[1]["err"]["w"].cpu(), host[1]["err"]["w"],
+           1e-5)
+    _, card, host = both("signsgd")
+    within("baselines signsgd ĝ", card[0], host[0], 1e-5)
+    within("baselines signsgd error feedback", card[1]["w"].cpu(), host[1]["w"], 1e-5)
+    checks.equal("baselines signsgd signs sent (sign of w - e')",
+                 torch.sign(grads["card"][0] - card[1]["w"][0]).cpu(),
+                 torch.sign(g - host[1]["w"][0]))
+    # TopK: selection, scatter-add in worker order, error feedback
+    comp, card, host = both("topk")
+    checks.equal("baselines topk ĝ", card[0], host[0])
+    checks.equal("baselines topk error feedback", card[1]["w"].cpu(), host[1]["w"])
+    checks.equal("baselines topk indices (worker 0)", comp.select(grads["card"][0])[0].cpu(),
+                 comp.select(g)[0])
+    del card, host
+
+    # TopKInt: the encode (n_workers = 1), the planes, the gathered sum
+    wf = TopKInt(bits=8, k=1 << 20)
+    alpha, seed = torch.tensor(1e4), torch.tensor(-77, dtype=torch.int32)
+    sums, planes = [], []
+    for dev, key in ((device, "card"), (cpu, "host")):
+        ints = [wf.encode(x, alpha.to(dev), seed.to(dev), n_workers=N_WORKERS, stochastic=False)
+                for x in grads[key]]
+        payloads = [wf.pack(v, n_workers=N_WORKERS) for v in ints]
+        planes.append((ints[0].cpu(), payloads[3]["idx"].cpu(), payloads[3]["vals"].cpu()))
+        sums.append(wf.unpack({p: torch.stack([pl[p] for pl in payloads]) for p in ("idx", "vals")},
+                              BASELINE_LEAF, n_summed=N_WORKERS).cpu())
+        del ints, payloads
+    for what, got, want in zip(("encode (worker 0)", "idx plane (worker 3)",
+                                "vals plane (worker 3)"), *planes):
+        checks.equal(f"baselines topk8 {what}", got, want)
+    checks.equal("baselines topk8 unpacked 4-worker sum", sums[0], sums[1])
+    checks.true(f"baselines topk8: the sum holds 4 x 2^20 survivors at most, some nonzero "
+                f"({int((sums[1] != 0).sum())})", 0 < int((sums[1] != 0).sum()) <= 4 << 20)
+    del sums, planes, grads
+
+    # planted ties: values in -3..3, the top 2^20 of |v|
+    v = torch.randint(-3, 4, (d,), generator=gen, device=device, dtype=torch.int32).abs()
+    k = 1 << 20
+    got = select_topk(v, k)
+    checks.equal(f"baselines tied image (-3..3, {d}): top-{k} indices", got.cpu(),
+                 select_topk(v.cpu(), k))
+    t = v[got[-1]]
+    kept = torch.sort(got[v[got] == t]).values
+    first = (v == t).nonzero().reshape(-1)[:kept.numel()]
+    checks.equal(f"baselines tied image: the {kept.numel()} kept ties of |v| = {int(t)} are the "
+                 f"lowest-indexed, on the card", kept, first)
+    del v, got
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -1276,6 +1531,7 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     checks = Checks()
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -1315,11 +1571,13 @@ def main() -> None:
               f"steps 2+), peak {peaks[b16]:.1f} GiB; float32 {f32} "
               f"{compressed_ms(histories[f32]):.1f} ms, {peaks[f32]:.1f} GiB", flush=True)
 
-    # 9. the ZeRO-1 route against the fused one, and the baseline's gap
+    # 9. the ZeRO-1 route against the fused one, and the baselines' gaps
     cross_route_phase(checks, histories)
 
     # 10. step 1 replayed for one leaf: unpack(sum of words) == sum of images
+    t0 = time.perf_counter()
     wire_phase(torch, checks, device)
+    print(f"wire phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 11. four real ranks (gloo) sharing the card, against the local backend
     t0 = time.perf_counter()
@@ -1338,6 +1596,13 @@ def main() -> None:
     for name, c in simulator_phase(torch, ops, checks, device).items():
         launches[name] += c
     print(f"simulator phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 14. the baselines at the largest 2-layer leaf, card against the CPU
+    t0 = time.perf_counter()
+    baseline_phase(torch, checks, device)
+    print(f"baselines phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 
     # the kernel line, the card line, the result
     kernels = []

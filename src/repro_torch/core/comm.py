@@ -100,7 +100,10 @@ class CommCtx:
         int8/int16/int32 lanes), and unpack once. Returns ``(words_sum,
         int_sum)`` — the fused update consumes the words, the clip factor
         and metrics the image. With ``overlap="ring"`` the words travel in
-        buckets; the sums are bit-identical to the serial route's."""
+        buckets; the sums are bit-identical to the serial route's. A gather
+        codec's payload is all-gathered instead and its unpack sums
+        (:meth:`_gather_wire_start`): ``words_sum`` is then the gathered
+        planes."""
         return self.psum_wire_start(worker_ints, wf).wait()
 
     def psum_wire_start(self, worker_ints: Iterable[Tree], wf) -> coll.Pending:
@@ -108,6 +111,8 @@ class CommCtx:
         images are encoded and packed (the workers' backward passes run)
         now, the unpack when the :class:`~repro_torch.parallel.collectives.Pending`
         is waited on."""
+        if getattr(wf, "transport", "psum") == "gather":
+            return self._gather_wire_start(worker_ints, wf)
         shapes = {}
         manifest = []
 
@@ -154,6 +159,46 @@ class CommCtx:
             return words_sum, int_sum
 
         return pending.then(unpack)
+
+    def _gather_wire_start(self, worker_ints: Iterable[Tree], wf) -> coll.Pending:
+        """The gather-shaped transport (a gather codec such as TopKInt):
+        each local worker's image packed (with n, as the JAX package packs
+        it) into its planes, bucketed (one bucket, or ``bucket_words``-word
+        buckets with ``overlap="ring"``), all-gathered as integers, and
+        unpacked by the codec, which sums the n workers' contributions
+        itself. The returned ``words`` are the gathered planes, each with a
+        leading worker axis."""
+        shapes = {}
+        manifest = []
+
+        def buckets():
+            count = 0
+            for ints in worker_ints:
+                count += 1
+                payload = {}
+                for k, v in ints.items():
+                    shapes[k] = tuple(v.shape)
+                    payload[k] = wf.pack(v, n_workers=self.n)
+                del ints
+                if not manifest:
+                    total = sum(p.numel() for planes in payload.values()
+                                for p in planes.values())
+                    manifest.append(bucketing.plan_buckets(payload, bucket_words=(
+                        self.bucket_words if self.overlap == "ring" else max(total, 1))))
+                yield bucketing.bucketize(payload, manifest[0])
+                del payload
+            if count != self.n_local:
+                raise ValueError(
+                    f"psum_wire over {count} workers, expected {self.n_local}")
+
+        def unpack(gathered_buckets):
+            gathered = bucketing.debucketize_gathered(gathered_buckets, manifest[0])
+            int_sum = {k: wf.unpack(p, shapes[k], n_summed=self.n)
+                       for k, p in gathered.items()}
+            return gathered, int_sum
+
+        return coll.allgather_wire_words(buckets(), self.n, self.group,
+                                         async_op=True).then(unpack)
 
     def pmean(self, worker_trees: Iterable[Tree], *, ordered: bool = False) -> Tree:
         """Float mean over the workers; ``ordered`` sums in worker order on

@@ -210,11 +210,23 @@ def _fused_plan(base_opt: Optimizer, compressor: Compressor) -> str:
     """Validate the (compressor × optimizer) pair against the fused-route
     capability contract and return the kernel name."""
     if not getattr(compressor, "fused_capable", False):
+        wf = getattr(compressor, "wire_format", None)
+        if wf is not None and not getattr(wf, "fused_capable", True):
+            raise ValueError(
+                "fused update routing consumes the summed transport words "
+                f"directly, but wire codec {wf.name!r} has no fused "
+                "decode+update kernel (WireFormat.fused_capable): its "
+                f"gather-transport payload (planes "
+                f"{getattr(wf, 'plane_names', ())!r}) needs a scatter-shaped "
+                "decode — use a psum-transport codec (dense/packed) or "
+                "fused=False"
+            )
         raise ValueError(
             "fused update routing consumes the summed transport words "
             "directly, which needs wire-level aggregation "
             f"(Compressor.fused_capable); compressor {compressor.name!r} "
-            "does not advertise it"
+            "does not advertise it — use an integer-wire compressor or "
+            "fused=False"
         )
     if base_opt.fused_kernel is None or base_opt.hyper is None:
         raise ValueError(

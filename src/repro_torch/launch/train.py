@@ -24,10 +24,14 @@ default) unless ``--fused`` asks for the fused decode + update kernels;
 the ZeRO-1 route. ``--opt sgd|adamw``; ``--compressor`` none or
 allgather_sgd (uncompressed SGD, the paper's baseline; ZeRO-1 only),
 intsgd, intsgd_block (blockwise α, Alg. 2), intsgd_determ (round half to
-even), intsgd4, intsgd8, intsgd8_packed, intsgd4_packed or intdiana;
-``--wire`` dense4/8/16/32 or packed4/8/16 (a compressor whose name carries
-no width — intsgd, intsgd_block, intsgd_determ, intdiana — takes the
-wire's). ``--layers N`` cuts the depth (full width kept). ``--overlap
+even), intsgd4, intsgd8, intsgd8_packed, intsgd4_packed or intdiana, or
+one of the paper's baselines (ZeRO-1 only): heuristic_intsgd (8-bit,
+with the wire's consistency check), qsgd, natsgd, powersgd, signsgd,
+topk; ``--wire`` dense4/8/16/32, packed4/8/16, topk8:<k> or topk16:<k>
+(sparse, gathered; IntSGD then carries an error-feedback residual), or
+logged:<name> (the same, its bytes metered). A compressor whose name
+carries no width — intsgd, intsgd_block, intsgd_determ, intdiana — takes
+the wire's. ``--layers N`` cuts the depth (full width kept). ``--overlap
 ring`` sends the integer wire in buckets of ``--bucket-words`` words. Not
 ported yet, and raising so: ``--ckpt-dir`` and ``--model`` > 1 (tensor
 parallelism).

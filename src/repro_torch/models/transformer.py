@@ -206,6 +206,17 @@ def _alpha_state_from_jax(alpha, device) -> AlphaState:
     return AlphaState(r=r, step=_first(alpha.step, device))
 
 
+def _drop_none(tree: dict) -> dict:
+    """A nested dict without its None leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _drop_none(v)
+        elif v is not None:
+            out[k] = v
+    return out
+
+
 def comp_state_from_jax(state_of_numpy, device, rank=None):
     """JAX compressor state, stacked over the workers as the JAX step and
     ``vmap_workers`` hold it (every leaf with a leading worker axis) -> the
@@ -214,11 +225,27 @@ def comp_state_from_jax(state_of_numpy, device, rank=None):
     AlphaState, "h_local": tree, "h_global": tree}``: h_local kept stacked
     ``(n, *shape)`` per leaf (with ``rank``, that rank's row alone, as a
     process group holds it), the replicated h_global and α state taken
-    from worker 0. The float baseline's is empty."""
+    from worker 0. IntSGD on a gather codec's ``{"alpha", "ef"}``: the α
+    state from worker 0, the residual stacked. PowerSGD's ``{"q", "err"}``:
+    the replicated Q from worker 0 (its matrix leaves only; JAX holds None
+    for the others), the error feedback stacked. SignSGD's and TopK's state
+    is the error-feedback tree itself, stacked. The float baselines' (and
+    Heuristic IntSGD's, QSGD's, NatSGD's) is empty."""
     if isinstance(state_of_numpy, tuple) and not state_of_numpy:
         return ()
     if not isinstance(state_of_numpy, dict):
         return _alpha_state_from_jax(state_of_numpy, device)
+    if set(state_of_numpy) == {"alpha", "ef"}:
+        return {"alpha": _alpha_state_from_jax(state_of_numpy["alpha"], device),
+                "ef": _rank_rows(params_from_jax(state_of_numpy["ef"], device), rank)}
+    if set(state_of_numpy) == {"q", "err"}:
+        q = {k: v[0].clone()
+             for k, v in params_from_jax(_drop_none(state_of_numpy["q"]), device).items()}
+        err = state_of_numpy["err"]
+        return {"q": q, "err": None if err is None
+                else _rank_rows(params_from_jax(err, device), rank)}
+    if "alpha" not in state_of_numpy:  # an error-feedback tree
+        return _rank_rows(params_from_jax(state_of_numpy, device), rank)
     return {
         "alpha": _alpha_state_from_jax(state_of_numpy["alpha"], device),
         "h_local": _rank_rows(params_from_jax(state_of_numpy["h_local"], device), rank),

@@ -198,6 +198,36 @@ def psum_wire_words_bucketed(worker_buckets: Iterable[List[torch.Tensor]], group
     return pending if async_op else pending.wait()
 
 
+def allgather_wire_words(worker_buckets: Iterable[List[torch.Tensor]], n: int, group=None, *,
+                         async_op: bool = False):
+    """The integer all-gather of a gather codec's payload (values and the
+    index plane that positions them: nothing may be summed on the wire),
+    cut into 1-D buckets (:mod:`repro_torch.wire.bucketing`). Returns each
+    bucket with a leading worker axis, ``(n, size)`` in worker order, or a
+    :class:`Pending` of that list. Locally the workers' buckets are stacked
+    in turn; on a group every bucket's ``all_gather`` is issued async and
+    all are waited on together. The integer-only guard holds as on the
+    psum wire."""
+    if group is None:
+        per_worker = []
+        for buckets in worker_buckets:
+            check_wire_dtypes({str(i): b for i, b in enumerate(buckets)})
+            per_worker.append(buckets)
+        if len(per_worker) != n:
+            raise ValueError(f"all_gather over {len(per_worker)} workers, expected {n}")
+        out = [torch.stack([w[i] for w in per_worker]) for i in range(len(per_worker[0]))]
+        pending = Pending((), lambda: out)
+    else:
+        buckets = _only(worker_buckets, "allgather_wire_words")
+        check_group_wire_dtypes({str(i): b for i, b in enumerate(buckets)})
+        _check_size(n, group)
+        out = [torch.empty((n, *b.shape), dtype=b.dtype, device=b.device) for b in buckets]
+        works = [dist.all_gather(list(o.unbind(0)), b.contiguous(), group=group, async_op=True)
+                 for o, b in zip(out, buckets)]
+        pending = Pending(works, lambda: out)
+    return pending if async_op else pending.wait()
+
+
 def pmean_tree(worker_trees: Iterable[Tree], n: int, group=None, *,
                ordered: bool = False) -> Tree:
     """Float mean over the n workers. Locally the f32 sum runs in worker

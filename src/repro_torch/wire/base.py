@@ -1,16 +1,27 @@
 """WireFormat — the codec between "rounded integers" and the wire.
 
-Port of ``repro/wire/base.py`` (psum transport only). The four stages::
+Port of ``repro/wire/base.py``. The four stages::
 
     encode : f32 tensor, α, seed ->  clipped integer image (canonical int32)
-    pack   : integer image       ->  transport words (one integer plane)
-    unpack : summed words        ->  summed integer image (int32)
+    pack   : integer image       ->  transport PAYLOAD (≥ 1 integer planes)
+    unpack : transported payload ->  summed integer image (int32)
     decode : summed image, α     ->  gradient estimate (1/(nα)) Σ Int(α g_i)
 
-Psum-safety contract: ``unpack(Σ_i pack(ints_i), n) == Σ_i ints_i``
-elementwise and exactly, for any n images within the §5.1 clip, where the Σ
-on the left is the word sum in the payload's own integer type, wrapping as an
-all-reduce in that type does.
+Two transport shapes (``transport``):
+
+* ``"psum"`` (DenseInt, PackedInt): pack returns one summable plane, a bare
+  tensor of words, and the wire is an integer all-reduce of it. Psum-safety
+  contract: ``unpack(Σ_i pack(ints_i), n) == Σ_i ints_i`` elementwise and
+  exactly, for any n images within the §5.1 clip, where the Σ on the left
+  is the word sum in the payload's own integer type, wrapping as an
+  all-reduce in that type does.
+* ``"gather"`` (TopKInt): pack returns a dict of named planes
+  (``plane_names``) that are only meaningful together, so no sum may cross
+  the wire: the payload is all-gathered and unpack receives every plane
+  with a leading worker axis and sums by itself. Gather-safety contract:
+  ``unpack(stack_i(pack(ints_i)), n) == Σ_i local_image(ints_i)``, where
+  :meth:`WireFormat.local_image` is the image one worker's payload decodes
+  to (the identity for psum codecs).
 
 The port's encode always takes the counter-PRNG kernel route (the JAX
 package's ``use_kernels=True``): the JAX ``jax.random`` rounding stream of
@@ -26,7 +37,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import INT_LIM
 
-__all__ = ["WireFormat", "WireRangeError", "WireTransportError", "clip_limit"]
+__all__ = ["WireFormat", "WireRangeError", "WireTransportError", "clip_limit",
+           "payload_nbytes"]
 
 
 class WireRangeError(ValueError):
@@ -57,11 +69,24 @@ def clip_limit(*, n_workers: int, bits: int) -> int:
     return lim
 
 
+def payload_nbytes(payload) -> int:
+    """Exact bytes of one payload: a tensor, or a dict of planes (nested
+    dicts summed over). Reads shapes and dtypes only: no device work."""
+    if isinstance(payload, dict):
+        return sum(payload_nbytes(v) for v in payload.values())
+    return payload.numel() * payload.element_size()
+
+
 @dataclasses.dataclass(frozen=True)
 class WireFormat:
-    """Base codec: shared encode/decode; transport stages per format."""
+    """Base codec: shared encode/decode; transport stages per format.
+    ``transport`` names the collective the payload rides ("psum" or
+    "gather"), ``plane_names`` its planes, ``fused_capable`` whether the
+    codec has a fused decode + update kernel."""
 
     name: ClassVar[str] = "base"
+    transport: ClassVar[str] = "psum"
+    plane_names: ClassVar[Tuple[str, ...]] = ("words",)
     fused_capable: ClassVar[bool] = True
 
     bits: int = 32
@@ -101,20 +126,30 @@ class WireFormat:
         """Summed integer image -> gradient estimate (1/(nα)) Σ Int(α g_i)."""
         return ints.to(torch.float32) / (n_workers * alpha)
 
-    def pack(self, ints: torch.Tensor, *, n_workers: int) -> torch.Tensor:
-        """Integer image -> summable transport words."""
+    def pack(self, ints: torch.Tensor, *, n_workers: int):
+        """Integer image -> transport payload: summable words (psum codecs)
+        or a dict of ``plane_names`` planes (gather codecs), every plane of
+        one codec in one integer type."""
         raise NotImplementedError
 
     def unpack(
-        self, words: torch.Tensor, shape: Tuple[int, ...], *, n_summed: int
+        self, words, shape: Tuple[int, ...], *, n_summed: int
     ) -> torch.Tensor:
-        """All-reduced words of ``n_summed`` contributions -> summed int32
-        image."""
+        """Transported payload -> summed int32 image: the all-reduced words
+        of ``n_summed`` contributions (psum codecs), or ``n_summed`` workers'
+        planes stacked on a leading axis, summed here (gather codecs)."""
         raise NotImplementedError
+
+    def local_image(self, ints: torch.Tensor, *, n_workers: int) -> torch.Tensor:
+        """The integer image the decoder attributes to this worker's own
+        payload: the identity for lossless (psum) codecs; sparse codecs
+        return the image masked to what pack selects, which is what an
+        error-feedback residual subtracts."""
+        return ints
 
     def wire_bytes(self, size: int) -> int:
         """Exact bytes one worker's `size`-coordinate payload puts on the
-        collective."""
+        collective, summed over its planes."""
         raise NotImplementedError
 
     def fused_update(

@@ -2,6 +2,7 @@
 of ``tests/test_convergence.py``: IntSGD converges like SGD (Theorems 1-3 /
 Fig. 1) on a quadratic; with momentum on heterogeneous ℓ2 logistic
 regression its terminal loss is within 10 % of SGD's (Table 2's parity);
+Heuristic IntSGD's fixed α (Sapio et al.) stalls short of the optimum;
 the aggregate's quantization variance does not grow with n (Cor. 2); and
 IntDIANA keeps the per-worker payload small where IntGD's blows up on
 heterogeneous data (Appendix A.2 / Fig. 6).
@@ -51,6 +52,14 @@ def test_intsgd_matches_sgd_quadratic(name):
     """Thm 2 regime (smooth convex, deterministic gradients): every IntSGD
     variant reaches the optimum like exact SGD."""
     assert _final_err(make_compressor(name)) < 1e-5
+
+
+def test_heuristic_intsgd_stalls():
+    """Fig. 1: the Sapio et al. fixed-α rule fails to reach the optimum that
+    adaptive IntSGD attains."""
+    err_int = _final_err(make_compressor("intsgd"))
+    err_heur = _final_err(make_compressor("heuristic_intsgd"))
+    assert err_heur > 100 * max(err_int, 1e-12), (err_heur, err_int)
 
 
 def test_intsgd_with_momentum_matches_sgd_logreg():

@@ -590,3 +590,51 @@ def test_one_rank_nccl_group_passes_int32_and_int8_payloads(dev):
         _nccl_one_rank, 1, backend="nccl", device="cuda:0")
     assert backend == "nccl"
     assert torch.equal(words_sum, words) and torch.equal(lanes_sum, lanes)
+
+
+# ---------------------------------------------------------------------------
+# the sparse wire: deterministic top-k and TopKInt on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("k", [1, 1 << 20, (1 << 24) - 3])
+def test_select_topk_on_a_tied_image_matches_the_cpu(dev, k):
+    """Values in -3..3 over 2^24 + 5 elements: the ties decide the
+    selection, which must be the CPU's (lowest indices first), bit for bit
+    and in the same order."""
+    from repro_torch.wire.topk import select_topk
+
+    rng = np.random.default_rng(k)
+    v = torch.from_numpy(rng.integers(-3, 4, (1 << 24) + 5).astype(np.int32)).abs()
+    got = select_topk(v.to(dev), k)
+    want = select_topk(v, k)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    # the kept ties are the lowest-indexed ones
+    t = int(v[want[-1]])
+    tied = (v == t).nonzero().reshape(-1)
+    kept = want[v[want] == t]
+    torch.testing.assert_close(torch.sort(kept).values, tied[:kept.numel()], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("stochastic", [True, False])
+def test_topkint_encode_and_planes_match_plain(dev, bits, stochastic):
+    """TopKInt's encode launches the encode kernel with n_workers=1 (the
+    full range), equal to the plain version; pack, unpack and local_image
+    on the card equal the CPU's."""
+    from repro_torch.wire import TopKInt
+
+    wf = TopKInt(bits=bits, k=777)
+    rng = np.random.default_rng(bits)
+    x = torch.from_numpy((rng.standard_normal((300, 701)) * 3).astype(np.float32))
+    alpha, seed = torch.tensor(11.5), torch.tensor(-42, dtype=torch.int32)
+    before = ops.int_compress.launches
+    got = wf.encode(x.to(dev), alpha.to(dev), seed.to(dev), n_workers=4, stochastic=stochastic)
+    assert ops.int_compress.launches == before + 1
+    want = wf.encode(x, alpha, seed, n_workers=4, stochastic=stochastic)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    payload, cpu_payload = wf.pack(got, n_workers=4), wf.pack(want, n_workers=4)
+    for plane in ("idx", "vals"):
+        torch.testing.assert_close(payload[plane].cpu(), cpu_payload[plane], rtol=0, atol=0)
+    stacked = {p: torch.stack([payload[p]] * 4) for p in payload}
+    torch.testing.assert_close(
+        wf.unpack(stacked, tuple(x.shape), n_summed=4).cpu(),
+        4 * wf.local_image(want, n_workers=4), rtol=0, atol=0)

@@ -124,15 +124,24 @@ def test_wire_range_error_on_the_same_pairs_as_jax(bits, n):
 
 
 def test_codec_registry_has_packed_only_and_says_what_is_not_ported():
-    # dense and packed codecs are ported; the sparse and logging ones not
-    assert wire_format_names() == [
-        "dense16", "dense32", "dense4", "dense8", "packed16", "packed4", "packed8",
-    ]
+    # every codec name of the JAX package is ported: the same registry, the
+    # same parsed codecs, the same refusals
+    from repro.wire import make_wire_format as jmake_wire, wire_format_names as jnames
+    from repro_torch.wire import Logged, TopKInt
+
+    assert wire_format_names() == jnames()
     assert make_wire_format("packed8") == PackedInt(bits=8)
     assert make_wire_format("dense8") == DenseInt(bits=8)
-    for name in ("topk8:64", "logged:packed8"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            make_wire_format(name)
+    for name in ("topk8:64", "topk16:5"):
+        wf, jwf = make_wire_format(name), jmake_wire(name)
+        assert isinstance(wf, TopKInt) and (wf.bits, wf.k) == (jwf.bits, jwf.k)
+    logged = make_wire_format("logged:packed8")
+    assert isinstance(logged, Logged) and logged.inner == PackedInt(bits=8)
+    for bad in ("topk8", "topk8:", "topk8:x", "topk8:0", "topk4:8", "nope", "logged:nope"):
+        with pytest.raises(ValueError):
+            jmake_wire(bad)
+        with pytest.raises(ValueError):
+            make_wire_format(bad)
     with pytest.raises(ValueError, match="bits"):
         PackedInt(bits=32)
     with pytest.raises(ValueError, match="bit values"):
@@ -140,12 +149,27 @@ def test_codec_registry_has_packed_only_and_says_what_is_not_ported():
 
 
 def test_compressor_registry_and_bits_consistency():
+    from repro.core.compressor import make_compressor as jmake
+
     comp = with_wire(make_compressor("intsgd", bits=8), "packed8")
     assert comp.wire_format == PackedInt(bits=8) and comp.fused_capable
     with pytest.raises(ValueError, match="8-bit"):
         with_wire(make_compressor("intsgd"), "packed8")
-    with pytest.raises(ValueError, match="not ported"):
-        make_compressor("qsgd")
+    # all 16 of the JAX package's names build, each the same class
+    names = ["none", "allgather_sgd", "intsgd", "intsgd_determ", "intsgd_block", "intsgd4",
+             "intsgd8", "intsgd8_packed", "intsgd4_packed", "heuristic_intsgd", "qsgd",
+             "natsgd", "powersgd", "signsgd", "topk", "intdiana"]
+    for name in names:
+        assert type(make_compressor(name)).__name__ == type(jmake(name)).__name__, name
+    with pytest.raises(ValueError, match="unknown compressor"):
+        make_compressor("nope")
+    # the bits check applies only to a compressor with a bits field: QSGD
+    # takes a codec as is, the heuristic keeps its own 8-bit check
+    assert with_wire(make_compressor("qsgd"), "packed8").wire == PackedInt(bits=8)
+    with pytest.raises(ValueError, match="bits=8"):
+        with_wire(make_compressor("heuristic_intsgd"), "packed16")
+    with pytest.raises(ValueError, match="no wire-codec seam"):
+        with_wire(make_compressor("topk"), "packed8")
     # without a codec IntSGD rides one dense lane per coordinate, as in JAX
     assert make_compressor("intsgd").wire_format == DenseInt(bits=32)
     assert make_compressor("intsgd8").wire_format == DenseInt(bits=8)
