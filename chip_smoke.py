@@ -107,7 +107,8 @@ Phases, each of which must pass for the exit code to be 0:
                (AdamW / IntDIANA / dense8, 2 pipelined microbatches whose
                reduces are issued async; 1 layer, as four ranks of it do not
                fit in 80 GB at 2), ranks fused-sgd-ring (fused SGD / IntSGD /
-               packed8 on the bucketed wire, default bucket size), ranks
+               packed8 on the bucketed wire, default bucket size; 1 layer,
+               for the same reason), ranks
                zero1-intsgd-topk8 (SGD / IntSGD on topk8:1048576, the
                planes all-gathered by gloo; 1 layer). Each
                corner also runs on the local backend at n = 4 first. After
@@ -115,7 +116,8 @@ Phases, each of which must pass for the exit code to be 0:
                ranks, α and max_int identical; max_int <= 4·lim(8, 4·M);
                losses within 1e-2 relative of the local backend's; each
                rank's launch counts one worker's share. Prints each rank's
-               peak memory and step times (four processes time-sharing one
+               peak memory, the sum of their reserved peaks against the
+               card's free memory, and step times (four processes time-sharing one
                card, gloo staging the collectives through host memory: not
                a transport speed);
  12. nccl-1  — a one-rank NCCL process group in this process: int32 words
@@ -145,6 +147,35 @@ Phases, each of which must pass for the exit code to be 0:
                = 1), planes and unpacked 4-worker sum bit-equal; and an
                image of values in -3..3 whose top-2^20 selection must be
                the CPU's, ties to the lowest indices, on the card.
+ 15. dense family — the other dense configs at published width, 2 layers,
+               4 workers, 4 steps, IntSGD on packed8, with every check of
+               phases 3-8 (launch counts for their leaf counts, the clip,
+               step 1's max_local_int against its encodes) and their peaks
+               below 80 GB: qwen-fused-sgd (qwen2.5-32b, QKV bias, fused
+               SGD, bf16 params), minitron-zero1-adamw (minitron-4b, the
+               786,432,000-element embedding, ZeRO-1 AdamW),
+               danube-window (h2o-danube-3-4b at seq 8192, past its 4,096
+               window, ZeRO-1 SGD) and internvl2-vlm (internvl2-2b, 256
+               patch embeddings + 1,792 text tokens through
+               build_train_step and launch.inputs.materialize_batch,
+               ZeRO-1 SGD); the window at full width (danube's attention at
+               T = 8192, token 0 perturbed: positions >= 4096 unchanged
+               within 1e-6, every earlier one changed, and without the
+               window the late ones changed); the attention's backend pin
+               timed in turns against PyTorch's own choice on granite-8b's
+               zero1-sgd corner (2 layers), and internvl2's logits GEMM at
+               its vocabulary and padded to a multiple of 8 (printed);
+               each new config's forward
+               loss at 1 layer, seq 128, on the card against the CPU
+               within 1e-2; and int_compress, pack_words, unpack_words,
+               fused_unpack_sgd and block_norms once more at the
+               786,432,000-element leaf, against their plain versions and
+               timed beside their bounds;
+ 16. checkpoint — internvl2-2b at 1 layer, ZeRO-1 SGD / IntSGD / packed8,
+               bf16 params: saved at step 2 (checkpoint.CheckpointStore, a
+               temporary directory under build/, removed after), restored
+               bit-equal to what was saved, resumed to step 4 within 1e-2
+               of a straight run's losses.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -156,6 +187,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -809,20 +841,107 @@ class EncodeSpy:
         return float(self.torch.stack(self.peaks).max()) if self.peaks else float("nan")
 
 
+class VlmRun:
+    """A config with a modality frontend (internvl2-2b) through the user
+    entry points ``launch.step.build_train_step`` and
+    ``launch.inputs.materialize_batch``, as ``train_loop`` runs the others:
+    weights from a seeded generator on the card, batch i from a generator
+    seeded with i, encode seeds from a host generator drawn once a step
+    (``skip_seeds`` draws a resumed run's earlier ones)."""
+
+    def __init__(self, torch, cfg, shape, *, n_workers, compressor, wire, opt, lr, fused,
+                 microbatches, param_dtype, device, seed=0):
+        from repro_torch.core.compressor import leaf_seeds, make_compressor, with_wire
+        from repro_torch.launch.step import build_init_state, build_train_step
+        from repro_torch.launch.train import OPTIMIZERS
+        from repro_torch.models.transformer import init_lm_params
+        from repro_torch.optim.schedules import constant, warmup_wrap
+        from repro_torch.wire import make_wire_format
+
+        self.torch, self.cfg, self.shape, self.device = torch, cfg, shape, device
+        self.n, self.micro, self.leaf_seeds = n_workers, microbatches, leaf_seeds
+        comp = make_compressor(compressor)
+        if wire is not None:
+            comp = with_wire(comp, make_wire_format(wire) if isinstance(wire, str) else wire)
+        base_opt = OPTIMIZERS[opt]()
+        self.art = build_train_step(
+            cfg, shape, n_workers=n_workers, compressor=comp, base_opt=base_opt,
+            lr_schedule=warmup_wrap(constant(lr), 5), param_dtype=param_dtype, fused=fused,
+            clip_norm=1.0, microbatches=microbatches, device=device)
+        self.params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(
+            seed), device=device, dtype=param_dtype)
+        self.opt_state, self.comp_state = build_init_state(
+            self.params, n_workers=n_workers, compressor=comp, base_opt=base_opt, fused=fused)
+        self.seed_gen = torch.Generator().manual_seed(seed)
+
+    def state(self) -> dict:
+        return {"params": self.params, "opt": self.opt_state, "comp": self.comp_state}
+
+    def set_state(self, state) -> None:
+        self.params, self.opt_state, self.comp_state = (
+            state["params"], state["opt"], state["comp"])
+
+    def _seeds(self, device):
+        return self.leaf_seeds(self.seed_gen, self.n, len(self.art.layout.names), device,
+                               self.micro)
+
+    def skip_seeds(self, steps: int) -> None:
+        for _ in range(steps):
+            self._seeds("cpu")
+
+    def step(self, i: int) -> dict:
+        """Step i; its record as ``train_loop`` keeps it."""
+        from repro_torch.launch.inputs import materialize_batch
+
+        torch = self.torch
+        batch = materialize_batch(self.cfg, self.shape,
+                                  torch.Generator(device=self.device).manual_seed(i),
+                                  self.device)
+        seeds = self._seeds(self.device)
+        fn = self.art.steps["exact"] if i == 0 else self.art.steps["compressed"]
+        t0 = time.perf_counter()
+        self.params, self.opt_state, self.comp_state, loss, m = fn(
+            self.params, self.opt_state, self.comp_state, i, batch, seeds)
+        torch.cuda.synchronize(self.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        return dict(step=i, loss=float(loss), max_int=float(m[0]), bits=float(m[1]),
+                    max_local_int=float(m[3]), alpha={k: float(a) for k, a in m[2].items()},
+                    ms=ms)
+
+
+def vlm_loop(torch, cfg, shape, *, steps, on_step, device, n_workers, compressor, wire,
+             opt, lr, fused, microbatches, param_dtype, seed, clip_norm, group, overlap,
+             log_every):
+    """``train_loop``'s ``(params, history)`` for a frontend config, on the
+    local backend, clip 1.0, the unbucketed wire."""
+    del log_every
+    if group is not None or overlap != "off" or clip_norm != 1.0:
+        raise ValueError("vlm_loop runs the local backend, clip 1.0, no overlap")
+    run = VlmRun(torch, cfg, shape, n_workers=n_workers, compressor=compressor, wire=wire,
+                 opt=opt, lr=lr, fused=fused, microbatches=microbatches,
+                 param_dtype=param_dtype, device=device, seed=seed)
+    history = []
+    for i in range(steps):
+        history.append(run.step(i))
+        on_step(i, run.params)
+    return run.params, history
+
+
 def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, wire, lr,
                 fused, microbatches=1, param_dtype="float32", n_workers=N_WORKERS,
-                overlap="off", group=None):
-    """One path through the user entry point, launch counts zeroed just
-    before and read just after; returns the counts, the history and the
-    peak memory in GiB. With a process ``group`` this process is one of
-    its ``n_workers`` ranks."""
+                overlap="off", group=None, arch="granite-8b", seq=2048):
+    """One path through the user entry point (``train_loop``; for a config
+    with a frontend, :func:`vlm_loop`), launch counts zeroed just before
+    and read just after; returns the counts, the history and the peak
+    memory in GiB. With a process ``group`` this process is one of its
+    ``n_workers`` ranks."""
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.launch.train import train_loop
     from repro_torch.utils.tree import tree_size
     from repro_torch.wire import Logged, make_wire_format
 
-    cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=layers)
-    shape = ShapeConfig("chip-smoke", 2048, n_workers * microbatches, "train")
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    shape = ShapeConfig("chip-smoke", seq, n_workers * microbatches, "train")
     compressor = compressor_name(comp, wire)
     route = "fused" if fused else f"ZeRO-1, {microbatches} microbatch(es)"
     backend = "local backend" if group is None else "a one-rank NCCL group"
@@ -846,8 +965,9 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
     torch.cuda.reset_peak_memory_stats()
     spy = EncodeSpy(torch, ops)
     ops.reset_launch_counts()
+    loop = train_loop if cfg.frontend is None else functools.partial(vlm_loop, torch)
     try:
-        params, history = train_loop(
+        params, history = loop(
             cfg, shape, n_workers=n_workers, compressor=compressor,
             wire=logged if logged is not None else wire, steps=steps,
             lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0,
@@ -1090,12 +1210,15 @@ def cross_route_phase(checks, histories) -> None:
 # (label, layers, steps, optimizer, compressor, wire, lr, fused, microbatches,
 # overlap). Four ranks of the AdamW/IntDIANA corner do not fit in 80 GB at
 # depth 2 (each holds its params, h_local, h_global and the int32 image
-# accumulator whole), so that corner runs at depth 1.
+# accumulator whole), so that corner runs at depth 1. So does the fused
+# ring corner: at depth 2 its four ranks reserved 74.4 GiB of the card's
+# 78.3 free (its old and new params and momentum are alive together), too
+# little room for the ranks' CUDA contexts.
 RANK_CORNERS = (
     ("ranks zero1-sgd", 2, 3, "sgd", "intsgd", "packed8", 0.3, False, 1, "off"),
     ("ranks zero1-adamw-intdiana-m2", 1, 3, "adamw", "intdiana", "dense8", 3e-4, False, 2,
      "off"),
-    ("ranks fused-sgd-ring", 2, 3, "sgd", "intsgd", "packed8", 0.3, True, 1, "ring"),
+    ("ranks fused-sgd-ring", 1, 3, "sgd", "intsgd", "packed8", 0.3, True, 1, "ring"),
     ("ranks zero1-intsgd-topk8", 1, 3, "sgd", "intsgd", "topk8:1048576", 0.3, False, 1, "off"),
 )
 CHECKSUM_CHUNK = 1 << 24
@@ -1155,7 +1278,8 @@ def rank_corners(group, rank, corners, device):
         )
         out.append(dict(history=history, checksums=sums, n_leaves=len(params),
                         launches=ops.launch_counts(), shifts=ops.shift_launch_counts(),
-                        peak=torch.cuda.max_memory_allocated() / 2**30))
+                        peak=torch.cuda.max_memory_allocated() / 2**30,
+                        reserved=torch.cuda.max_memory_reserved() / 2**30))
         del params
     torch.cuda.empty_cache()
     return out
@@ -1215,12 +1339,16 @@ def ranks_phase(torch, ops, checks, device) -> dict:
         want, want_shift, _ = expected_launches(ops, res[0]["n_leaves"], steps, opt, comp,
                                                 wire, fused=fused, microbatches=micro,
                                                 n_local=1)
+        print(f"  {label}: the {N_WORKERS} ranks' reserved peaks sum to "
+              f"{sum(r['reserved'] for r in res):.1f} GiB of the {free / 2**30:.2f} GiB free "
+              f"before the spawn (each rank's CUDA context comes on top)", flush=True)
         for rank, r in enumerate(res):
             ok = all(r["launches"][k] == want[k] and r["shifts"][k] == want_shift[k] for k in want)
             checks.true(f"{label}: rank {rank} launches {r['launches']} (expected {want}), "
                         f"with shift {r['shifts']} (expected {want_shift})", ok)
             launches.update(r["launches"])
-            print(f"  {label}: rank {rank}: peak {r['peak']:.1f} GiB, step ms "
+            print(f"  {label}: rank {rank}: peak {r['peak']:.1f} GiB ({r['reserved']:.1f} "
+                  f"reserved), step ms "
                   f"{[round(h['ms'], 1) for h in r['history']]} (4 processes time-sharing one "
                   f"card, collectives host-staged by gloo: not a transport speed)", flush=True)
     return launches
@@ -1516,6 +1644,341 @@ def baseline_phase(torch, checks, device) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 15: the rest of the dense decoder family at published width, depth
+# cut to 2 layers, 4 workers, 4 steps, IntSGD on packed8: (label, config,
+# sequence length, optimizer, lr, route). danube runs past its 4,096 window;
+# internvl2 takes 256 patches and 1,792 text tokens.
+DENSE_PATHS = (
+    ("qwen-fused-sgd", "qwen2.5-32b", 2048, "sgd", 0.3, FUSED_BF16),
+    ("minitron-zero1-adamw", "minitron-4b", 2048, "adamw", 3e-4, dict(fused=False)),
+    ("danube-window", "h2o-danube-3-4b", 8192, "sgd", 0.3, dict(fused=False)),
+    ("internvl2-vlm", "internvl2-2b", 2048, "sgd", 0.3, dict(fused=False)),
+)
+DENSE_LARGEST_LEAF = 256_000 * 3_072  # minitron-4b's embed and lm_head
+WINDOW_T = 8192  # the window check's sequence: twice danube's window
+CARD_BYTES = 80e9
+
+
+def window_check(torch, checks, device) -> None:
+    """Port of ``tests/test_archs.py::test_sliding_window_masks_far_tokens``
+    at full width on the card: h2o-danube-3-4b's attention (the first
+    layer's weights) at T = 8192 on float32 inputs, token 0 perturbed by
+    100. With the 4,096 window the outputs at positions >= 4096 stay within
+    1e-6 and every earlier one changes; without it the late ones change."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.attention import attention_train
+    from repro_torch.models.transformer import init_lm_params
+
+    cfg = dataclasses.replace(get_arch("h2o-danube-3-4b"), n_layers=1)
+    params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                            device=device)
+    attn = {k.rsplit("/", 1)[1]: v[0] for k, v in params.items() if "/attn/" in k}
+    del params
+    t, w = WINDOW_T, cfg.window
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(1, t, cfg.d_model, generator=gen, device=device)
+    x2 = x.clone()
+    x2[0, 0] += 100.0
+    pos = torch.arange(t, device=device)[None]
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta)
+    diffs = {}
+    with torch.no_grad():
+        for window in (w, None):
+            a = attention_train(attn, x, pos, window=window, **kw)
+            b = attention_train(attn, x2, pos, window=window, **kw)
+            diffs[window] = (a - b).abs().amax(-1)[0]
+            del a, b
+    late, early = diffs[w][w:], diffs[w][:w]
+    print(f"window: danube attention at T = {t}: with the {w} window, positions >= {w} moved "
+          f"at most {late.max().item():.3g}, positions < {w} at least {early.min().item():.3g}; "
+          f"without it positions >= {w} at least {diffs[None][w:].min().item():.3g}", flush=True)
+    checks.true(f"window: outputs at positions >= {w} unchanged within 1e-6",
+                late.max().item() <= 1e-6)
+    checks.true(f"window: every output at positions < {w} changed", bool((early > 0).all()))
+    checks.true(f"window: without the window every output at positions >= {w} changed",
+                bool((diffs[None][w:] > 0).all()))
+    del x, x2, attn, diffs
+    torch.cuda.empty_cache()
+
+
+def card_cpu_losses(torch, checks, device) -> None:
+    """Each new config at 1 layer, batch 1, 128 text tokens (internvl2: after
+    256 patches): the forward loss on the card against the CPU's plain path,
+    the same bf16 weights and batch, within 1e-2 relative (bf16 activations
+    round differently on the two)."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch.inputs import materialize_batch
+    from repro_torch.models.transformer import init_lm_params, lm_loss
+
+    cpu_s = 0.0
+    for _, arch, *_ in DENSE_PATHS:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=1)
+        shape = ShapeConfig("card-cpu", 128 + cfg.n_frontend_tokens, 1, "train")
+        params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                                device=device, dtype=torch.bfloat16)
+        batch = materialize_batch(cfg, shape, torch.Generator(device=device).manual_seed(1),
+                                  device)
+        with torch.no_grad():
+            card = lm_loss(params, batch, cfg).item()
+            params = {k: v.cpu() for k, v in params.items()}
+            t0 = time.perf_counter()
+            cpu = lm_loss(params, {k: v.cpu() for k, v in batch.items()}, cfg).item()
+            cpu_s += time.perf_counter() - t0
+        del params, batch
+        gap = abs(card - cpu) / abs(cpu)
+        checks.true(f"card-cpu {arch}: loss on the card {card!r}, on the CPU {cpu!r}, "
+                    f"relative gap {gap:.3g} < 1e-2", math.isfinite(card) and gap < 1e-2)
+    torch.cuda.empty_cache()
+    print(f"card-cpu: the CPU forwards took {cpu_s:.1f}s", flush=True)
+
+
+def largest_leaf_kernels(torch, ops, checks, timings, device) -> None:
+    """The kernels of the new paths once more at minitron-4b's 786,432,000-
+    element leaf (3.1 GB of float32: byte offsets past 2^31), each held
+    against its plain version and timed beside its byte bound: the encode
+    (float32, stochastic), pack and unpack (packed8, 4 workers), the fused
+    SGD update (packed8, float32 param) and block_norms (float32, with
+    torch.dot in turns)."""
+    from repro_torch.parallel.collectives import psum_wire_words
+
+    d = DENSE_LARGEST_LEAF
+    print(f"kernels at d = {d}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(2024)
+    tag = lambda name: f"{MAIN_VARIANT[name]}, d={d}"
+    x = torch.randn(d, generator=gen, device=device) * 3e-3
+    alpha = torch.full((), 9000.0, device=device)
+    seed = torch.full((), -123456789, dtype=torch.int32, device=device)
+    kw = dict(n_workers=N_WORKERS, bits=8, stochastic=True)
+    a, b = torch.zeros((), device=device), torch.zeros((), device=device)
+    img = ops.int_compress.cuda(x, alpha, seed, amax=a, **kw)
+    want = ops.int_compress.plain(x, alpha, seed, amax=b, **kw)
+    err = checks.equal(f"int_compress [{tag('int_compress')}]", img, want)
+    checks.equal(f"int_compress [{tag('int_compress')}] amax", a, b)
+    del want
+    torch.cuda.empty_cache()
+    ms = interleaved_ms(torch, [lambda: ops.int_compress.cuda(x, alpha, seed, amax=a, **kw)])[0]
+    timings.add("int_compress", tag("int_compress"), d, bytes_moved("int_compress", d, 4), err,
+                plain_fn=lambda: ops.int_compress.plain(x, alpha, seed, amax=b, **kw), ms=ms,
+                plain_reps=2)
+    torch.cuda.empty_cache()
+
+    pkw = dict(bits=8, n_workers=N_WORKERS)
+    words = ops.pack_words.cuda(img, **pkw)
+    err = checks.equal(f"pack_words [{tag('pack_words')}]", words,
+                       ops.pack_words.plain(img, **pkw))
+    timings.add("pack_words", tag("pack_words"), d, bytes_moved("pack_words", d, 1), err,
+                lambda: ops.pack_words.cuda(img, **pkw), lambda: ops.pack_words.plain(img, **pkw),
+                plain_reps=2)
+    # four workers' words summed: the same image four times
+    wsum = psum_wire_words([{"w": words}] * N_WORKERS)["w"]
+    del words
+    ukw = dict(bits=8, n_summed=N_WORKERS)
+    got = ops.unpack_words.cuda(wsum, (d,), **ukw)
+    err = checks.equal(f"unpack_words [{tag('unpack_words')}]", got,
+                       ops.unpack_words.plain(wsum, (d,), **ukw))
+    checks.equal(f"psum law at d = {d}: unpack(sum of 4 x pack(img)) == 4 x img", got,
+                 img * N_WORKERS)
+    del got, img
+    torch.cuda.empty_cache()
+    timings.add("unpack_words", tag("unpack_words"), d, bytes_moved("unpack_words", d, 1), err,
+                lambda: ops.unpack_words.cuda(wsum, (d,), **ukw),
+                lambda: ops.unpack_words.plain(wsum, (d,), **ukw), plain_reps=2)
+
+    p, state, sc, _ = fused_inputs(torch, gen, device, d, "sgd", False, torch.float32, False)
+    fkw = dict(bits=8, n_summed=N_WORKERS)
+    cuda = lambda: ops.fused_unpack_sgd.cuda(wsum, p, *state, sc, shift=None, **fkw)
+    plain = lambda: ops.fused_unpack_sgd.plain(wsum, p, *state, sc, shift=None, **fkw)
+    err = compare(checks, f"fused_unpack_sgd [{tag('fused_unpack_sgd')}]", cuda(), plain(),
+                  ("param'", "mom'"))
+    torch.cuda.empty_cache()
+    timings.add("fused_unpack_sgd", tag("fused_unpack_sgd"), d,
+                bytes_moved("fused_unpack_sgd", d, 1), err, cuda, plain, plain_reps=2)
+    del p, state, sc, wsum, cuda, plain
+    torch.cuda.empty_cache()
+
+    kernel = ops.block_norms.cuda
+    got = kernel(x, 1)
+    err = checks.close(f"block_norms [{tag('block_norms')}] vs plain", got,
+                       ops.block_norms.plain(x, 1), 1e-5)
+    checks.close(f"block_norms [{tag('block_norms')}] vs float64 sum", got,
+                 x.double().square().sum().reshape(1), 1e-5)
+    times = interleaved_ms(torch, [lambda: kernel(x, 1), lambda: torch.dot(x, x)])
+    timings.add("block_norms", tag("block_norms"), d, 4 * d + 4, err,
+                plain_fn=lambda: ops.block_norms.plain(x, 1), ms=times[0], library_ms=times[1],
+                plain_reps=2)
+    del x, got
+    torch.cuda.empty_cache()
+    for name in ("int_compress", "pack_words", "unpack_words", "fused_unpack_sgd", "block_norms"):
+        small = timings.main_row(name)
+        big = next(r for r in timings.rows if r["name"] == name and r["variant"] == tag(name))
+        print(f"  {name} [{MAIN_VARIANT[name]}]: {small['ms']:.3f} ms at d = {small['d']} "
+              f"({100 * small['bound_ms'] / small['ms']:.1f} % of its bound), {big['ms']:.3f} ms "
+              f"at d = {d} ({100 * big['bound_ms'] / big['ms']:.1f} % of {big['bound_ms']:.3f} "
+              f"ms)", flush=True)
+
+
+def pin_check(torch, ops, checks, device) -> collections.Counter:
+    """The attention's backend pin (PyTorch's memory-efficient SDPA on the
+    card) against PyTorch's own choice, on granite-8b's zero1-sgd corner
+    (2 layers, 3 steps) in turns: pinned, free, free, pinned. Printed, not
+    held (the runs differ by noise alone if the pin costs nothing). Returns
+    the launch counts."""
+    import contextlib
+
+    import repro_torch.models.attention as attention
+
+    pinned = attention.sdpa_kernel
+    launches, ms = collections.Counter(), collections.defaultdict(list)
+    try:
+        for tag in ("pinned", "free", "free", "pinned"):
+            attention.sdpa_kernel = (pinned if tag == "pinned"
+                                     else lambda *a, **k: contextlib.nullcontext())
+            counts, hist, _ = train_phase(
+                torch, ops, checks, device, label=f"pin-check zero1-sgd 2l {tag}", layers=2,
+                steps=3, opt="sgd", comp="intsgd", wire="packed8", lr=0.3, fused=False)
+            launches.update(counts)
+            ms[tag].append(hist[2]["ms"])
+    finally:
+        attention.sdpa_kernel = pinned
+    print(f"pin-check: step 2 ms, pinned {ms['pinned']}, free {ms['free']}: pinned less free "
+          f"{statistics.mean(ms['pinned']) - statistics.mean(ms['free']):+.2f} ms", flush=True)
+    return launches
+
+
+def vocab_probe(torch, device) -> None:
+    """Where internvl2's step goes: its logits GEMM (2048 tokens x 2048 ->
+    92,553 in bf16, forward and the two backward products) against the same
+    with the vocabulary padded to 92,560 (rows of 16-byte multiples), timed
+    in turns. Printed."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    h = torch.randn(2048, 2048, generator=gen, device=device).to(torch.bfloat16)
+    out = {}
+    for v in (92553, 92560):
+        w = torch.randn(2048, v, generator=gen, device=device).to(torch.bfloat16)
+        g = torch.randn(2048, v, generator=gen, device=device).to(torch.bfloat16)
+        out[v] = (lambda h=h, w=w: h @ w, lambda g=g, w=w: g @ w.T, lambda g=g: h.T @ g)
+    names = ("h @ W", "dL @ W^T", "h^T @ dL")
+    times = interleaved_ms(torch, [f for v in out for f in out[v]], rounds=4, batch=5)
+    for i, name in enumerate(names):
+        print(f"vocab-probe: {name}: vocab 92,553 {times[i]:.3f} ms, padded to 92,560 "
+              f"{times[i + 3]:.3f} ms", flush=True)
+    del h, out
+    torch.cuda.empty_cache()
+
+
+def dense_family_phase(torch, ops, checks, timings, device):
+    """Phase 15: the four new configs' paths through the user entry points
+    at published width, with every check of ``train_phase``; the window at
+    full width; card against CPU; the kernels at the largest new leaf.
+    Returns the paths' launch counts and bf16-variant counts, their
+    histories and peaks."""
+    launches, bf16 = collections.Counter(), collections.Counter()
+    histories, peaks = {}, {}
+    for label, arch, seq, opt, lr, route in DENSE_PATHS:
+        t0 = time.perf_counter()
+        counts, histories[label], peaks[label] = train_phase(
+            torch, ops, checks, device, label=label, layers=2, steps=4, opt=opt,
+            comp="intsgd", wire="packed8", lr=lr, arch=arch, seq=seq, **route)
+        launches.update(counts)
+        bf16.update(ops.bf16_launch_counts())
+        checks.true(f"{label}: peak {peaks[label]:.1f} GiB below the card's 80 GB",
+                    peaks[label] * 2**30 < CARD_BYTES)
+        print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
+    vocab_probe(torch, device)
+    t0 = time.perf_counter()
+    launches.update(pin_check(torch, ops, checks, device))
+    print(f"pin check: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    window_check(torch, checks, device)
+    print(f"window check: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    card_cpu_losses(torch, checks, device)
+    print(f"card-cpu: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    largest_leaf_kernels(torch, ops, checks, timings, device)
+    print(f"kernels at the largest new leaf: {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, bf16, histories, peaks
+
+
+def checkpoint_phase(torch, ops, checks, device) -> dict:
+    """Phase 16: internvl2-2b at published width, 1 layer, 4 workers, ZeRO-1
+    SGD / IntSGD / packed8 with bf16 params (the step's default): 4 straight
+    steps; then 2 steps, a save at step 2 into a temporary directory under
+    build/ (removed after), a restore into fresh state that must be bit-equal
+    to what was saved (params, ZeRO-1 masters and momentum rows, α state),
+    and a resume to step 4 (the encode seeds of steps 0-1 drawn and
+    dropped) whose losses are within 1e-2 of the straight run's (the bf16
+    backward is not bit-reproducible on the card). Returns the launch
+    counts, which must be the three runs' (8 steps, 6 compressed)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointStore, flatten_state
+    from repro_torch.configs.base import ShapeConfig, get_arch
+
+    cfg = dataclasses.replace(get_arch("internvl2-2b"), n_layers=1)
+    shape = ShapeConfig("chip-smoke", 2048, N_WORKERS, "train")
+    kw = dict(n_workers=N_WORKERS, compressor="intsgd8_packed", wire="packed8", opt="sgd",
+              lr=0.3, fused=False, microbatches=1, param_dtype=torch.bfloat16, device=device)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        run = VlmRun(torch, cfg, shape, **kw)
+        n_leaves = len(run.params)
+        straight = [run.step(i)["loss"] for i in range(4)]
+        run = VlmRun(torch, cfg, shape, **kw)
+        losses = [run.step(i)["loss"] for i in range(2)]
+        saved = {k: v.clone() for k, v in flatten_state(run.state()).items()}
+        store = CheckpointStore(tmp)
+        t0 = time.perf_counter()
+        store.save(2, run.state())
+        t_snap = time.perf_counter() - t0
+        store.wait()
+        t_write = time.perf_counter() - t0
+        store.close()
+        del run
+        nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        run = VlmRun(torch, cfg, shape, **kw)  # fresh weights and state: the template
+        t0 = time.perf_counter()
+        state, _, step = store.restore(run.state())
+        t_restore = time.perf_counter() - t0
+        got = flatten_state(state)
+        same = got.keys() == saved.keys() and all(
+            got[k].dtype == saved[k].dtype and got[k].device == saved[k].device
+            and torch.equal(got[k], saved[k]) for k in saved)
+        checks.true(f"checkpoint: step {step}: {len(saved)} arrays ({nbytes} bytes on disk) "
+                    f"restored bit-equal to what was saved", step == 2 and same)
+        del saved, got
+        run.set_state(state)
+        del state
+        run.skip_seeds(2)
+        losses += [run.step(i)["loss"] for i in (2, 3)]
+        del run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, straight)]
+    print(f"checkpoint: save {t_snap:.2f}s to host memory, {t_write:.2f}s written; restore "
+          f"{t_restore:.2f}s; losses {losses!r} (resumed at 2), straight {straight!r}; peak "
+          f"{peak:.1f} GiB; launches {counts}", flush=True)
+    checks.true(f"checkpoint: resumed losses within 1e-2 of the straight run's (gaps "
+                f"{[float(f'{g:.3g}') for g in gaps]})",
+                len(gaps) == 4 and all(g < 1e-2 for g in gaps))
+    # 8 steps, 6 compressed: an encode and a pack per worker and leaf, an
+    # unpack per leaf; block_norms twice per leaf and step
+    want = {k.name: 0 for k in ops.KERNELS}
+    want.update(int_compress=6 * N_WORKERS * n_leaves, pack_words=6 * N_WORKERS * n_leaves,
+                unpack_words=6 * n_leaves, block_norms=2 * 8 * n_leaves)
+    checks.true(f"checkpoint: launches {counts} (expected {want})", counts == want)
+    return counts
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -1601,6 +2064,24 @@ def main() -> None:
     t0 = time.perf_counter()
     baseline_phase(torch, checks, device)
     print(f"baselines phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 15. the rest of the dense family at published width
+    t0 = time.perf_counter()
+    counts, b16, dense_hist, dense_peaks = dense_family_phase(torch, ops, checks, timings,
+                                                             device)
+    for name, c in counts.items():
+        launches[name] += c
+    bf16_launches.update(b16)
+    for label, h in dense_hist.items():
+        print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
+              f"peak {dense_peaks[label]:.1f} GiB", flush=True)
+    print(f"dense family phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 16. checkpoint and resume on the card
+    t0 = time.perf_counter()
+    for name, c in checkpoint_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"checkpoint phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

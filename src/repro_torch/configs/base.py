@@ -1,8 +1,10 @@
 """Architecture and shape configs (port of ``repro/configs/base.py``; the
 port keeps its own copy — it imports nothing from the JAX package).
 
-Only the dense decoder family runs in the port so far, and only granite-8b
-is registered; any other name raises saying it is not ported yet.
+Only the dense decoder family runs in the port so far (its ``vlm`` member,
+internvl2-2b, with the modality frontend stub): granite-8b, minitron-4b,
+qwen2.5-32b, h2o-danube-3-4b and internvl2-2b are registered; any other
+name raises saying it is not ported yet.
 """
 from __future__ import annotations
 
@@ -54,7 +56,13 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
 
 
-_ARCH_MODULES = {"granite-8b": "granite_8b"}
+_ARCH_MODULES = {
+    "granite-8b": "granite_8b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "internvl2-2b": "internvl2_2b",
+    "minitron-4b": "minitron_4b",
+    "qwen2.5-32b": "qwen2_5_32b",
+}
 
 
 def get_arch(name: str) -> ModelConfig:

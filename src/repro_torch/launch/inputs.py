@@ -1,0 +1,58 @@
+"""Every model input of a train step: names, shapes and types, and a random
+batch of them (port of ``repro/launch/inputs.py``).
+
+For the ``vlm`` family the modality frontend is a stub, as in the JAX
+package: the batch carries precomputed patch embeddings of the frontend's
+width, bf16, and the text is ``n_frontend_tokens`` shorter than the
+shape's sequence.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+
+# token ids and labels: int64, what ``F.embedding`` and the loss's gather take
+TOKEN_DTYPE = torch.int64
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                kind: str = "train") -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """name -> (shape, dtype) of the batch a step of ``cfg`` takes at
+    ``shape`` (global batch)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encdec inputs (frames) are not ported yet; they wait "
+            "for models/encdec.py")
+    b, t = shape.global_batch, shape.seq_len
+    t_text = t - cfg.n_frontend_tokens if cfg.frontend == "vit" else t
+    specs = {"tokens": ((b, t_text), TOKEN_DTYPE)}
+    if cfg.frontend == "vit":
+        specs["patch_embeds"] = ((b, cfg.n_frontend_tokens, cfg.frontend_dim),
+                                 torch.bfloat16)
+    if kind == "train":
+        specs["labels"] = ((b, t_text), TOKEN_DTYPE)
+    return specs
+
+
+def materialize_batch(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Generator,
+                      device, kind: str = "train") -> Dict[str, torch.Tensor]:
+    """A random batch with :func:`input_specs`' structure, on ``device``
+    (``generator`` on the same device): token ids uniform in [0, vocab),
+    patch embeddings standard normal cast to bf16. The labels are the
+    tokens themselves, as in the JAX package, which draws both from one
+    key."""
+    out = {}
+    for name, (dims, dtype) in input_specs(cfg, shape, kind).items():
+        if name == "labels":
+            continue
+        if dtype == TOKEN_DTYPE:
+            out[name] = torch.randint(0, cfg.vocab, dims, generator=generator,
+                                      device=device, dtype=dtype)
+        else:
+            out[name] = torch.randn(dims, generator=generator, device=device).to(dtype)
+    if kind == "train":
+        out["labels"] = out["tokens"].clone()
+    return out

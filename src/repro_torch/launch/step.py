@@ -402,9 +402,12 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
             if new_shift is not None:
                 cs = compressor.fused_store_shift(cs, new_shift)
         else:
+            # a dict of the step's own (the compressor's state may hold the
+            # one it returned), emptied as each leaf's rows are taken
+            ghat = dict(ghat)
             new_params, new_opt = zero1_update(
                 base_opt, opt_state, ghat, eta, n_dp=ctx.n, param_dtype=param_dtype,
-                params_like=params, group=ctx.group,
+                params_like=params, group=ctx.group, consume_grads=True,
             )
         del ghat, words
         cs = _observe_dx(compressor, base_opt, cs, new_params, params)

@@ -12,6 +12,10 @@ CLI (runs on the card; ``--device cpu`` runs the kernels' plain versions)::
       -m repro_torch.launch.train --arch granite-8b --smoke --workers 4 \\
       --batch 8 --seq 32 --device cpu [--overlap ring --bucket-words 4096]
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-32b \\
+      --smoke --steps 8 --workers 4 --batch 4 --seq 32 --device cpu \\
+      --ckpt-dir /path/to/ckpt [--resume]
+
 Under ``torchrun`` (its ``RANK``/``WORLD_SIZE`` environment) each process
 is one worker: the process group is NCCL on the card (one card per rank)
 and gloo on the CPU; ``--dist-backend gloo`` lets ranks share one card.
@@ -32,9 +36,15 @@ topk; ``--wire`` dense4/8/16/32, packed4/8/16, topk8:<k> or topk16:<k>
 logged:<name> (the same, its bytes metered). A compressor whose name
 carries no width — intsgd, intsgd_block, intsgd_determ, intdiana — takes
 the wire's. ``--layers N`` cuts the depth (full width kept). ``--overlap
-ring`` sends the integer wire in buckets of ``--bucket-words`` words. Not
-ported yet, and raising so: ``--ckpt-dir`` and ``--model`` > 1 (tensor
-parallelism).
+ring`` sends the integer wire in buckets of ``--bucket-words`` words.
+``--arch`` takes the dense decoders granite-8b, minitron-4b, qwen2.5-32b
+and h2o-danube-3-4b; internvl2-2b (vlm) needs patch embeddings, which the
+synthetic token data does not carry: drive it with
+``launch.step.build_train_step`` and ``launch.inputs.materialize_batch``.
+``--ckpt-dir DIR`` saves the params, optimizer and compressor state every
+20 steps (``checkpoint.CheckpointStore``, the JAX package's layout);
+``--resume`` starts from its latest step. Not ported yet, and raising so:
+``--model`` > 1 (tensor parallelism).
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
 from repro_torch.core.compressor import (
     compressor_names, leaf_seeds, make_compressor, with_wire,
@@ -88,6 +99,9 @@ def train_loop(
     overlap: str = "off",
     bucket_words: int = bucketing.DEFAULT_BUCKET_WORDS,
     on_step=None,
+    ckpt: CheckpointStore | None = None,
+    ckpt_every: int = 20,
+    resume: bool = False,
 ):
     """Train ``cfg`` for ``steps`` steps (step 0 exact, the rest compressed)
     on synthetic data, on the ZeRO-1 route or, with ``fused=True``, the
@@ -100,7 +114,20 @@ def train_loop(
     loss, max_int, bits, max_local_int, each leaf's α (``alpha``, empty on
     the exact step and for a float compressor) and the step's wall time in
     ms (the step ends in a sync). ``on_step(i, params)``, if given, is called after each
-    step with its new params."""
+    step with its new params.
+
+    With ``ckpt`` the state ``{"params", "opt", "comp"}`` is saved after
+    every ``ckpt_every``-th step (as the JAX loop saves it); with
+    ``resume`` the loop starts from ``ckpt``'s latest step. A resumed run is the
+    uninterrupted one: the data is indexed by step, and the encode seeds
+    of the steps before it are drawn and dropped, so step s takes the seeds
+    an uninterrupted run takes (the JAX package folds the step into its key
+    instead)."""
+    if cfg.frontend is not None:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.frontend!r} frontend takes patch embeddings, which "
+            "the synthetic token data does not carry; drive it with "
+            "launch.step.build_train_step and launch.inputs.materialize_batch")
     device = resolve_device(device)
     if opt not in OPTIMIZERS:
         raise ValueError(f"optimizer {opt!r}; options {sorted(OPTIMIZERS)}")
@@ -129,9 +156,18 @@ def train_loop(
     seed_gen = torch.Generator().manual_seed(seed)
     data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=seed)
     n_leaves = len(art.layout.names)
+    start = 0
+    if resume and ckpt is not None and ckpt.latest_step() is not None:
+        state, _, start = ckpt.restore({"params": params, "opt": opt_state, "comp": comp_state})
+        params, opt_state, comp_state = state["params"], state["opt"], state["comp"]
+        del state
+        for _ in range(start):  # the seeds of the steps already taken
+            leaf_seeds(seed_gen, n_workers, n_leaves, "cpu", microbatches)
+        if art.layout.ctx.worker_index() == 0:
+            print(f"[train] resumed from step {start}", flush=True)
 
     history = []
-    for i in range(steps):
+    for i in range(start, steps):
         batch = data.batch(i, 0, device=device)  # global batch, split by worker
         seeds = leaf_seeds(seed_gen, n_workers, n_leaves, device, microbatches)
         fn = art.steps["exact"] if i == 0 else art.steps["compressed"]
@@ -156,6 +192,10 @@ def train_loop(
                 f"max_int {rec['max_int']:.0f} bits {rec['bits']:.0f} "
                 f"dt {ms:.1f}ms", flush=True,
             )
+        if ckpt is not None and (i + 1) % ckpt_every == 0:
+            ckpt.save(i + 1, {"params": params, "opt": opt_state, "comp": comp_state})
+    if ckpt is not None:
+        ckpt.wait()
     return params, history
 
 
@@ -195,7 +235,10 @@ def main(argv=None):
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="process-group backend under torchrun (default: nccl "
                          "on cuda, gloo on cpu; gloo lets ranks share a card)")
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save the train state here every 20 steps")
+    ap.add_argument("--resume", action="store_true",
+                    help="start from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--data", type=int, default=None,
                     help="data-parallel degree (the JAX CLI's mesh axis): as --workers")
     ap.add_argument("--model", type=int, default=1)
@@ -206,14 +249,8 @@ def main(argv=None):
                     help="pipelined microbatches per step (ZeRO-1 route)")
     args = ap.parse_args(argv)
 
-    not_ported = [
-        flag for flag, on in (
-            ("--ckpt-dir", args.ckpt_dir is not None),
-            ("--model > 1 (tensor parallelism)", args.model > 1),
-        ) if on
-    ]
-    if not_ported:
-        raise NotImplementedError(", ".join(not_ported) + ": not ported yet")
+    if args.model > 1:
+        raise NotImplementedError("--model > 1 (tensor parallelism): not ported yet")
     if args.workers is not None and args.data is not None and args.workers != args.data:
         raise ValueError(f"--workers {args.workers} and --data {args.data} disagree")
     workers = args.workers if args.workers is not None else args.data
@@ -235,7 +272,9 @@ def main(argv=None):
         opt=args.opt, overlap=args.overlap, bucket_words=args.bucket_words,
     )
     if run is None:
-        train_loop(cfg, shape, n_workers=workers or 1, device=args.device, **kw)
+        ckpt = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
+        train_loop(cfg, shape, n_workers=workers or 1, device=args.device, ckpt=ckpt,
+                   resume=args.resume, **kw)
         return
     rank, world, local_rank = run
     device = resolve_device(args.device)
@@ -244,7 +283,9 @@ def main(argv=None):
         device = torch.device("cuda", local_rank % torch.cuda.device_count())
     group = coll.init_process_group(backend, device=device)
     try:
-        train_loop(cfg, shape, n_workers=world, device=device, group=group, **kw)
+        ckpt = CheckpointStore(args.ckpt_dir, group=group) if args.ckpt_dir else None
+        train_loop(cfg, shape, n_workers=world, device=device, group=group, ckpt=ckpt,
+                   resume=args.resume, **kw)
     finally:
         coll.destroy_process_group()
 

@@ -12,7 +12,11 @@ tensors (via ``unbind``, whose backward is a single stack).
 
 The forward runs in the activation type ``dtype`` (bf16 on the train path)
 with float32 parameters, norms, attention softmax and logits, as the JAX
-package does.
+package does. The dense family's options run as there: QKV biases
+(``layers/attn/b{q,k,v}``, initialised to zeros), a sliding window, any
+head_dim and ``rope_theta``, and the ``vit`` modality frontend stub of the
+``vlm`` family: precomputed ``patch_embeds`` projected by ``frontend_proj``
+and put before the text tokens, the loss on the text positions only.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.models.mlp import swiglu_mlp
 
 Tree = Dict[str, torch.Tensor]
 
+ATTN_BIASES = ("attn/bk", "attn/bq", "attn/bv")
 LAYER_LEAVES = (
     "attn/wk", "attn/wo", "attn/wq", "attn/wv", "ln1", "ln2",
     "mlp/w_down", "mlp/w_gate", "mlp/w_up",
@@ -38,17 +43,16 @@ LAYER_LEAVES = (
 def _check_ported(cfg) -> None:
     missing = [
         what for what, on in (
-            (f"family {cfg.family!r}", cfg.family != "dense"),
-            ("sliding-window attention", cfg.window is not None),
-            ("QKV bias", cfg.qkv_bias),
+            (f"family {cfg.family!r}", cfg.family not in ("dense", "vlm")),
+            ("MLA (kv_lora)", bool(cfg.kv_lora)),
             ("tied embeddings", cfg.tie_embeddings),
-            ("a modality frontend", cfg.frontend is not None),
+            (f"the {cfg.frontend!r} frontend", cfg.frontend not in (None, "vit")),
         ) if on
     ]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            "the dense decoder family)"
+            "the dense decoder family and its vlm frontend stub)"
         )
 
 
@@ -56,12 +60,16 @@ def _head_dim(cfg) -> int:
     return cfg.head_dim or cfg.d_model // cfg.n_heads
 
 
+def _layer_leaves(cfg) -> tuple:
+    return (ATTN_BIASES if cfg.qkv_bias else ()) + LAYER_LEAVES
+
+
 def param_shapes(cfg) -> Dict[str, tuple]:
     """Leaf name -> shape; layer leaves carry the leading layer axis."""
     _check_ported(cfg)
     L, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
     q, kv = cfg.n_heads * _head_dim(cfg), cfg.n_kv_heads * _head_dim(cfg)
-    return {
+    shapes = {
         "embed": (v, d),
         "layers/attn/wk": (L, d, kv),
         "layers/attn/wo": (L, q, d),
@@ -75,16 +83,25 @@ def param_shapes(cfg) -> Dict[str, tuple]:
         "lm_head": (d, v),
         "ln_f": (d,),
     }
+    if cfg.qkv_bias:
+        shapes.update({"layers/attn/bk": (L, kv), "layers/attn/bq": (L, q),
+                       "layers/attn/bv": (L, kv)})
+    if cfg.frontend == "vit":
+        shapes["frontend_proj"] = (cfg.frontend_dim, d)
+    return shapes
 
 
 def init_lm_params(cfg, *, generator: torch.Generator, device,
                    dtype=torch.float32) -> Tree:
     """Random weights from ``generator`` (the JAX package's distributions:
-    uniform ±1/√fan_in for matrices, ones for norms), on ``device``."""
+    uniform ±1/√fan_in for matrices, ones for norms, zeros for the QKV
+    biases), on ``device``."""
     params = {}
     for name, shape in param_shapes(cfg).items():
         if name.endswith(("ln1", "ln2", "ln_f")):
             params[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif name.endswith(ATTN_BIASES):  # zeros, not fan-in L
+            params[name] = torch.zeros(shape, dtype=dtype, device=device)
         else:
             fan_in = cfg.d_model if name == "embed" else shape[-2]
             params[name] = dense_init(
@@ -99,27 +116,42 @@ def _dense_layer(lp, x, positions, cfg):
     h = x + attention_train(
         attn, rmsnorm(x, lp["ln1"]), positions,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg),
-        rope_theta=cfg.rope_theta,
+        rope_theta=cfg.rope_theta, window=cfg.window,
     )
     return h + swiglu_mlp(mlp, rmsnorm(h, lp["ln2"]))
 
 
+def _embed_inputs(params: Tree, batch, cfg) -> torch.Tensor:
+    """Token embeddings (B, T, d) in the params' type; with the vit
+    frontend the projected patch embeddings come first (B, N + T, d),
+    projected in the embedding's type as the JAX package does."""
+    x = F.embedding(batch["tokens"], params["embed"])
+    if cfg.frontend == "vit":
+        pe = batch["patch_embeds"].to(x.dtype) @ params["frontend_proj"].to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
 def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
-    """Hidden states after the final norm: (B, T, d)."""
+    """Hidden states after the final norm: (B, T', d), T' counting the
+    frontend's positions."""
     _check_ported(cfg)
-    tokens = batch["tokens"]
-    x = F.embedding(tokens, params["embed"]).to(dtype)
-    b, t = tokens.shape
-    positions = torch.arange(t, device=tokens.device).expand(b, t)
-    layers = {n: params[f"layers/{n}"].unbind(0) for n in LAYER_LEAVES}
+    x = _embed_inputs(params, batch, cfg).to(dtype)
+    b, t = x.shape[:2]
+    positions = torch.arange(t, device=x.device).expand(b, t)
+    names = _layer_leaves(cfg)
+    layers = {n: params[f"layers/{n}"].unbind(0) for n in names}
     for i in range(cfg.n_layers):
-        x = _dense_layer({n: layers[n][i] for n in LAYER_LEAVES}, x, positions, cfg)
+        x = _dense_layer({n: layers[n][i] for n in names}, x, positions, cfg)
     return rmsnorm(x, params["ln_f"])
 
 
 def lm_loss(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
-    """Mean next-token cross entropy over labelled positions (float32)."""
+    """Mean next-token cross entropy over labelled positions (float32); with
+    the vit frontend only the text positions carry labels."""
     h = lm_forward(params, batch, cfg, dtype)
+    if cfg.frontend == "vit":
+        h = h[:, -batch["tokens"].shape[1]:]
     logits = (h @ params["lm_head"].to(h.dtype)).to(torch.float32)
     labels = batch["labels"]
     per_tok = cross_entropy(logits, labels)

@@ -70,18 +70,27 @@ def zero1_init(base: Optimizer, params: Tree, n_dp: int, rank=None):
 
 
 def zero1_update(base: Optimizer, state, ghat: Tree, eta, *, n_dp: int,
-                 param_dtype=torch.float32, params_like: Tree, group=None):
+                 param_dtype=torch.float32, params_like: Tree, group=None,
+                 consume_grads: bool = False):
     """One ZeRO-1 step of this process's rows: every worker's locally, the
     rank's own on a process ``group``. Returns ``(new_params,
     new_state)``: the gathered params in ``param_dtype`` with
     ``params_like``'s shapes, and the new master rows and optimizer
-    state."""
+    state. With ``consume_grads`` each leaf is removed from ``ghat`` as its
+    rows are taken (on a group the rank's row is copied out), so that the
+    full ĝ leaves a rank no longer needs are freed before the params are
+    gathered."""
     masters = state["master"]
     rank = None if group is None else coll.group_rank(group)
-    g_rows = {
-        k: _own_rows(_pad_rows(ghat[k].reshape(-1).to(torch.float32), n_dp), rank)
-        for k in masters
-    }
+
+    def grad_rows(k):
+        rows = _own_rows(_pad_rows(ghat[k].reshape(-1).to(torch.float32), n_dp), rank)
+        if not consume_grads:
+            return rows
+        del ghat[k]
+        return rows if rank is None else rows.clone()
+
+    g_rows = {k: grad_rows(k) for k in masters}
     updates, new_base = base.update(g_rows, state["base"], masters, eta)
     del g_rows
     new_master = {k: m + updates[k] for k, m in masters.items()}

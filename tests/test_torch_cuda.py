@@ -638,3 +638,128 @@ def test_topkint_encode_and_planes_match_plain(dev, bits, stochastic):
     torch.testing.assert_close(
         wf.unpack(stacked, tuple(x.shape), n_summed=4).cpu(),
         4 * wf.local_image(want, n_workers=4), rtol=0, atol=0)
+
+
+# the rest of the dense family at smoke widths, 2 layers, n = 2: config ->
+# (fused, optimizer, param dtype, sequence length)
+DENSE_PATHS = {
+    "qwen2.5-32b": (True, "sgd", torch.bfloat16, 32),
+    "minitron-4b": (False, "adamw", torch.float32, 32),
+    "h2o-danube-3-4b": (False, "sgd", torch.float32, 160),
+    "internvl2-2b": (False, "sgd", torch.float32, 32),
+}
+
+
+@pytest.mark.parametrize("name", list(DENSE_PATHS))
+def test_dense_config_steps_on_the_card_match_the_cpu(dev, name):
+    """Two steps (exact, compressed; IntSGD on packed8) on the card and on
+    the CPU from the same weights, batches and seeds: losses within rtol
+    2e-2 (the bf16 backward differs), and the compressed step's launches
+    on the card as the route implies (one encode and pack per worker and
+    leaf, one unpack per leaf; the fused update per leaf on the fused
+    route, block_norms twice per leaf)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
+    from repro_torch.core.compressor import leaf_seeds, make_compressor
+    from repro_torch.launch.inputs import materialize_batch
+    from repro_torch.launch.step import build_init_state, build_train_step
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.optim.sgd import sgd
+
+    fused, opt_name, dtype, seq = DENSE_PATHS[name]
+    cfg = dataclasses.replace(smoke_config(get_arch(name)), n_layers=2)
+    n = 2
+    shape = ShapeConfig("t", seq, 2 * n, "train")
+    comp = make_compressor("intsgd8_packed")
+    opt = sgd(momentum=0.9, weight_decay=1e-4) if opt_name == "sgd" else adamw(weight_decay=1e-4)
+    params0 = init_lm_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu",
+                             dtype=dtype)
+    n_leaves = len(params0)
+    batches = [materialize_batch(cfg, shape, torch.Generator().manual_seed(i), "cpu")
+               for i in range(2)]
+    gen = torch.Generator().manual_seed(0)
+    seeds = [leaf_seeds(gen, n, n_leaves, "cpu") for _ in range(2)]
+    runs = {}
+    for device in (torch.device("cpu"), dev):
+        art = build_train_step(cfg, shape, n_workers=n, compressor=comp, base_opt=opt,
+                               lr_schedule=lambda i, d: torch.full((), 0.1, device=d),
+                               clip_norm=1.0, param_dtype=dtype, fused=fused, device=device)
+        p = {k: v.to(device) for k, v in params0.items()}
+        o, cs = build_init_state(p, n_workers=n, compressor=comp, base_opt=opt, fused=fused)
+        losses = []
+        for i in range(2):
+            if i == 1:
+                ops.reset_launch_counts()
+            fn = art.steps["exact" if i == 0 else "compressed"]
+            p, o, cs, loss, met = fn(p, o, cs, i, {k: v.to(device) for k, v in batches[i].items()},
+                                     seeds[i].to(device))
+            losses.append(float(loss))
+        assert all(torch.isfinite(v).all() for v in p.values())
+        runs[device.type] = (losses, ops.launch_counts())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=2e-2)
+    counts = runs["cuda"][1]
+    assert counts["int_compress"] == counts["pack_words"] == n * n_leaves
+    assert counts["unpack_words"] == n_leaves
+    kern = f"fused_unpack_{opt_name}"
+    assert counts[kern] == (n_leaves if fused else 0)
+    assert counts["block_norms"] == 2 * n_leaves
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_windowed_attention_on_the_card_matches_the_cpu(dev, window):
+    """h2o-danube's attention shape (head_dim 120, GQA 32/8, shrunk to 8/2
+    heads) at T = 256 in float32, forward and backward, through the pinned
+    memory-efficient backend on the card, against the CPU."""
+    from repro_torch.models.attention import attention_train
+
+    g = torch.Generator().manual_seed(5)
+    d, hq, hkv, dh, t = 96, 8, 2, 120, 256
+    p = {"wq": torch.randn(d, hq * dh, generator=g) / d ** 0.5,
+         "wk": torch.randn(d, hkv * dh, generator=g) / d ** 0.5,
+         "wv": torch.randn(d, hkv * dh, generator=g) / d ** 0.5,
+         "wo": torch.randn(hq * dh, d, generator=g) / (hq * dh) ** 0.5,
+         "bq": torch.randn(hq * dh, generator=g) * 0.1,
+         "bk": torch.randn(hkv * dh, generator=g) * 0.1,
+         "bv": torch.randn(hkv * dh, generator=g) * 0.1}
+    x = torch.randn(2, t, d, generator=g)
+    outs = {}
+    for device in ("cpu", dev):
+        pp = {k: v.clone().to(device).requires_grad_(True) for k, v in p.items()}
+        xx = x.to(device)
+        out = attention_train(pp, xx, torch.arange(t, device=device).expand(2, t),
+                              n_heads=hq, n_kv_heads=hkv, head_dim=dh, rope_theta=1e6,
+                              window=window)
+        grads = torch.autograd.grad(out.square().sum(), list(pp.values()))
+        outs[str(device)] = (out.detach().cpu(), [gr.cpu() for gr in grads])
+    (o_c, g_c), (o_g, g_g) = outs["cpu"], outs[str(dev)]
+    torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def test_checkpoint_of_card_state_round_trips(dev, tmp_path):
+    """bf16 params, f32 optimizer rows and an AlphaState on the card: saved
+    (async), restored onto the card bit for bit."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.scaling import AlphaState
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    tree = {"params": {"w": torch.randn(1000, 33, generator=g, device=dev).to(torch.bfloat16)},
+            "opt": {"master": {"w": torch.randn(4, 8250, generator=g, device=dev)}},
+            "comp": AlphaState(r=torch.tensor(2.5, device=dev),
+                               step=torch.tensor(7, dtype=torch.int32, device=dev))}
+    store = CheckpointStore(str(tmp_path))
+    store.save(3, tree)
+    store.wait()
+    like = {"params": {"w": torch.zeros(1000, 33, dtype=torch.bfloat16, device=dev)},
+            "opt": {"master": {"w": torch.zeros(4, 8250, device=dev)}},
+            "comp": AlphaState(r=torch.zeros((), device=dev),
+                               step=torch.zeros((), dtype=torch.int32, device=dev))}
+    got, _, step = store.restore(like)
+    store.close()
+    assert step == 3 and got["params"]["w"].device.type == "cuda"
+    assert torch.equal(got["params"]["w"].view(torch.int16), tree["params"]["w"].view(torch.int16))
+    assert torch.equal(got["opt"]["master"]["w"], tree["opt"]["master"]["w"])
+    assert torch.equal(got["comp"].r, tree["comp"].r) and int(got["comp"].step) == 7

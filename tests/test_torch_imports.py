@@ -36,6 +36,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.parallel.spawn" in mods and "repro_torch.wire.bucketing" in mods
     assert "repro_torch.core.simulate" in mods and "repro_torch.core.rounding" in mods
     assert "repro_torch.data.logreg" in mods
+    assert "repro_torch.checkpoint.store" in mods and "repro_torch.launch.inputs" in mods
+    assert "repro_torch.configs.qwen2_5_32b" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -88,7 +90,7 @@ def test_entry_points_need_the_card_unless_cpu_is_asked_for():
                     "--opt", "adamw", "--compressor", "intdiana", "--wire", "dense8"])
 
 
-def test_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys):
+def test_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys, tmp_path):
     from repro_torch.launch import train
 
     train.main(["--arch", "granite-8b", "--smoke", "--steps", "2", "--workers", "2",
@@ -98,9 +100,15 @@ def test_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys):
     assert "step     0" in out and "step     1" in out
     base = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--fused",
             "--compressor", "intsgd8_packed"]
-    for extra in (["--ckpt-dir", "x"], ["--model", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            train.main(base + extra)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        train.main(base + ["--model", "2"])
+    # ported since: --ckpt-dir and --resume (a save every 20 steps, as JAX's)
+    ckpt = ["--ckpt-dir", str(tmp_path), "--workers", "2", "--batch", "2", "--seq", "8"]
+    train.main(base + ckpt + ["--steps", "20"])
+    assert sorted(os.listdir(tmp_path)) == ["step_0000000020"]
+    train.main(base + ckpt + ["--steps", "21", "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from step 20" in out and "step    20" in out
     # ported since: the bucketed wire, and --data as the data-parallel degree
     train.main(base + ["--overlap", "ring", "--bucket-words", "1000", "--data", "2",
                        "--steps", "2", "--batch", "2", "--seq", "8"])

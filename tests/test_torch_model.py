@@ -92,7 +92,10 @@ def test_unported_model_features_raise():
     import dataclasses
 
     cfg = smoke_config(get_arch("granite-8b"))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        param_shapes(dataclasses.replace(cfg, window=64))
+    for change, name in ((dict(family="moe", n_experts=4, top_k=2), "family 'moe'"),
+                         (dict(kv_lora=32), "MLA"),
+                         (dict(tie_embeddings=True), "tied embeddings")):
+        with pytest.raises(NotImplementedError, match=f"{name}.*not ported yet"):
+            param_shapes(dataclasses.replace(cfg, **change))
     with pytest.raises(ValueError, match="not ported yet"):
         get_arch("mixtral-8x22b")

@@ -175,6 +175,27 @@ def test_zero1_update_matches_jax_n4(opt, param_dtype):
             np.testing.assert_array_equal(new["base"][k].numpy(), np.asarray(jnew["base"][k])[:, 0])
 
 
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+def test_zero1_update_consuming_the_grads_is_the_same_update(param_dtype):
+    rng = np.random.default_rng(7)
+    to = OPTS["adamw"][1]()
+    params, ghat = _tree(rng, 0.02), _tree(rng, 1e-2)
+    like = {k: v.to(param_dtype) for k, v in _t(params).items()}
+    want_p, want = zero1.zero1_update(
+        to, zero1.zero1_init(to, _t(params), N), _t(ghat), torch.tensor(3e-4), n_dp=N,
+        param_dtype=param_dtype, params_like=like)
+    consumed = _t(ghat)
+    got_p, got = zero1.zero1_update(
+        to, zero1.zero1_init(to, _t(params), N), consumed, torch.tensor(3e-4), n_dp=N,
+        param_dtype=param_dtype, params_like=like, consume_grads=True)
+    assert consumed == {}  # every leaf handed over
+    for k in SHAPES:
+        assert torch.equal(got_p[k], want_p[k])
+        assert torch.equal(got["master"][k], want["master"][k])
+        for name in ("mu", "nu"):
+            assert torch.equal(got["base"][name][k], want["base"][name][k])
+
+
 def test_all_gather_rows_is_the_concat_of_the_rows():
     rows = torch.arange(12, dtype=torch.float32).reshape(N, 3)
     jrows = jcoll.vmap_workers(
