@@ -175,7 +175,25 @@ Phases, each of which must pass for the exit code to be 0:
                bf16 params: saved at step 2 (checkpoint.CheckpointStore, a
                temporary directory under build/, removed after), restored
                bit-equal to what was saved, resumed to step 4 within 1e-2
-               of a straight run's losses.
+               of a straight run's losses;
+ 17. moe family — the moe configs at published width, 4 workers, 4 steps,
+               seq 2048, IntSGD on packed8, with every check of phases 3-8:
+               mixtral-fused-sgd (mixtral-8x22b, 1 layer: 2,906,720,256
+               params, the 805,306,368-element expert leaves; fused SGD,
+               lr 0.3, bf16 params but the router, which stays float32 on
+               the fused route, so expected_launches counts its encode and
+               fused update as float32 variants) and deepseek-zero1-adamw
+               (deepseek-v2-lite-16b, MLA and 64 + 2 shared experts, 2
+               layers, ZeRO-1 AdamW, lr 3e-4, float32), their peaks below
+               80 GB; for one full-width layer of each, the MoE block's
+               bf16 input routed on the card and on the CPU (at least
+               99.9 % of the (token, choice) ids agree; the dispatch slots
+               and drop mask from the card's ids equal the CPU's from the
+               same ids; tokens per expert and the dropped share printed);
+               for mixtral's, each stage of the block timed forward and
+               backward with CUDA events (routing, dispatch, expert GEMMs,
+               combine; printed); each config's loss at 1 layer, seq 128,
+               on the card against the CPU within 1e-2.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -750,7 +768,8 @@ def wire_limits(comp: str, wire, n_workers: int, microbatches: int):
 
 def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire, *,
                       fused: bool, microbatches: int, n_local: int = N_WORKERS,
-                      param_dtype: str = "float32", n_workers: int = N_WORKERS):
+                      param_dtype: str = "float32", n_workers: int = N_WORKERS,
+                      f32_leaves: int = 0):
     """Launch counts (all, with an IntDIANA shift, and of bf16 variants) a
     path implies in one process running ``n_local`` workers (all n on the local backend, one
     per rank on a process group). Per compressed step: encode for every
@@ -768,11 +787,16 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
     unpack per gathered worker and leaf). A top-k wire packs without the
     pack kernel. With bf16
     params IntSGD encodes the bf16 gradient (IntDIANA the float32 g − h_i)
-    and the fused update reads and writes the bf16 param."""
+    and the fused update reads and writes the bf16 param, but for the
+    ``f32_leaves`` that stay float32 in a bf16 tree (the MoE router on the
+    fused route, whose kernels write a param in its own type; ZeRO-1
+    gathers it back as bf16 from step 0): their encodes and fused updates
+    run the float32 variants."""
     c = steps - 1  # step 0 is exact: no kernel but block_norms
     want = {k.name: 0 for k in ops.KERNELS}
     want_shift, want_bf16 = dict(want), dict(want)
     bf16 = param_dtype == "bfloat16"
+    n_bf16 = n_leaves - f32_leaves
     if comp in FLOAT_BASELINES:
         if wire and wire.startswith("packed"):
             want["pack_words"] = n_local * n_leaves * c
@@ -780,7 +804,7 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
     elif comp != "none":
         want["int_compress"] = microbatches * n_local * n_leaves * c
         if bf16 and comp != "intdiana":
-            want_bf16["int_compress"] = want["int_compress"]
+            want_bf16["int_compress"] = microbatches * n_local * n_bf16 * c
         if wire and wire.startswith("packed"):
             want["pack_words"] = microbatches * n_local * n_leaves * c
             want["unpack_words"] = microbatches * n_leaves * c
@@ -794,7 +818,7 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
     if comp == "intdiana":
         want_shift[fused_op] = n_leaves * c
     if bf16:
-        want_bf16[fused_op] = n_leaves * c
+        want_bf16[fused_op] = n_bf16 * c
     return want, want_shift, want_bf16
 
 
@@ -937,6 +961,7 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
     ``n_workers`` ranks."""
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.launch.train import train_loop
+    from repro_torch.models.transformer import FLOAT32_LEAVES
     from repro_torch.utils.tree import tree_size
     from repro_torch.wire import Logged, make_wire_format
 
@@ -983,8 +1008,14 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
     print(f"{label}: launches {launches}; with shift {shifts}; bf16 variants {bf16s}; "
           f"{n_leaves} leaves, {tree_size(params)} parameters; peak memory {peak:.1f} GiB",
           flush=True)
-    checks.true(f"{label}: params are {param_dtype}",
-                all(p.dtype == getattr(torch, param_dtype) for p in params.values()))
+    # the fused kernels write a param in its own type: a float32 leaf of a
+    # bf16 tree (the MoE router) stays float32 on the fused route only
+    f32_leaves = sorted(k for k in params if k in FLOAT32_LEAVES
+                        and fused and param_dtype == "bfloat16")
+    checks.true(f"{label}: params are {param_dtype}"
+                + (f", but {f32_leaves} float32" if f32_leaves else ""),
+                all(p.dtype == (torch.float32 if k in f32_leaves else getattr(torch, param_dtype))
+                    for k, p in params.items()))
     if logged is not None:  # step 1: 4 workers packed, the planes gathered once
         declared = sum(logged.wire_bytes(p.numel()) for p in params.values())
         print(f"{label}: step 1 metered pack {metered['pack']} B, unpack {metered['unpack']} B; "
@@ -1042,7 +1073,7 @@ def train_phase(torch, ops, checks, device, *, label, layers, steps, opt, comp, 
     want, want_shift, want_bf16 = expected_launches(
         ops, n_leaves, steps, opt, comp, wire, fused=fused, microbatches=microbatches,
         n_local=n_workers if group is None else 1, param_dtype=param_dtype,
-        n_workers=n_workers)
+        n_workers=n_workers, f32_leaves=len(f32_leaves))
     for name in want:
         checks.true(f"{label}: {name} launches {launches[name]} (expected {want[name]}), "
                     f"with shift {shifts[name]} (expected {want_shift[name]}), bf16 "
@@ -1702,17 +1733,18 @@ def window_check(torch, checks, device) -> None:
     torch.cuda.empty_cache()
 
 
-def card_cpu_losses(torch, checks, device) -> None:
-    """Each new config at 1 layer, batch 1, 128 text tokens (internvl2: after
-    256 patches): the forward loss on the card against the CPU's plain path,
-    the same bf16 weights and batch, within 1e-2 relative (bf16 activations
-    round differently on the two)."""
+def card_cpu_losses(torch, checks, device, archs) -> None:
+    """Each config of ``archs`` at 1 layer, batch 1, 128 text tokens
+    (internvl2: after 256 patches): the forward loss on the card against the
+    CPU's plain path, the same bf16 weights and batch, within 1e-2 relative
+    (bf16 activations round differently on the two, and may route an MoE
+    near-tie apart)."""
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.launch.inputs import materialize_batch
     from repro_torch.models.transformer import init_lm_params, lm_loss
 
     cpu_s = 0.0
-    for _, arch, *_ in DENSE_PATHS:
+    for arch in archs:
         cfg = dataclasses.replace(get_arch(arch), n_layers=1)
         shape = ShapeConfig("card-cpu", 128 + cfg.n_frontend_tokens, 1, "train")
         params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
@@ -1893,7 +1925,7 @@ def dense_family_phase(torch, ops, checks, timings, device):
     window_check(torch, checks, device)
     print(f"window check: {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
-    card_cpu_losses(torch, checks, device)
+    card_cpu_losses(torch, checks, device, [arch for _, arch, *_ in DENSE_PATHS])
     print(f"card-cpu: {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     largest_leaf_kernels(torch, ops, checks, timings, device)
@@ -1977,6 +2009,185 @@ def checkpoint_phase(torch, ops, checks, device) -> dict:
                 unpack_words=6 * n_leaves, block_norms=2 * 8 * n_leaves)
     checks.true(f"checkpoint: launches {counts} (expected {want})", counts == want)
     return counts
+
+
+# phase 17: the moe family at published width, 4 workers, 4 steps, IntSGD
+# on packed8, seq 2048: (label, config, layers, optimizer, lr, route).
+# mixtral's depth is cut to 1 layer (2,906,720,256 params; at 2 layers
+# 5,410,781,184, ~110 GB on the fused bf16 route's ~20 B a param).
+MOE_PATHS = (
+    ("mixtral-fused-sgd", "mixtral-8x22b", 1, "sgd", 0.3, FUSED_BF16),
+    ("deepseek-zero1-adamw", "deepseek-v2-lite-16b", 2, "adamw", 3e-4, dict(fused=False)),
+)
+MOE_SEQ = 2048
+MIN_ROUTE_AGREEMENT = 0.999
+
+
+def moe_layer_inputs(torch, cfg, device):
+    """One full-width layer of ``cfg`` in bf16 on the card, seeded: its
+    MoE block's params and input (the embedding through attention and the
+    ln2 norm, batch 1, ``MOE_SEQ`` tokens), caught as the forward hands
+    them to ``moe_tp``."""
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.inputs import materialize_batch
+
+    params = transformer.init_lm_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0), device=device,
+        dtype=torch.bfloat16)
+    batch = materialize_batch(cfg, ShapeConfig("moe", MOE_SEQ, 1, "train"),
+                              torch.Generator(device=device).manual_seed(1), device)
+    caught, real = [], transformer.moe_tp
+
+    def catch(p, x, **kw):
+        caught.append(({k: v.detach() for k, v in p.items()}, x.detach()))
+        return real(p, x, **kw)
+
+    transformer.moe_tp = catch
+    try:
+        with torch.no_grad():
+            transformer.lm_forward(params, batch, cfg)
+    finally:
+        transformer.moe_tp = real
+    del params, batch
+    return caught[0]
+
+
+def routing_check(torch, checks, cfg, p, x) -> None:
+    """The MoE block's routing of the same bf16 hidden states on the card
+    and on the CPU: the share of (token, choice) expert ids that agree must
+    be at least ``MIN_ROUTE_AGREEMENT`` (float32 logits from GEMMs that sum
+    in other orders can flip a near-tie); the dispatch slots and drop mask
+    the card computes from its ids must equal the CPU's from the same ids,
+    bit for bit. Prints tokens per expert and the dropped share."""
+    from repro_torch.models import moe
+
+    n = x.shape[0] * x.shape[1]
+    xf = x.reshape(n, -1)
+    cap = moe.capacity(n, cfg.top_k, cfg.n_experts)
+    with torch.no_grad():
+        _, ids = moe.route(p["router"], xf, cfg.top_k)
+        _, ids_cpu = moe.route(p["router"].cpu(), xf.cpu(), cfg.top_k)
+        got = [t.cpu() for t in moe.dispatch_indices(ids, cfg.n_experts, cap)]
+        want = moe.dispatch_indices(ids.cpu(), cfg.n_experts, cap)
+    agree = (ids.cpu() == ids_cpu).double().mean().item()
+    flips = int((ids.cpu() != ids_cpu).sum())
+    per_expert = torch.bincount(got[0], minlength=cfg.n_experts).tolist()
+    dropped = 1.0 - got[2].double().mean().item()
+    print(f"routing {cfg.name}: {n} tokens x top-{cfg.top_k}, capacity {cap} a expert; "
+          f"card and CPU agree on {agree:.6f} of (token, choice) ids ({flips} differ); "
+          f"tokens per expert {per_expert}; dropped share {dropped:.6f}", flush=True)
+    checks.true(f"routing {cfg.name}: ids agree on {agree:.6f} >= {MIN_ROUTE_AGREEMENT}",
+                agree >= MIN_ROUTE_AGREEMENT)
+    checks.true(f"routing {cfg.name}: dispatch experts, slots and drop mask from the card's "
+                f"ids equal to the CPU's from the same ids",
+                all(torch.equal(a, b) for a, b in zip(got, want)))
+
+
+def moe_block_split(torch, cfg, p, x) -> None:
+    """Where one MoE block's time goes (``cfg``'s layer at full width, the
+    train path's per-worker batch): each stage's forward and backward, CUDA
+    events between stages, median of 5 runs after a warm-up —
+    routing (the float32 router GEMM, softmax and sort), dispatch (slots
+    and the scatter into the capacity buffer), the expert SwiGLU (three
+    batched bf16 GEMMs), combine (gather, weighting, sum over k). Printed."""
+    from repro_torch.models import moe
+
+    n, d = x.shape[0] * x.shape[1], x.shape[2]
+    k, e = cfg.top_k, cfg.n_experts
+    cap = moe.capacity(n, k, e)
+    pp = {name: v.clone().requires_grad_(True) for name, v in p.items()
+          if name in ("router", "w_gate", "w_up", "w_down")}
+    xf = x.reshape(n, d).clone().requires_grad_(True)
+    grad_out = torch.randn(n, d, generator=torch.Generator(device=x.device).manual_seed(4),
+                           device=x.device).to(x.dtype)
+    stages = ("route", "dispatch", "experts", "combine")
+    times = {f"{s} {way}": [] for s in stages for way in ("forward", "backward")}
+
+    def one():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+        ev[0].record()
+        w, ids = moe.route(pp["router"], xf, k)
+        ev[1].record()
+        flat_e, slot, keep = moe.dispatch_indices(ids, e, cap)
+        dest = flat_e * cap + slot
+        buf = moe.dispatch(xf, dest, keep, k, e * cap)
+        ev[2].record()
+        out_buf = moe.expert_ffn(pp, buf.reshape(e, cap, d))
+        ev[3].record()
+        out = moe.combine(out_buf.reshape(e * cap, d), dest, w, keep, k)
+        ev[4].record()
+        g_ob, g_w = torch.autograd.grad(out, [out_buf, w], grad_out)
+        ev[5].record()
+        g_buf, *_ = torch.autograd.grad(out_buf, [buf, pp["w_gate"], pp["w_up"],
+                                                  pp["w_down"]], g_ob)
+        ev[6].record()
+        torch.autograd.grad(buf, [xf], g_buf)
+        ev[7].record()
+        torch.autograd.grad(w, [xf, pp["router"]], g_w)
+        ev[8].record()
+        ev[8].synchronize()
+        return {"route forward": ev[0].elapsed_time(ev[1]),
+                "dispatch forward": ev[1].elapsed_time(ev[2]),
+                "experts forward": ev[2].elapsed_time(ev[3]),
+                "combine forward": ev[3].elapsed_time(ev[4]),
+                "combine backward": ev[4].elapsed_time(ev[5]),
+                "experts backward": ev[5].elapsed_time(ev[6]),
+                "dispatch backward": ev[6].elapsed_time(ev[7]),
+                "route backward": ev[7].elapsed_time(ev[8])}
+
+    one()
+    for _ in range(5):
+        for name, t in one().items():
+            times[name].append(t)
+    med = {name: statistics.median(t) for name, t in times.items()}
+    experts = med["experts forward"] + med["experts backward"]
+    around = sum(v for name, v in med.items() if not name.startswith("experts"))
+    flop = 3 * 2 * e * cap * d * cfg.d_ff
+    print(f"moe block {cfg.name} ({n} tokens, top-{k}, {e} experts x {cap} slots): "
+          + ", ".join(f"{name} {v:.3f} ms" for name, v in med.items()), flush=True)
+    print(f"moe block {cfg.name}: expert GEMMs {experts:.3f} ms forward+backward "
+          f"({3 * flop / experts / 1e9:.1f} TFLOP/s on {3 * flop / 1e12:.2f} TFLOP); routing, "
+          f"dispatch and combine {around:.3f} ms ({100 * around / (around + experts):.1f} % of "
+          f"the block)", flush=True)
+    del pp, xf
+    torch.cuda.empty_cache()
+
+
+def moe_family_phase(torch, ops, checks, device):
+    """Phase 17: the moe family's paths through the user entry point at
+    published width, with every check of ``train_phase``; routing on the
+    card against the CPU at full width; card against CPU losses; the MoE
+    block's time split. Returns the paths' launch counts and bf16-variant
+    counts, their histories and peaks."""
+    from repro_torch.configs.base import get_arch
+
+    launches, bf16 = collections.Counter(), collections.Counter()
+    histories, peaks = {}, {}
+    for label, arch, layers, opt, lr, route in MOE_PATHS:
+        t0 = time.perf_counter()
+        counts, histories[label], peaks[label] = train_phase(
+            torch, ops, checks, device, label=label, layers=layers, steps=4, opt=opt,
+            comp="intsgd", wire="packed8", lr=lr, arch=arch, seq=MOE_SEQ, **route)
+        launches.update(counts)
+        bf16.update(ops.bf16_launch_counts())
+        checks.true(f"{label}: peak {peaks[label]:.1f} GiB below the card's 80 GB",
+                    peaks[label] * 2**30 < CARD_BYTES)
+        print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    for _, arch, *_ in MOE_PATHS:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=1)
+        p, x = moe_layer_inputs(torch, cfg, device)
+        routing_check(torch, checks, cfg, p, x)
+        if arch == "mixtral-8x22b":
+            moe_block_split(torch, cfg, p, x)
+        del p, x
+        torch.cuda.empty_cache()
+    print(f"routing and block split: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    card_cpu_losses(torch, checks, device, [arch for _, arch, *_ in MOE_PATHS])
+    print(f"moe card-cpu: {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, bf16, histories, peaks
 
 
 def main() -> None:
@@ -2082,6 +2293,17 @@ def main() -> None:
     for name, c in checkpoint_phase(torch, ops, checks, device).items():
         launches[name] += c
     print(f"checkpoint phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 17. the moe family at published width
+    t0 = time.perf_counter()
+    counts, b16, moe_hist, moe_peaks = moe_family_phase(torch, ops, checks, device)
+    for name, c in counts.items():
+        launches[name] += c
+    bf16_launches.update(b16)
+    for label, h in moe_hist.items():
+        print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
+              f"peak {moe_peaks[label]:.1f} GiB", flush=True)
+    print(f"moe family phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

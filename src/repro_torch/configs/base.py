@@ -1,10 +1,11 @@
 """Architecture and shape configs (port of ``repro/configs/base.py``; the
 port keeps its own copy — it imports nothing from the JAX package).
 
-Only the dense decoder family runs in the port so far (its ``vlm`` member,
-internvl2-2b, with the modality frontend stub): granite-8b, minitron-4b,
-qwen2.5-32b, h2o-danube-3-4b and internvl2-2b are registered; any other
-name raises saying it is not ported yet.
+The port runs the dense decoder family (its ``vlm`` member, internvl2-2b,
+with the modality frontend stub) and the ``moe`` family: granite-8b,
+minitron-4b, qwen2.5-32b, h2o-danube-3-4b, internvl2-2b, mixtral-8x22b and
+deepseek-v2-lite-16b (MLA) are registered; any other name raises saying it
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -57,10 +58,12 @@ class ShapeConfig:
 
 
 _ARCH_MODULES = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "granite-8b": "granite_8b",
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "internvl2-2b": "internvl2_2b",
     "minitron-4b": "minitron_4b",
+    "mixtral-8x22b": "mixtral_8x22b",
     "qwen2.5-32b": "qwen2_5_32b",
 }
 

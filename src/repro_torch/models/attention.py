@@ -34,6 +34,19 @@ def window_mask(t: int, window: int, device) -> torch.Tensor:
     return (rel >= 0) & (rel < window)
 
 
+def sdpa_f32(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+             attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal attention (or under ``attn_mask``) of float32 (B, H, T, E)
+    q, k and (B, H, T, Ev) v at scale 1/√E; on the card pinned to the
+    memory-efficient backend, which raises rather than fall back."""
+    pin = (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if qf.device.type == "cuda"
+           else contextlib.nullcontext())
+    with pin:
+        if attn_mask is None:
+            return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True)
+        return F.scaled_dot_product_attention(qf, kf, vf, attn_mask=attn_mask)
+
+
 def attention_train(p, x: torch.Tensor, positions: torch.Tensor, *,
                     n_heads: int, n_kv_heads: int, head_dim: int,
                     rope_theta: float = 10000.0, window: int | None = None) -> torch.Tensor:
@@ -56,13 +69,7 @@ def attention_train(p, x: torch.Tensor, positions: torch.Tensor, *,
     qf = q.to(torch.float32).transpose(1, 2)
     kf = k.to(torch.float32).transpose(1, 2).repeat_interleave(group, dim=1)
     vf = v.to(torch.float32).transpose(1, 2).repeat_interleave(group, dim=1)
-    pin = (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if x.device.type == "cuda"
-           else contextlib.nullcontext())
-    with pin:
-        if window is None:
-            out = F.scaled_dot_product_attention(qf, kf, vf, is_causal=True)
-        else:
-            out = F.scaled_dot_product_attention(
-                qf, kf, vf, attn_mask=window_mask(t, window, x.device))
+    mask = None if window is None else window_mask(t, window, x.device)
+    out = sdpa_f32(qf, kf, vf, mask)
     out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim).to(x.dtype)
     return out @ p["wo"].to(x.dtype)

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense family (port of ``repro/models/transformer.py`` at
-tp = 1).
+"""Decoder-only LM, dense and MoE families (port of
+``repro/models/transformer.py`` at tp = 1).
 
 Parameters are a flat dict of leaves, not ``nn.Module`` state, because the
 compressor works per leaf and the leaf set decides the integer images: each
@@ -16,10 +16,17 @@ package does. The dense family's options run as there: QKV biases
 (``layers/attn/b{q,k,v}``, initialised to zeros), a sliding window, any
 head_dim and ``rope_theta``, and the ``vit`` modality frontend stub of the
 ``vlm`` family: precomputed ``patch_embeds`` projected by ``frontend_proj``
-and put before the text tokens, the loss on the text positions only.
+and put before the text tokens, the loss on the text positions only. The
+``moe`` family's layers run attention (GQA, or MLA where the config has a
+``kv_lora``) and then the MoE block (``models/moe.py``), each behind an
+RMSNorm. Its router is float32 whatever the params' type, as in the JAX
+package (``FLOAT32_LEAVES``), and each layer's three expert matrices start
+from one draw, as the JAX package draws them from one key
+(:func:`init_lm_params`).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -29,22 +36,22 @@ import torch.nn.functional as F
 from repro_torch.core.scaling import AlphaState
 from repro_torch.models.attention import attention_train
 from repro_torch.models.common import cross_entropy, dense_init, rmsnorm
+from repro_torch.models.mla import DH_ROPE, mla_train
 from repro_torch.models.mlp import swiglu_mlp
+from repro_torch.models.moe import moe_tp
 
 Tree = Dict[str, torch.Tensor]
 
 ATTN_BIASES = ("attn/bk", "attn/bq", "attn/bv")
-LAYER_LEAVES = (
-    "attn/wk", "attn/wo", "attn/wq", "attn/wv", "ln1", "ln2",
-    "mlp/w_down", "mlp/w_gate", "mlp/w_up",
-)
+# leaves kept in float32 whatever the params' type (the JAX package's
+# ``_init_moe_layer`` makes the router float32)
+FLOAT32_LEAVES = ("layers/moe/router",)
 
 
 def _check_ported(cfg) -> None:
     missing = [
         what for what, on in (
-            (f"family {cfg.family!r}", cfg.family not in ("dense", "vlm")),
-            ("MLA (kv_lora)", bool(cfg.kv_lora)),
+            (f"family {cfg.family!r}", cfg.family not in ("dense", "vlm", "moe")),
             ("tied embeddings", cfg.tie_embeddings),
             (f"the {cfg.frontend!r} frontend", cfg.frontend not in (None, "vit")),
         ) if on
@@ -52,7 +59,7 @@ def _check_ported(cfg) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            "the dense decoder family and its vlm frontend stub)"
+            "the dense decoder family, its vlm frontend stub and the moe family)"
         )
 
 
@@ -60,30 +67,47 @@ def _head_dim(cfg) -> int:
     return cfg.head_dim or cfg.d_model // cfg.n_heads
 
 
-def _layer_leaves(cfg) -> tuple:
-    return (ATTN_BIASES if cfg.qkv_bias else ()) + LAYER_LEAVES
+def _attn_shapes(cfg) -> Dict[str, tuple]:
+    """The attention's weight matrices of one layer: MLA's with a
+    ``kv_lora``, else GQA's."""
+    d, hd = cfg.d_model, _head_dim(cfg)
+    q = cfg.n_heads * hd
+    if cfg.kv_lora:
+        return {"w_dkv": (d, cfg.kv_lora), "w_kr": (d, DH_ROPE),
+                "w_q": (d, cfg.n_heads * (hd + DH_ROPE)), "w_uk": (cfg.kv_lora, q),
+                "w_uv": (cfg.kv_lora, q), "wo": (q, d)}
+    kv = cfg.n_kv_heads * hd
+    return {"wk": (d, kv), "wo": (q, d), "wq": (d, q), "wv": (d, kv)}
+
+
+def _ffn_shapes(cfg) -> Dict[str, tuple]:
+    """The feed-forward leaves of one layer: the dense SwiGLU's, or the
+    MoE block's (router, experts and shared experts)."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.family != "moe":
+        return {"mlp/w_down": (f, d), "mlp/w_gate": (d, f), "mlp/w_up": (d, f)}
+    e = cfg.n_experts
+    shapes = {"moe/router": (d, e), "moe/w_down": (e, f, d), "moe/w_gate": (e, d, f),
+              "moe/w_up": (e, d, f)}
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        shapes.update({"moe/shared/w_down": (fs, d), "moe/shared/w_gate": (d, fs),
+                       "moe/shared/w_up": (d, fs)})
+    return shapes
 
 
 def param_shapes(cfg) -> Dict[str, tuple]:
-    """Leaf name -> shape; layer leaves carry the leading layer axis."""
+    """Leaf name -> shape; layer leaves carry the leading layer axis. The
+    dict's order is the order in which :func:`init_lm_params` draws."""
     _check_ported(cfg)
-    L, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    q, kv = cfg.n_heads * _head_dim(cfg), cfg.n_kv_heads * _head_dim(cfg)
-    shapes = {
-        "embed": (v, d),
-        "layers/attn/wk": (L, d, kv),
-        "layers/attn/wo": (L, q, d),
-        "layers/attn/wq": (L, d, q),
-        "layers/attn/wv": (L, d, kv),
-        "layers/ln1": (L, d),
-        "layers/ln2": (L, d),
-        "layers/mlp/w_down": (L, f, d),
-        "layers/mlp/w_gate": (L, d, f),
-        "layers/mlp/w_up": (L, d, f),
-        "lm_head": (d, v),
-        "ln_f": (d,),
-    }
+    L, d = cfg.n_layers, cfg.d_model
+    layer = {f"attn/{k}": s for k, s in _attn_shapes(cfg).items()}
+    layer.update({"ln1": (d,), "ln2": (d,), **_ffn_shapes(cfg)})
+    shapes = {"embed": (cfg.vocab, d)}
+    shapes.update({f"layers/{k}": (L, *s) for k, s in layer.items()})
+    shapes.update({"lm_head": (d, cfg.vocab), "ln_f": (d,)})
     if cfg.qkv_bias:
+        q, kv = cfg.n_heads * _head_dim(cfg), cfg.n_kv_heads * _head_dim(cfg)
         shapes.update({"layers/attn/bk": (L, kv), "layers/attn/bq": (L, q),
                        "layers/attn/bv": (L, kv)})
     if cfg.frontend == "vit":
@@ -95,30 +119,56 @@ def init_lm_params(cfg, *, generator: torch.Generator, device,
                    dtype=torch.float32) -> Tree:
     """Random weights from ``generator`` (the JAX package's distributions:
     uniform ±1/√fan_in for matrices, ones for norms, zeros for the QKV
-    biases), on ``device``."""
+    biases), on ``device``, in ``dtype`` but the ``FLOAT32_LEAVES``. The
+    JAX package draws an MoE layer's three expert matrices from one key,
+    so its ``w_up`` equals its ``w_gate`` and its ``w_down`` holds the same
+    uniforms at the bound 1/√d_ff: here too (``w_down`` is ``w_gate``'s
+    values in its shape, times √(d_model/d_ff))."""
+    shapes = param_shapes(cfg)
     params = {}
-    for name, shape in param_shapes(cfg).items():
+    for name, shape in shapes.items():
+        dt = torch.float32 if name in FLOAT32_LEAVES else dtype
+        if name in ("layers/moe/w_up", "layers/moe/w_down"):
+            continue  # from w_gate, below
         if name.endswith(("ln1", "ln2", "ln_f")):
-            params[name] = torch.ones(shape, dtype=dtype, device=device)
+            params[name] = torch.ones(shape, dtype=dt, device=device)
         elif name.endswith(ATTN_BIASES):  # zeros, not fan-in L
-            params[name] = torch.zeros(shape, dtype=dtype, device=device)
+            params[name] = torch.zeros(shape, dtype=dt, device=device)
         else:
             fan_in = cfg.d_model if name == "embed" else shape[-2]
             params[name] = dense_init(
-                shape, fan_in, generator=generator, device=device, dtype=dtype
+                shape, fan_in, generator=generator, device=device, dtype=dt
             )
+    if "layers/moe/w_gate" in params:
+        gate = params["layers/moe/w_gate"]
+        params["layers/moe/w_up"] = gate.clone()
+        params["layers/moe/w_down"] = (
+            gate.to(torch.float32).reshape(shapes["layers/moe/w_down"])
+            * math.sqrt(cfg.d_model / cfg.d_ff)).to(dtype)
     return params
 
 
-def _dense_layer(lp, x, positions, cfg):
-    attn = {k[len("attn/"):]: v for k, v in lp.items() if k.startswith("attn/")}
-    mlp = {k[len("mlp/"):]: v for k, v in lp.items() if k.startswith("mlp/")}
-    h = x + attention_train(
-        attn, rmsnorm(x, lp["ln1"]), positions,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg),
-        rope_theta=cfg.rope_theta, window=cfg.window,
-    )
-    return h + swiglu_mlp(mlp, rmsnorm(h, lp["ln2"]))
+def _sub(lp, prefix: str):
+    """The leaves of ``lp`` under ``prefix``, the prefix taken off."""
+    return {k[len(prefix):]: v for k, v in lp.items() if k.startswith(prefix)}
+
+
+def _layer(lp, x, positions, cfg):
+    """One decoder layer (the JAX package's ``_dense_layer`` or
+    ``_moe_layer``): attention, then the SwiGLU or the MoE block."""
+    attn, xn = _sub(lp, "attn/"), rmsnorm(x, lp["ln1"])
+    if cfg.kv_lora:
+        h = x + mla_train(attn, xn, positions, n_heads=cfg.n_heads, head_dim=_head_dim(cfg))
+    else:
+        h = x + attention_train(
+            attn, xn, positions,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg),
+            rope_theta=cfg.rope_theta, window=cfg.window,
+        )
+    if cfg.family == "moe":
+        return h + moe_tp(_sub(lp, "moe/"), rmsnorm(h, lp["ln2"]),
+                          n_experts=cfg.n_experts, top_k=cfg.top_k)
+    return h + swiglu_mlp(_sub(lp, "mlp/"), rmsnorm(h, lp["ln2"]))
 
 
 def _embed_inputs(params: Tree, batch, cfg) -> torch.Tensor:
@@ -139,10 +189,9 @@ def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
     x = _embed_inputs(params, batch, cfg).to(dtype)
     b, t = x.shape[:2]
     positions = torch.arange(t, device=x.device).expand(b, t)
-    names = _layer_leaves(cfg)
-    layers = {n: params[f"layers/{n}"].unbind(0) for n in names}
+    layers = {k: v.unbind(0) for k, v in _sub(params, "layers/").items()}
     for i in range(cfg.n_layers):
-        x = _dense_layer({n: layers[n][i] for n in names}, x, positions, cfg)
+        x = _layer({k: v[i] for k, v in layers.items()}, x, positions, cfg)
     return rmsnorm(x, params["ln_f"])
 
 

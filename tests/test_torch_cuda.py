@@ -658,6 +658,26 @@ def test_dense_config_steps_on_the_card_match_the_cpu(dev, name):
     on the card as the route implies (one encode and pack per worker and
     leaf, one unpack per leaf; the fused update per leaf on the fused
     route, block_norms twice per leaf)."""
+    _config_steps_card_vs_cpu(dev, name, *DENSE_PATHS[name])
+
+
+# the moe family the same way: mixtral fused with bf16 params (its router
+# stays float32), deepseek (MLA, shared experts) on ZeRO-1 AdamW
+MOE_PATHS = {
+    "mixtral-8x22b": (True, "sgd", torch.bfloat16, 80),
+    "deepseek-v2-lite-16b": (False, "adamw", torch.float32, 32),
+}
+
+
+@pytest.mark.parametrize("name", list(MOE_PATHS))
+def test_moe_config_steps_on_the_card_match_the_cpu(dev, name):
+    """As the dense configs' two steps; the card's and the CPU's bf16
+    activations may route a near-tie apart, which the loss tolerance
+    absorbs."""
+    _config_steps_card_vs_cpu(dev, name, *MOE_PATHS[name])
+
+
+def _config_steps_card_vs_cpu(dev, name, fused, opt_name, dtype, seq):
     import dataclasses
 
     from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
@@ -668,7 +688,6 @@ def test_dense_config_steps_on_the_card_match_the_cpu(dev, name):
     from repro_torch.optim.adamw import adamw
     from repro_torch.optim.sgd import sgd
 
-    fused, opt_name, dtype, seq = DENSE_PATHS[name]
     cfg = dataclasses.replace(smoke_config(get_arch(name)), n_layers=2)
     n = 2
     shape = ShapeConfig("t", seq, 2 * n, "train")
@@ -705,6 +724,72 @@ def test_dense_config_steps_on_the_card_match_the_cpu(dev, name):
     kern = f"fused_unpack_{opt_name}"
     assert counts[kern] == (n_leaves if fused else 0)
     assert counts["block_norms"] == 2 * n_leaves
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("skew", [False, True])
+def test_smoke_moe_block_on_the_card_matches_the_cpu(dev, name, skew):
+    """The smoke config's MoE block (deepseek with its shared expert) in
+    float32, forward and backward, on the card against the CPU. Inputs and
+    router are k/4 and k/8 for small integers k, so the float32 logits are
+    exact on both and the same experts are chosen; with ``skew`` expert 0
+    draws every token and tokens past its capacity are dropped (the same
+    ones on both)."""
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_lm_params
+
+    cfg = smoke_config(get_arch(name))
+    params = init_lm_params(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    p = {k[len("layers/moe/"):]: v[0] for k, v in params.items() if "/moe/" in k}
+    g = torch.Generator().manual_seed(2)
+    p["router"] = torch.randint(-8, 9, p["router"].shape, generator=g).float() / 8
+    x = torch.randint(-8, 9, (2, 48, cfg.d_model), generator=g).float() / 4
+    if skew:
+        x, p["router"][:, 0] = x.abs(), 1.0
+    cot = torch.randn(x.shape, generator=g)
+    runs = {}
+    for device in ("cpu", dev):
+        pp = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+        xx = x.to(device).requires_grad_(True)
+        out = moe.moe_tp(pp, xx, n_experts=cfg.n_experts, top_k=cfg.top_k)
+        grads = torch.autograd.grad((out * cot.to(device)).sum(), [xx, *pp.values()])
+        _, ids = moe.route(pp["router"], xx.reshape(-1, cfg.d_model), cfg.top_k)
+        _, slot, keep = moe.dispatch_indices(ids, cfg.n_experts,
+                                             moe.capacity(96, cfg.top_k, cfg.n_experts))
+        runs[str(device)] = [t.detach().cpu() for t in (out, *grads, ids, slot, keep)]
+    cpu, card = runs["cpu"], runs[str(dev)]
+    for a, b in zip(card[-3:], cpu[-3:]):
+        assert torch.equal(a, b)
+    assert bool(cpu[-1].all()) != skew
+    for a, b in zip(card[:-3], cpu[:-3]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [64, 200])
+def test_mla_on_the_card_matches_the_cpu(dev, t):
+    """deepseek's MLA head shape (128 content + 64 rotary dims: q and k of
+    192, v of 128) with 4 heads, float32, forward and backward through the
+    pinned memory-efficient backend, against the CPU."""
+    from repro_torch.models.mla import DH_ROPE, mla_train
+
+    g = torch.Generator().manual_seed(6)
+    d, h, hd, lora = 96, 4, 128, 64
+    shapes = {"w_dkv": (d, lora), "w_kr": (d, DH_ROPE), "w_q": (d, h * (hd + DH_ROPE)),
+              "w_uk": (lora, h * hd), "w_uv": (lora, h * hd), "wo": (h * hd, d)}
+    p = {k: torch.randn(s, generator=g) / s[0] ** 0.5 for k, s in shapes.items()}
+    x = torch.randn(2, t, d, generator=g)
+    outs = {}
+    for device in ("cpu", dev):
+        pp = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+        out = mla_train(pp, x.to(device), torch.arange(t, device=device).expand(2, t),
+                        n_heads=h, head_dim=hd)
+        grads = torch.autograd.grad(out.square().sum(), list(pp.values()))
+        outs[str(device)] = (out.detach().cpu(), [gr.cpu() for gr in grads])
+    (o_c, g_c), (o_g, g_g) = outs["cpu"], outs[str(dev)]
+    torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("window", [None, 64])
