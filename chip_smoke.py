@@ -193,7 +193,23 @@ Phases, each of which must pass for the exit code to be 0:
                for mixtral's, each stage of the block timed forward and
                backward with CUDA events (routing, dispatch, expert GEMMs,
                combine; printed); each config's loss at 1 layer, seq 128,
-               on the card against the CPU within 1e-2.
+               on the card against the CPU within 1e-2;
+ 18. hybrid family — zamba2-2.7b at published width, 18 layers (two
+               blocks of attn_every 9: 999,699,680 params, the shared
+               attention block applied twice), 4 workers, 4 steps, seq
+               2048, IntSGD on packed8, with every check of phases 3-8:
+               zamba2-fused-sgd (fused SGD, lr 0.3, bf16 params) and
+               zamba2-zero1-adamw (ZeRO-1 AdamW, lr 3e-4, float32), their
+               peaks below 80 GB; one Mamba2 layer at full width timed by
+               stage forward and backward with CUDA events (input
+               projections, conv, SSD intra, states and inter, gate and
+               norm, out-projection), the layer as trained and the shared
+               block with the host's enqueue time beside the device time
+               (printed); the loss at 9 layers, seq 512 (two SSD chunks),
+               float32, on the card against the CPU within 1e-3; and
+               int_compress, pack_words, unpack_words, fused_unpack_sgd
+               and block_norms at the 471,859,200-element layers/m/w_xz,
+               against their plain versions and timed.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -1765,16 +1781,15 @@ def card_cpu_losses(torch, checks, device, archs) -> None:
     print(f"card-cpu: the CPU forwards took {cpu_s:.1f}s", flush=True)
 
 
-def largest_leaf_kernels(torch, ops, checks, timings, device) -> None:
-    """The kernels of the new paths once more at minitron-4b's 786,432,000-
-    element leaf (3.1 GB of float32: byte offsets past 2^31), each held
-    against its plain version and timed beside its byte bound: the encode
-    (float32, stochastic), pack and unpack (packed8, 4 workers), the fused
-    SGD update (packed8, float32 param) and block_norms (float32, with
-    torch.dot in turns)."""
+def largest_leaf_kernels(torch, ops, checks, timings, device, d=DENSE_LARGEST_LEAF) -> None:
+    """The kernels of a family's paths once more at its largest leaf of
+    ``d`` elements (by default minitron-4b's 786,432,000: 3.1 GB of
+    float32, byte offsets past 2^31), each held against its plain version
+    and timed beside its byte bound: the encode (float32, stochastic), pack
+    and unpack (packed8, 4 workers), the fused SGD update (packed8, float32
+    param) and block_norms (float32, with torch.dot in turns)."""
     from repro_torch.parallel.collectives import psum_wire_words
 
-    d = DENSE_LARGEST_LEAF
     print(f"kernels at d = {d}", flush=True)
     gen = torch.Generator(device=device).manual_seed(2024)
     tag = lambda name: f"{MAIN_VARIANT[name]}, d={d}"
@@ -2190,6 +2205,231 @@ def moe_family_phase(torch, ops, checks, device):
     return launches, bf16, histories, peaks
 
 
+# phase 18: the hybrid family at published width, 4 workers, 4 steps, IntSGD
+# on packed8, seq 2048: (label, config, layers, optimizer, lr, route). 18
+# layers are two blocks of attn_every 9, so the shared attention block's
+# gradient sums over two applications (999,699,680 params).
+HYBRID_PATHS = (
+    ("zamba2-fused-sgd", "zamba2-2.7b", 18, "sgd", 0.3, FUSED_BF16),
+    ("zamba2-zero1-adamw", "zamba2-2.7b", 18, "adamw", 3e-4, dict(fused=False)),
+)
+HYBRID_SEQ = 2048
+HYBRID_LARGEST_LEAF = 18 * 2560 * 10240  # layers/m/w_xz at 18 layers: 471,859,200
+HYBRID_CPU_LAYERS, HYBRID_CPU_SEQ = 9, 512  # one block; two SSD chunks of 256
+
+
+def hybrid_card_cpu(torch, checks, device) -> None:
+    """zamba2-2.7b at 9 layers (one block), batch 1, seq 512 (two SSD
+    chunks, so the state carries): the loss from the same float32 params,
+    in float32 activations (TF32 off), on the card against the CPU's plain
+    path, within 1e-3 relative; and the final hidden states, whose largest
+    difference is printed beside their largest |value| and held to 1e-3 of
+    it (the loss of a random-init model sits near log(vocab), where the
+    two may round to the same float)."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch.inputs import materialize_batch
+    from repro_torch.models.transformer import init_lm_params, lm_forward, lm_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("zamba2-2.7b"), n_layers=HYBRID_CPU_LAYERS)
+    params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                            device=device)
+    batch = materialize_batch(cfg, ShapeConfig("card-cpu", HYBRID_CPU_SEQ, 1, "train"),
+                              torch.Generator(device=device).manual_seed(1), device)
+    f32 = dict(dtype=torch.float32)
+    with torch.no_grad():
+        card = lm_loss(params, batch, cfg, **f32).item()
+        h_card = lm_forward(params, batch, cfg, **f32).cpu()
+        params = {k: v.cpu() for k, v in params.items()}
+        batch = {k: v.cpu() for k, v in batch.items()}
+        t0 = time.perf_counter()
+        cpu = lm_loss(params, batch, cfg, **f32).item()
+        h_cpu = lm_forward(params, batch, cfg, **f32)
+        cpu_s = time.perf_counter() - t0
+    del params, batch
+    gap = abs(card - cpu) / abs(cpu)
+    checks.true(f"card-cpu zamba2-2.7b ({HYBRID_CPU_LAYERS} layers, seq {HYBRID_CPU_SEQ}, "
+                f"float32): loss on the card {card!r}, on the CPU {cpu!r}, relative gap "
+                f"{gap:.3g} < 1e-3", math.isfinite(card) and gap < 1e-3)
+    dh, hmax = (h_card - h_cpu).abs().max().item(), h_cpu.abs().max().item()
+    checks.true(f"card-cpu zamba2-2.7b: final hidden states differ by at most {dh:.3g} "
+                f"(largest |h| {hmax:.3g}), < 1e-3 of it", dh < 1e-3 * hmax)
+    print(f"card-cpu zamba2: the CPU forward took {cpu_s:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+
+def stage_times(torch, stages, env, out_name, grad_out, reps=5) -> dict:
+    """Forward and backward ms of each stage of a chain, CUDA events between
+    stages, median of ``reps`` runs after a warm-up. ``stages``: (label,
+    fn, input names, output names) in order; ``env``: the named tensors the
+    chain starts from. Each stage takes its inputs as fresh leaves, so its
+    backward runs alone: the stages' backwards run in reverse, each from
+    the gradients its outputs gathered from the later stages."""
+    def one():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * len(stages) + 1)]
+        vals, saved = dict(env), []
+        ev[0].record()
+        for i, (_, fn, ins, outs) in enumerate(stages):
+            args = [vals[n].detach().requires_grad_(vals[n].is_floating_point()) for n in ins]
+            res = fn(*args)
+            vals.update(zip(outs, res))
+            saved.append((args, res))
+            ev[i + 1].record()
+        grads = {out_name: grad_out}
+        for j, ((_, _, ins, outs), (args, res)) in enumerate(zip(reversed(stages),
+                                                                 reversed(saved))):
+            pairs = [(r, grads[n]) for n, r in zip(outs, res) if n in grads]
+            gs = torch.autograd.grad([r for r, _ in pairs], args, [g for _, g in pairs],
+                                     allow_unused=True)
+            for n, g in zip(ins, gs):
+                if g is not None:
+                    grads[n] = grads[n] + g if n in grads else g
+            ev[len(stages) + 1 + j].record()
+        ev[-1].synchronize()
+        n = len(stages)
+        out = {}
+        for i, (label, *_) in enumerate(stages):
+            out[f"{label} forward"] = ev[i].elapsed_time(ev[i + 1])
+            out[f"{label} backward"] = ev[2 * n - i - 1].elapsed_time(ev[2 * n - i])
+        return out
+
+    one()
+    times = collections.defaultdict(list)
+    for _ in range(reps):
+        for name, t in one().items():
+            times[name].append(t)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def fwd_bwd_ms(torch, fn, args, grad_out, reps=5):
+    """(device ms, host ms) of fn(*args) forward and backward: CUDA events
+    around both, and the host's clock until the last launch is enqueued
+    (before the device sync); medians of ``reps`` after a warm-up. A host
+    time at or above the device time means the card waits on the host."""
+    dev_ms, host_ms = [], []
+    for i in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = fn(*args)
+        torch.autograd.grad(out, args, grad_out)
+        ev[1].record()
+        t1 = time.perf_counter()
+        ev[1].synchronize()
+        if i:
+            dev_ms.append(ev[0].elapsed_time(ev[1]))
+            host_ms.append((t1 - t0) * 1e3)
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def hybrid_layer_split(torch, device) -> None:
+    """Where one zamba2 Mamba2 layer's time goes (published width, bf16
+    params and activations, one worker's 2,048 tokens): each stage forward
+    and backward (input projections, conv, SSD intra, states and inter,
+    gate and norm, out-projection), then the whole layer as the train
+    path runs it (the SSD under checkpoint, recomputed in backward) and the
+    shared attention block, each with the host's enqueue time beside the
+    device time. Printed."""
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_arch("zamba2-2.7b"), n_layers=HYBRID_CPU_LAYERS)
+    params = transformer.init_lm_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0), device=device,
+        dtype=torch.bfloat16)
+    p = {k[len("layers/m/"):]: v[0, 0].detach().requires_grad_(True)
+         for k, v in params.items() if k.startswith("layers/m/")}
+    shared = {k[len("shared_attn/"):]: v.detach().requires_grad_(True)
+              for k, v in params.items() if k.startswith("shared_attn/")}
+    del params
+    gen = torch.Generator(device=device).manual_seed(5)
+    b, t, d = 1, HYBRID_SEQ, cfg.d_model
+    h, q, hd, n = transformer._ssm_heads(cfg), 256, transformer.SSM_HEAD_DIM, cfg.ssm_state
+    x = torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16).requires_grad_(True)
+    grad_out = torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+    chunks = lambda v: v.reshape(b, t // q, q, *v.shape[2:])
+    h0 = torch.zeros(b, h, n, hd, device=device)
+
+    def intra(xh, dt, bc, a_log):
+        return ssm.ssd_intra(chunks(xh), chunks(dt), chunks(bc), -torch.exp(a_log.float()))
+
+    def inter(bc, s, h_in, y_intra):
+        return ((y_intra + ssm.ssd_inter(chunks(bc), s, h_in)).reshape(b, t, h, hd),)
+
+    stages = (
+        ("input projections",
+         lambda x, w_xz, w_bc, w_dt, dt_bias: ssm.in_proj(
+             dict(w_xz=w_xz, w_bc=w_bc, w_dt=w_dt, dt_bias=dt_bias), x),
+         ("x", "w_xz", "w_bc", "w_dt", "dt_bias"), ("xin", "z", "bc", "dt")),
+        ("conv", lambda xin, conv_w: (
+            ssm._causal_conv(xin, conv_w).reshape(b, t, h, hd).float(),),
+         ("xin", "conv_w"), ("xh",)),
+        ("ssd intra", intra, ("xh", "dt", "bc", "a_log"), ("s", "y_intra")),
+        ("ssd states", lambda xh, dt, bc, s: (
+            ssm.ssd_states(chunks(xh), chunks(dt), chunks(bc), s, h0)[0],),
+         ("xh", "dt", "bc", "s"), ("h_in",)),
+        ("ssd inter", inter, ("bc", "s", "h_in", "y_intra"), ("y",)),
+        ("gate and norm", lambda y, xh, z, d_skip, norm_w: (
+            ssm.gate_norm(dict(d_skip=d_skip, norm_w=norm_w), y, xh, z),),
+         ("y", "xh", "z", "d_skip", "norm_w"), ("yn",)),
+        ("out-projection", lambda yn, w_out: (yn @ w_out,), ("yn", "w_out"), ("out",)),
+    )
+    med = stage_times(torch, stages, dict(p, x=x), "out", grad_out)
+    total = sum(med.values())
+    ssd = sum(v for k, v in med.items() if k.startswith("ssd"))
+    print(f"mamba2 layer zamba2-2.7b ({t} tokens, {h} heads of {hd}, state {n}, chunks of "
+          f"{q}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()), flush=True)
+    print(f"mamba2 layer: stages {total:.3f} ms forward+backward, of which the SSD "
+          f"{ssd:.3f} ms ({100 * ssd / total:.1f} %)", flush=True)
+    kw = dict(n_heads=h, head_dim=hd, d_state=n)
+    layer = lambda x, *_: ssm.mamba2_train(p, x, **kw)
+    dev_ms, host_ms = fwd_bwd_ms(torch, layer, [x, *p.values()], grad_out)
+    waits = ": the card waits on the host" if host_ms >= 0.9 * dev_ms else ""
+    print(f"mamba2 layer as trained (SSD recomputed in backward): device {dev_ms:.3f} ms, "
+          f"host enqueue {host_ms:.3f} ms forward+backward (host/device "
+          f"{host_ms / dev_ms:.2f}{waits})", flush=True)
+    emb = torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+    pos = torch.arange(t, device=device).expand(b, t)
+    block = lambda hh, *_: transformer._shared_attn_block(shared, hh, emb, pos, cfg)
+    dev_ms, host_ms = fwd_bwd_ms(torch, block, [x, *shared.values()], grad_out)
+    print(f"shared attention block: device {dev_ms:.3f} ms, host enqueue {host_ms:.3f} ms "
+          f"forward+backward", flush=True)
+    del p, shared, x
+    torch.cuda.empty_cache()
+
+
+def hybrid_family_phase(torch, ops, checks, timings, device):
+    """Phase 18: zamba2's paths through the user entry point at published
+    width, with every check of ``train_phase``; card against CPU; one
+    Mamba2 layer and the shared block timed by stage; the kernels at the
+    hybrid's largest leaf. Returns the paths' launch counts and
+    bf16-variant counts, their histories and peaks."""
+    launches, bf16 = collections.Counter(), collections.Counter()
+    histories, peaks = {}, {}
+    for label, arch, layers, opt, lr, route in HYBRID_PATHS:
+        t0 = time.perf_counter()
+        counts, histories[label], peaks[label] = train_phase(
+            torch, ops, checks, device, label=label, layers=layers, steps=4, opt=opt,
+            comp="intsgd", wire="packed8", lr=lr, arch=arch, seq=HYBRID_SEQ, **route)
+        launches.update(counts)
+        bf16.update(ops.bf16_launch_counts())
+        checks.true(f"{label}: peak {peaks[label]:.1f} GiB below the card's 80 GB",
+                    peaks[label] * 2**30 < CARD_BYTES)
+        print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    hybrid_layer_split(torch, device)
+    print(f"mamba2 layer split: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    hybrid_card_cpu(torch, checks, device)
+    print(f"hybrid card-cpu: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    largest_leaf_kernels(torch, ops, checks, timings, device, d=HYBRID_LARGEST_LEAF)
+    print(f"kernels at the hybrid's largest leaf: {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, bf16, histories, peaks
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -2304,6 +2544,17 @@ def main() -> None:
         print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
               f"peak {moe_peaks[label]:.1f} GiB", flush=True)
     print(f"moe family phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 18. the hybrid family at published width
+    t0 = time.perf_counter()
+    counts, b16, hyb_hist, hyb_peaks = hybrid_family_phase(torch, ops, checks, timings, device)
+    for name, c in counts.items():
+        launches[name] += c
+    bf16_launches.update(b16)
+    for label, h in hyb_hist.items():
+        print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
+              f"peak {hyb_peaks[label]:.1f} GiB", flush=True)
+    print(f"hybrid family phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

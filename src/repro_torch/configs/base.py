@@ -2,10 +2,11 @@
 port keeps its own copy — it imports nothing from the JAX package).
 
 The port runs the dense decoder family (its ``vlm`` member, internvl2-2b,
-with the modality frontend stub) and the ``moe`` family: granite-8b,
-minitron-4b, qwen2.5-32b, h2o-danube-3-4b, internvl2-2b, mixtral-8x22b and
-deepseek-v2-lite-16b (MLA) are registered; any other name raises saying it
-is not ported yet.
+with the modality frontend stub), the ``moe`` family and the ``hybrid``
+family: granite-8b, minitron-4b, qwen2.5-32b, h2o-danube-3-4b,
+internvl2-2b, mixtral-8x22b, deepseek-v2-lite-16b (MLA) and zamba2-2.7b
+(Mamba2 with a shared attention block) are registered; any other name
+raises saying it is not ported yet.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ _ARCH_MODULES = {
     "minitron-4b": "minitron_4b",
     "mixtral-8x22b": "mixtral_8x22b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 

@@ -38,8 +38,9 @@ carries no width — intsgd, intsgd_block, intsgd_determ, intdiana — takes
 the wire's. ``--layers N`` cuts the depth (full width kept). ``--overlap
 ring`` sends the integer wire in buckets of ``--bucket-words`` words.
 ``--arch`` takes the dense decoders granite-8b, minitron-4b, qwen2.5-32b
-and h2o-danube-3-4b and the moe family, mixtral-8x22b and
-deepseek-v2-lite-16b (``--smoke`` on the CPU, ``--layers N`` on the card);
+and h2o-danube-3-4b, the moe family, mixtral-8x22b and
+deepseek-v2-lite-16b, and the hybrid zamba2-2.7b (``--smoke`` on the CPU,
+``--layers N`` on the card; zamba2's N a multiple of its attn_every, 9);
 internvl2-2b (vlm) needs patch embeddings, which the
 synthetic token data does not carry: drive it with
 ``launch.step.build_train_step`` and ``launch.inputs.materialize_batch``.

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense and MoE families (port of
+"""Decoder-only LM, dense, MoE and hybrid families (port of
 ``repro/models/transformer.py`` at tp = 1).
 
 Parameters are a flat dict of leaves, not ``nn.Module`` state, because the
@@ -22,7 +22,12 @@ and put before the text tokens, the loss on the text positions only. The
 RMSNorm. Its router is float32 whatever the params' type, as in the JAX
 package (``FLOAT32_LEAVES``), and each layer's three expert matrices start
 from one draw, as the JAX package draws them from one key
-(:func:`init_lm_params`).
+(:func:`init_lm_params`). The ``hybrid`` family (zamba2) stacks Mamba2
+layers (``models/ssm.py``) with two leading axes, ``(n_layers //
+attn_every, attn_every, ...)``, and after every ``attn_every`` of them
+applies one shared attention block to concat[h, embedding]: its
+``shared_attn/*`` leaves exist once, so autograd sums their gradients over
+the blocks.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.models.common import cross_entropy, dense_init, rmsnorm
 from repro_torch.models.mla import DH_ROPE, mla_train
 from repro_torch.models.mlp import swiglu_mlp
 from repro_torch.models.moe import moe_tp
+from repro_torch.models.ssm import CONV_K, mamba2_train
 
 Tree = Dict[str, torch.Tensor]
 
@@ -46,12 +52,17 @@ ATTN_BIASES = ("attn/bk", "attn/bq", "attn/bv")
 # leaves kept in float32 whatever the params' type (the JAX package's
 # ``_init_moe_layer`` makes the router float32)
 FLOAT32_LEAVES = ("layers/moe/router",)
+# constant initialisers by a leaf's last name: the norms' ones, and the
+# Mamba2 layers' (the JAX package's ``init_mamba2_params``)
+CONSTANT_INIT = {"ln": 1.0, "ln1": 1.0, "ln2": 1.0, "ln_f": 1.0, "norm_w": 1.0,
+                 "d_skip": 1.0, "a_log": 0.0, "dt_bias": -4.0}
+SSM_HEAD_DIM = 64  # the JAX package's ``Dims.ssm_head_dim``
 
 
 def _check_ported(cfg) -> None:
     missing = [
         what for what, on in (
-            (f"family {cfg.family!r}", cfg.family not in ("dense", "vlm", "moe")),
+            (f"family {cfg.family!r}", cfg.family not in ("dense", "vlm", "moe", "hybrid")),
             ("tied embeddings", cfg.tie_embeddings),
             (f"the {cfg.frontend!r} frontend", cfg.frontend not in (None, "vit")),
         ) if on
@@ -59,7 +70,8 @@ def _check_ported(cfg) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            "the dense decoder family, its vlm frontend stub and the moe family)"
+            "the dense decoder family, its vlm frontend stub, the moe family "
+            "and the hybrid family)"
         )
 
 
@@ -96,16 +108,52 @@ def _ffn_shapes(cfg) -> Dict[str, tuple]:
     return shapes
 
 
+def _ssm_heads(cfg) -> int:
+    """Mamba2 heads of ``SSM_HEAD_DIM`` (d_inner = 2·d_model)."""
+    return 2 * cfg.d_model // SSM_HEAD_DIM
+
+
+def _layer_axes(cfg) -> tuple:
+    """The leading axes of the layer leaves: (n_layers,), or in the hybrid
+    family (n_layers // attn_every, attn_every)."""
+    if cfg.family != "hybrid":
+        return (cfg.n_layers,)
+    if cfg.n_layers <= 0 or cfg.n_layers % cfg.attn_every:
+        raise ValueError(
+            f"{cfg.name}: n_layers {cfg.n_layers} is not a positive multiple of "
+            f"attn_every {cfg.attn_every} (the Mamba2 layers stack in blocks of "
+            "attn_every, each followed by the shared attention block)")
+    return (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+
+
+def _layer_shapes(cfg) -> Dict[str, tuple]:
+    """One layer's leaves, without the leading layer axes: a Mamba2 layer
+    in the hybrid family, else attention and the feed-forward."""
+    d = cfg.d_model
+    if cfg.family == "hybrid":
+        n, h = cfg.ssm_state, _ssm_heads(cfg)
+        di = h * SSM_HEAD_DIM
+        return {"ln": (d,), "m/a_log": (h,), "m/conv_w": (CONV_K, di), "m/d_skip": (h,),
+                "m/dt_bias": (h,), "m/norm_w": (di,), "m/w_bc": (d, 2 * n), "m/w_dt": (d, h),
+                "m/w_out": (di, d), "m/w_xz": (d, 2 * di)}
+    layer = {f"attn/{k}": s for k, s in _attn_shapes(cfg).items()}
+    layer.update({"ln1": (d,), "ln2": (d,), **_ffn_shapes(cfg)})
+    return layer
+
+
 def param_shapes(cfg) -> Dict[str, tuple]:
-    """Leaf name -> shape; layer leaves carry the leading layer axis. The
+    """Leaf name -> shape; layer leaves carry the leading layer axes. The
     dict's order is the order in which :func:`init_lm_params` draws."""
     _check_ported(cfg)
     L, d = cfg.n_layers, cfg.d_model
-    layer = {f"attn/{k}": s for k, s in _attn_shapes(cfg).items()}
-    layer.update({"ln1": (d,), "ln2": (d,), **_ffn_shapes(cfg)})
+    lead = _layer_axes(cfg)
     shapes = {"embed": (cfg.vocab, d)}
-    shapes.update({f"layers/{k}": (L, *s) for k, s in layer.items()})
+    shapes.update({f"layers/{k}": (*lead, *s) for k, s in _layer_shapes(cfg).items()})
     shapes.update({"lm_head": (d, cfg.vocab), "ln_f": (d,)})
+    if cfg.family == "hybrid":  # the shared attention block, once
+        shared = {f"attn/{k}": s for k, s in _attn_shapes(cfg).items()}
+        shared.update({"ln": (2 * d,), "ln2": (d,), "w_in": (2 * d, d), **_ffn_shapes(cfg)})
+        shapes.update({f"shared_attn/{k}": s for k, s in shared.items()})
     if cfg.qkv_bias:
         q, kv = cfg.n_heads * _head_dim(cfg), cfg.n_kv_heads * _head_dim(cfg)
         shapes.update({"layers/attn/bk": (L, kv), "layers/attn/bq": (L, q),
@@ -118,8 +166,9 @@ def param_shapes(cfg) -> Dict[str, tuple]:
 def init_lm_params(cfg, *, generator: torch.Generator, device,
                    dtype=torch.float32) -> Tree:
     """Random weights from ``generator`` (the JAX package's distributions:
-    uniform ±1/√fan_in for matrices, ones for norms, zeros for the QKV
-    biases), on ``device``, in ``dtype`` but the ``FLOAT32_LEAVES``. The
+    uniform ±1/√fan_in for matrices, fan_in their next-to-last axis; the
+    ``CONSTANT_INIT`` leaves filled; zeros for the QKV biases), on
+    ``device``, in ``dtype`` but the ``FLOAT32_LEAVES``. The
     JAX package draws an MoE layer's three expert matrices from one key,
     so its ``w_up`` equals its ``w_gate`` and its ``w_down`` holds the same
     uniforms at the bound 1/√d_ff: here too (``w_down`` is ``w_gate``'s
@@ -130,8 +179,9 @@ def init_lm_params(cfg, *, generator: torch.Generator, device,
         dt = torch.float32 if name in FLOAT32_LEAVES else dtype
         if name in ("layers/moe/w_up", "layers/moe/w_down"):
             continue  # from w_gate, below
-        if name.endswith(("ln1", "ln2", "ln_f")):
-            params[name] = torch.ones(shape, dtype=dt, device=device)
+        const = CONSTANT_INIT.get(name.rsplit("/", 1)[-1])
+        if const is not None:
+            params[name] = torch.full(shape, const, dtype=dt, device=device)
         elif name.endswith(ATTN_BIASES):  # zeros, not fan-in L
             params[name] = torch.zeros(shape, dtype=dt, device=device)
         else:
@@ -171,6 +221,26 @@ def _layer(lp, x, positions, cfg):
     return h + swiglu_mlp(_sub(lp, "mlp/"), rmsnorm(h, lp["ln2"]))
 
 
+def _mamba_layer(lp, x, cfg):
+    """One Mamba2 layer of the hybrid family, behind its RMSNorm."""
+    return x + mamba2_train(_sub(lp, "m/"), rmsnorm(x, lp["ln"]), n_heads=_ssm_heads(cfg),
+                            head_dim=SSM_HEAD_DIM, d_state=cfg.ssm_state)
+
+
+def _shared_attn_block(p, h, emb, positions, cfg):
+    """The hybrid family's shared block: RMSNorm of concat[h, emb] over
+    2·d_model, ``w_in`` back to d_model, attention (no window) and the
+    SwiGLU, each residual; added to h."""
+    z = rmsnorm(torch.cat([h, emb], dim=-1), p["ln"])
+    z = z @ p["w_in"].to(z.dtype)
+    z = z + attention_train(
+        _sub(p, "attn/"), z, positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=_head_dim(cfg), rope_theta=cfg.rope_theta,
+    )
+    z = z + swiglu_mlp(_sub(p, "mlp/"), rmsnorm(z, p["ln2"]))
+    return h + z
+
+
 def _embed_inputs(params: Tree, batch, cfg) -> torch.Tensor:
     """Token embeddings (B, T, d) in the params' type; with the vit
     frontend the projected patch embeddings come first (B, N + T, d),
@@ -184,14 +254,24 @@ def _embed_inputs(params: Tree, batch, cfg) -> torch.Tensor:
 
 def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
     """Hidden states after the final norm: (B, T', d), T' counting the
-    frontend's positions."""
+    frontend's positions. In the hybrid family the shared attention block
+    follows every ``attn_every`` Mamba2 layers, reading the embedded input
+    in the activation type beside h."""
     _check_ported(cfg)
     x = _embed_inputs(params, batch, cfg).to(dtype)
     b, t = x.shape[:2]
     positions = torch.arange(t, device=x.device).expand(b, t)
-    layers = {k: v.unbind(0) for k, v in _sub(params, "layers/").items()}
+    n_lead = len(_layer_axes(cfg))
+    layers = {k: v.flatten(0, n_lead - 1).unbind(0) for k, v in _sub(params, "layers/").items()}
+    emb0, shared = x, _sub(params, "shared_attn/")
     for i in range(cfg.n_layers):
-        x = _layer({k: v[i] for k, v in layers.items()}, x, positions, cfg)
+        lp = {k: v[i] for k, v in layers.items()}
+        if cfg.family == "hybrid":
+            x = _mamba_layer(lp, x, cfg)
+            if (i + 1) % cfg.attn_every == 0:
+                x = _shared_attn_block(shared, x, emb0, positions, cfg)
+        else:
+            x = _layer(lp, x, positions, cfg)
     return rmsnorm(x, params["ln_f"])
 
 

@@ -677,7 +677,54 @@ def test_moe_config_steps_on_the_card_match_the_cpu(dev, name):
     _config_steps_card_vs_cpu(dev, name, *MOE_PATHS[name])
 
 
-def _config_steps_card_vs_cpu(dev, name, fused, opt_name, dtype, seq):
+# the hybrid family (zamba2 smoke: 4 Mamba2 layers in two blocks, the shared
+# attention block after each): route -> (fused, optimizer, param dtype,
+# sequence length); at T = 512 the SSD runs two chunks of 256
+HYBRID_PATHS = {
+    "fused-sgd-bf16": (True, "sgd", torch.bfloat16, 32),
+    "zero1-adamw-t512": (False, "adamw", torch.float32, 512),
+}
+
+
+@pytest.mark.parametrize("route", list(HYBRID_PATHS))
+def test_hybrid_steps_on_the_card_match_the_cpu(dev, route):
+    """zamba2's smoke config the same way as the dense configs' two
+    steps, at its full smoke depth (n_layers 4, attn_every 2)."""
+    _config_steps_card_vs_cpu(dev, "zamba2-2.7b", *HYBRID_PATHS[route], layers=4)
+
+
+@pytest.mark.parametrize("t,chunk", [(32, 8), (64, 256)])
+def test_mamba2_on_the_card_matches_the_cpu(dev, t, chunk):
+    """One Mamba2 layer at the smoke widths (2 heads of 64, state 16) in
+    float32, forward and backward, chunk 8 over T = 32 (the state carried
+    across four chunks) and one chunk of 64, on the card against the CPU
+    (TF32 off, as the train step sets it)."""
+    from repro_torch.models import ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(8)
+    d, h, hd, n = 64, 2, 64, 16
+    shapes = {"w_xz": (d, 2 * h * hd), "w_bc": (d, 2 * n), "w_dt": (d, h),
+              "conv_w": (ssm.CONV_K, h * hd), "w_out": (h * hd, d)}
+    p = {k: torch.randn(s, generator=g) / s[0] ** 0.5 for k, s in shapes.items()}
+    p.update(dt_bias=-4.0 + torch.rand(h, generator=g), a_log=torch.randn(h, generator=g) / 2,
+             d_skip=torch.randn(h, generator=g), norm_w=torch.ones(h * hd))
+    x = torch.randn(2, t, d, generator=g)
+    cot = torch.randn(2, t, d, generator=g)
+    outs = {}
+    for device in ("cpu", dev):
+        pp = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+        xx = x.to(device).requires_grad_(True)
+        out = ssm.mamba2_train(pp, xx, n_heads=h, head_dim=hd, d_state=n, chunk=chunk)
+        grads = torch.autograd.grad((out * cot.to(device)).sum(), [xx, *pp.values()])
+        outs[str(device)] = (out.detach().cpu(), [gr.cpu() for gr in grads])
+    (o_c, g_c), (o_g, g_g) = outs["cpu"], outs[str(dev)]
+    torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-5)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+def _config_steps_card_vs_cpu(dev, name, fused, opt_name, dtype, seq, layers=2):
     import dataclasses
 
     from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
@@ -688,7 +735,7 @@ def _config_steps_card_vs_cpu(dev, name, fused, opt_name, dtype, seq):
     from repro_torch.optim.adamw import adamw
     from repro_torch.optim.sgd import sgd
 
-    cfg = dataclasses.replace(smoke_config(get_arch(name)), n_layers=2)
+    cfg = dataclasses.replace(smoke_config(get_arch(name)), n_layers=layers)
     n = 2
     shape = ShapeConfig("t", seq, 2 * n, "train")
     comp = make_compressor("intsgd8_packed")

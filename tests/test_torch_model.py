@@ -92,10 +92,10 @@ def test_unported_model_features_raise():
     import dataclasses
 
     cfg = smoke_config(get_arch("granite-8b"))
-    for change, name in ((dict(family="hybrid", ssm_state=16, attn_every=2), "family 'hybrid'"),
+    for change, name in ((dict(family="ssm"), "family 'ssm'"),
                          (dict(frontend="audio"), "the 'audio' frontend"),
                          (dict(tie_embeddings=True), "tied embeddings")):
         with pytest.raises(NotImplementedError, match=f"{name}.*not ported yet"):
             param_shapes(dataclasses.replace(cfg, **change))
     with pytest.raises(ValueError, match="not ported yet"):
-        get_arch("zamba2-2.7b")
+        get_arch("xlstm-125m")
