@@ -209,7 +209,28 @@ Phases, each of which must pass for the exit code to be 0:
                float32, on the card against the CPU within 1e-3; and
                int_compress, pack_words, unpack_words, fused_unpack_sgd
                and block_norms at the 471,859,200-element layers/m/w_xz,
-               against their plain versions and timed.
+               against their plain versions and timed;
+ 19. xlstm family — xlstm-125m at published width and full depth, 12
+               layers (four (mLSTM, mLSTM, sLSTM) blocks: 71,744,320
+               params in 24 leaves, the embedding tied to the head), 4
+               workers, 4 steps, seq 2048, IntSGD on packed8, with every
+               check of phases 3-8 (launch counts for its 24 leaves, from
+               the 38,633,472-element embed to the 32-entry if_bias):
+               xlstm-fused-sgd (fused SGD, lr 0.3, bf16 params) and
+               xlstm-zero1-adamw (ZeRO-1 AdamW, lr 3e-4, float32), their
+               peaks below 80 GB; one mLSTM and one sLSTM layer at full
+               width timed by stage forward and backward with CUDA events
+               (mLSTM: projections, intra, the chunk carry, inter, norm and
+               out-projection; sLSTM: projection, the time loop, norm and
+               out-projection), each layer as trained and the time loop
+               alone with the host's enqueue time beside the device time,
+               the loop's µs a time step and its share of each path's step
+               (printed); the time loop (its backward written by hand) at
+               full width against the same loop through autograd, hidden
+               states and gradients within 1e-4 of their largest |value|,
+               both timed in turns; the loss at 12 layers, seq 512 (two
+               mLSTM chunks, 512 sLSTM steps), float32, on the card against
+               the CPU within 1e-3.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -2218,23 +2239,22 @@ HYBRID_LARGEST_LEAF = 18 * 2560 * 10240  # layers/m/w_xz at 18 layers: 471,859,2
 HYBRID_CPU_LAYERS, HYBRID_CPU_SEQ = 9, 512  # one block; two SSD chunks of 256
 
 
-def hybrid_card_cpu(torch, checks, device) -> None:
-    """zamba2-2.7b at 9 layers (one block), batch 1, seq 512 (two SSD
-    chunks, so the state carries): the loss from the same float32 params,
-    in float32 activations (TF32 off), on the card against the CPU's plain
-    path, within 1e-3 relative; and the final hidden states, whose largest
-    difference is printed beside their largest |value| and held to 1e-3 of
-    it (the loss of a random-init model sits near log(vocab), where the
-    two may round to the same float)."""
+def card_cpu_f32(torch, checks, device, arch, layers, seq) -> None:
+    """``arch`` at ``layers`` layers, batch 1, seq ``seq``: the loss from
+    the same float32 params, in float32 activations (TF32 off), on the card
+    against the CPU's plain path, within 1e-3 relative; and the final
+    hidden states, whose largest difference is printed beside their
+    largest |value| and held to 1e-3 of it (the loss of a random-init model
+    sits near log(vocab), where the two may round to the same float)."""
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.launch.inputs import materialize_batch
     from repro_torch.models.transformer import init_lm_params, lm_forward, lm_loss
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("zamba2-2.7b"), n_layers=HYBRID_CPU_LAYERS)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
                             device=device)
-    batch = materialize_batch(cfg, ShapeConfig("card-cpu", HYBRID_CPU_SEQ, 1, "train"),
+    batch = materialize_batch(cfg, ShapeConfig("card-cpu", seq, 1, "train"),
                               torch.Generator(device=device).manual_seed(1), device)
     f32 = dict(dtype=torch.float32)
     with torch.no_grad():
@@ -2248,13 +2268,13 @@ def hybrid_card_cpu(torch, checks, device) -> None:
         cpu_s = time.perf_counter() - t0
     del params, batch
     gap = abs(card - cpu) / abs(cpu)
-    checks.true(f"card-cpu zamba2-2.7b ({HYBRID_CPU_LAYERS} layers, seq {HYBRID_CPU_SEQ}, "
+    checks.true(f"card-cpu {arch} ({layers} layers, seq {seq}, "
                 f"float32): loss on the card {card!r}, on the CPU {cpu!r}, relative gap "
                 f"{gap:.3g} < 1e-3", math.isfinite(card) and gap < 1e-3)
     dh, hmax = (h_card - h_cpu).abs().max().item(), h_cpu.abs().max().item()
-    checks.true(f"card-cpu zamba2-2.7b: final hidden states differ by at most {dh:.3g} "
+    checks.true(f"card-cpu {arch}: final hidden states differ by at most {dh:.3g} "
                 f"(largest |h| {hmax:.3g}), < 1e-3 of it", dh < 1e-3 * hmax)
-    print(f"card-cpu zamba2: the CPU forward took {cpu_s:.1f}s", flush=True)
+    print(f"card-cpu {arch}: the CPU forward took {cpu_s:.1f}s", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -2422,11 +2442,177 @@ def hybrid_family_phase(torch, ops, checks, timings, device):
     hybrid_layer_split(torch, device)
     print(f"mamba2 layer split: {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
-    hybrid_card_cpu(torch, checks, device)
+    card_cpu_f32(torch, checks, device, "zamba2-2.7b", HYBRID_CPU_LAYERS, HYBRID_CPU_SEQ)
     print(f"hybrid card-cpu: {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     largest_leaf_kernels(torch, ops, checks, timings, device, d=HYBRID_LARGEST_LEAF)
     print(f"kernels at the hybrid's largest leaf: {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, bf16, histories, peaks
+
+
+# phase 19: the xLSTM family at published width and full depth, 4 workers, 4
+# steps, IntSGD on packed8, seq 2048: (label, config, layers, optimizer, lr,
+# route). 12 layers are four (mLSTM, mLSTM, sLSTM) blocks (71,744,320
+# params in 24 leaves, the embedding tied to the head).
+XLSTM_PATHS = (
+    ("xlstm-fused-sgd", "xlstm-125m", 12, "sgd", 0.3, FUSED_BF16),
+    ("xlstm-zero1-adamw", "xlstm-125m", 12, "adamw", 3e-4, dict(fused=False)),
+)
+XLSTM_SEQ = 2048
+XLSTM_LEAVES = 24
+XLSTM_CPU_LAYERS, XLSTM_CPU_SEQ = 12, 512  # two mLSTM chunks, 512 sLSTM steps
+
+
+def slstm_loop_check(torch, checks, zx, r_h, n_heads, dh, grad_out) -> None:
+    """The port's time loop (``slstm_scan``, its backward written by hand)
+    on the card against ``slstm_scan_reference`` (each step through
+    autograd) at full width, float32 (zx, r_h): hidden states and gradients
+    within 1e-4 of their largest |value|; then both timed in turns (port,
+    autograd, autograd, port). Printed."""
+    from repro_torch.models import xlstm
+
+    fns = {"port": lambda z, r: xlstm.slstm_scan(z, r, n_heads, dh),
+           "autograd": lambda z, r: xlstm.slstm_scan_reference(z, r, n_heads, dh)}
+    outs = []
+    for fn in fns.values():
+        y = fn(zx, r_h)
+        outs.append([y.detach(), *torch.autograd.grad(y, [zx, r_h], grad_out)])
+    errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*outs)]
+    checks.true(f"slstm time loop: the hand-written backward against autograd's on the card, "
+                f"largest differences {[f'{e:.3g}' for e in errs]} of the largest |h|, |dzx|, "
+                f"|dr_h| (< 1e-4)", all(e < 1e-4 for e in errs))
+    times = collections.defaultdict(list)
+    for name in ("port", "autograd", "autograd", "port"):
+        times[name].append(fwd_bwd_ms(torch, fns[name], [zx, r_h], grad_out, reps=1)[0])
+    t = zx.shape[1]
+    print("slstm time loop in turns, device ms forward+backward: " + ", ".join(
+        f"{k} {v} ({1e3 * min(v) / t:.1f} us a time step)" for k, v in times.items()),
+        flush=True)
+
+
+def xlstm_layer_split(torch, checks, device) -> float:
+    """Where one mLSTM and one sLSTM layer of xlstm-125m spend their time
+    (published width, bf16 params and activations, one worker's 2,048
+    tokens): each stage forward and backward (mLSTM: projections, intra,
+    the chunk carry, inter, norm and out-projection; sLSTM: projection, the
+    time loop, norm and out-projection), then each layer as trained and the
+    sLSTM's time loop alone, with the host's enqueue time beside the device
+    time, and the time loop against its autograd reference
+    (:func:`slstm_loop_check`). Printed; returns the time loop's device ms
+    forward and backward (alone, median of 5)."""
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import xlstm
+
+    cfg = dataclasses.replace(get_arch("xlstm-125m"), n_layers=3)
+    params = transformer.init_lm_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0), device=device,
+        dtype=torch.bfloat16)
+    cells = {c: {k[len(f"layers/{c}/cell/"):]: v[0].detach().requires_grad_(True)
+                 for k, v in params.items() if k.startswith(f"layers/{c}/cell/")}
+             for c in ("m1", "s")}
+    del params
+    gen = torch.Generator(device=device).manual_seed(5)
+    b, t, d = 1, XLSTM_SEQ, cfg.d_model
+    h, dh, q = cfg.n_heads, cfg.head_dim, min(256, t)
+    dk = h * dh
+    x = torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16).requires_grad_(True)
+    grad_out = torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+    chunks = lambda v: v.reshape(b, t // q, q, *v.shape[2:])
+    c0 = torch.zeros(b, h, dh, dh, device=device)
+    n0 = torch.zeros(b, h, dh, device=device)
+    out = lambda y, norm_w, w_out: (xlstm.out_proj(dict(norm_w=norm_w, w_out=w_out), y,
+                                                   torch.bfloat16),)
+    m_stages = (
+        ("projections", lambda x, w_q, w_k, w_v, w_if, if_bias: tuple(
+            chunks(a) for a in xlstm.mlstm_proj(
+                dict(w_q=w_q, w_k=w_k, w_v=w_v, w_if=w_if, if_bias=if_bias), x, h, dh)),
+         ("x", "w_q", "w_k", "w_v", "w_if", "if_bias"), ("q", "k", "v", "logi", "logf")),
+        ("intra", xlstm.mlstm_intra, ("q", "k", "v", "logf", "logi"),
+         ("s", "y_intra", "n_intra")),
+        ("carry", lambda k, v, logi, s: xlstm.mlstm_states(k, v, logi, s, c0, n0),
+         ("k", "v", "logi", "s"), ("c_in", "n_in")),
+        ("inter", lambda q, s, y_intra, n_intra, c_in, n_in: (
+            xlstm.mlstm_inter(q, s, y_intra, n_intra, c_in, n_in).reshape(b, t, dk),),
+         ("q", "s", "y_intra", "n_intra", "c_in", "n_in"), ("y",)),
+        ("norm and out-projection", out, ("y", "norm_w", "w_out"), ("out",)),
+    )
+    s_stages = (
+        ("projection", lambda x, w_in, bias: (xlstm.slstm_proj(dict(w_in=w_in, b=bias), x),),
+         ("x", "w_in", "b"), ("zx",)),
+        ("time loop", lambda zx, r_h: (xlstm.slstm_scan(zx, r_h, h, dh),), ("zx", "r_h"),
+         ("y",)),
+        ("norm and out-projection", out, ("y", "norm_w", "w_out"), ("out",)),
+    )
+    kw = dict(n_heads=h, head_dim=dh)
+    loop_ms = None
+    for name, cell, stages, fn in (
+            ("mlstm", cells["m1"], m_stages, xlstm.mlstm_train),
+            ("slstm", cells["s"], s_stages, xlstm.slstm_train)):
+        med = stage_times(torch, stages, dict(cell, x=x), "out", grad_out, reps=3)
+        total = sum(med.values())
+        print(f"{name} layer xlstm-125m ({t} tokens, {h} heads of {dh}): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+              + f"; stages {total:.3f} ms forward+backward", flush=True)
+        layer = lambda x, *_: fn(cell, x, **kw)
+        dev_ms, host_ms = fwd_bwd_ms(torch, layer, [x, *cell.values()], grad_out, reps=3)
+        waits = ": the card waits on the host" if host_ms >= 0.9 * dev_ms else ""
+        print(f"{name} layer as trained: device {dev_ms:.3f} ms, host enqueue {host_ms:.3f} ms "
+              f"forward+backward (host/device {host_ms / dev_ms:.2f}{waits})", flush=True)
+        if name == "slstm":
+            zx = xlstm.slstm_proj(cell, x.detach()).requires_grad_(True)
+            scan = lambda zx, r_h: xlstm.slstm_scan(zx, r_h, h, dh)
+            grad_hs = torch.randn(b, t, dk, generator=gen, device=device)
+            loop_ms, host_ms = fwd_bwd_ms(torch, scan, [zx, cell["r_h"]], grad_hs)
+            print(f"slstm time loop alone: device {loop_ms:.3f} ms, host enqueue {host_ms:.3f} ms "
+                  f"forward+backward (host/device {host_ms / loop_ms:.2f}); "
+                  f"{1e3 * loop_ms / t:.1f} us a time step on the card, "
+                  f"{1e3 * host_ms / t:.1f} us on the host", flush=True)
+            r32 = cell["r_h"].detach().float().requires_grad_(True)
+            slstm_loop_check(torch, checks, zx, r32, h, dh, grad_hs)
+    del cells, x
+    torch.cuda.empty_cache()
+    return loop_ms
+
+
+def xlstm_family_phase(torch, ops, checks, device):
+    """Phase 19: xlstm-125m's paths through the user entry point at
+    published width and full depth, with every check of ``train_phase``;
+    one mLSTM and one sLSTM layer timed by stage; card against CPU.
+    Returns the paths' launch counts and bf16-variant counts, their
+    histories and peaks."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import param_shapes
+
+    shapes = param_shapes(get_arch("xlstm-125m"))
+    size = sum(math.prod(v) for v in shapes.values())
+    checks.true(f"xlstm-125m: {len(shapes)} leaves (expected {XLSTM_LEAVES}), {size} params, "
+                f"no lm_head (tied embeddings)",
+                len(shapes) == XLSTM_LEAVES and "lm_head" not in shapes)
+    launches, bf16 = collections.Counter(), collections.Counter()
+    histories, peaks = {}, {}
+    for label, arch, layers, opt, lr, route in XLSTM_PATHS:
+        t0 = time.perf_counter()
+        counts, histories[label], peaks[label] = train_phase(
+            torch, ops, checks, device, label=label, layers=layers, steps=4, opt=opt,
+            comp="intsgd", wire="packed8", lr=lr, arch=arch, seq=XLSTM_SEQ, **route)
+        launches.update(counts)
+        bf16.update(ops.bf16_launch_counts())
+        checks.true(f"{label}: peak {peaks[label]:.1f} GiB below the card's 80 GB",
+                    peaks[label] * 2**30 < CARD_BYTES)
+        print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    loop_ms = xlstm_layer_split(torch, checks, device)
+    n_slstm = XLSTM_PATHS[0][2] // 3 * N_WORKERS
+    for label in histories:
+        step = compressed_ms(histories[label])
+        print(f"{label}: the sLSTM time loops, {n_slstm} a step ({N_WORKERS} workers x "
+              f"{n_slstm // N_WORKERS} layers) at {loop_ms:.1f} ms each: {n_slstm * loop_ms:.1f} "
+              f"ms, {100 * n_slstm * loop_ms / step:.1f} % of the {step:.1f} ms step", flush=True)
+    print(f"xlstm layer split: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    card_cpu_f32(torch, checks, device, "xlstm-125m", XLSTM_CPU_LAYERS, XLSTM_CPU_SEQ)
+    print(f"xlstm card-cpu: {time.perf_counter() - t0:.1f}s", flush=True)
     return launches, bf16, histories, peaks
 
 
@@ -2555,6 +2741,17 @@ def main() -> None:
         print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
               f"peak {hyb_peaks[label]:.1f} GiB", flush=True)
     print(f"hybrid family phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 19. the xLSTM family at published width and full depth
+    t0 = time.perf_counter()
+    counts, b16, xl_hist, xl_peaks = xlstm_family_phase(torch, ops, checks, device)
+    for name, c in counts.items():
+        launches[name] += c
+    bf16_launches.update(b16)
+    for label, h in xl_hist.items():
+        print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
+              f"peak {xl_peaks[label]:.1f} GiB", flush=True)
+    print(f"xlstm family phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

@@ -2,11 +2,12 @@
 port keeps its own copy — it imports nothing from the JAX package).
 
 The port runs the dense decoder family (its ``vlm`` member, internvl2-2b,
-with the modality frontend stub), the ``moe`` family and the ``hybrid``
-family: granite-8b, minitron-4b, qwen2.5-32b, h2o-danube-3-4b,
-internvl2-2b, mixtral-8x22b, deepseek-v2-lite-16b (MLA) and zamba2-2.7b
-(Mamba2 with a shared attention block) are registered; any other name
-raises saying it is not ported yet.
+with the modality frontend stub), the ``moe`` family, the ``hybrid``
+family and the ``ssm`` (xLSTM) family: granite-8b, minitron-4b,
+qwen2.5-32b, h2o-danube-3-4b, internvl2-2b, mixtral-8x22b,
+deepseek-v2-lite-16b (MLA), zamba2-2.7b (Mamba2 with a shared attention
+block) and xlstm-125m (mLSTM and sLSTM blocks, tied embeddings) are
+registered; any other name raises saying it is not ported yet.
 """
 from __future__ import annotations
 
@@ -66,15 +67,19 @@ _ARCH_MODULES = {
     "minitron-4b": "minitron_4b",
     "mixtral-8x22b": "mixtral_8x22b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "xlstm-125m": "xlstm_125m",
     "zamba2-2.7b": "zamba2_2_7b",
 }
 
 
+def ported_archs() -> list:
+    """The names :func:`get_arch` takes, sorted."""
+    return sorted(_ARCH_MODULES)
+
+
 def get_arch(name: str) -> ModelConfig:
     if name not in _ARCH_MODULES:
-        raise ValueError(
-            f"arch {name!r} is not ported yet; the port has {sorted(_ARCH_MODULES)}"
-        )
+        raise ValueError(f"arch {name!r} is not ported yet; the port has {ported_archs()}")
     return importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}"
     ).CONFIG

@@ -12,6 +12,10 @@ CLI (runs on the card; ``--device cpu`` runs the kernels' plain versions)::
       -m repro_torch.launch.train --arch granite-8b --smoke --workers 4 \\
       --batch 8 --seq 32 --device cpu [--overlap ring --bucket-words 4096]
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --smoke --steps 8 --batch 4 --seq 32 --lr 0.3 --compressor intsgd \\
+      --device cpu
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-32b \\
       --smoke --steps 8 --workers 4 --batch 4 --seq 32 --device cpu \\
       --ckpt-dir /path/to/ckpt [--resume]
@@ -39,8 +43,9 @@ the wire's. ``--layers N`` cuts the depth (full width kept). ``--overlap
 ring`` sends the integer wire in buckets of ``--bucket-words`` words.
 ``--arch`` takes the dense decoders granite-8b, minitron-4b, qwen2.5-32b
 and h2o-danube-3-4b, the moe family, mixtral-8x22b and
-deepseek-v2-lite-16b, and the hybrid zamba2-2.7b (``--smoke`` on the CPU,
-``--layers N`` on the card; zamba2's N a multiple of its attn_every, 9);
+deepseek-v2-lite-16b, the hybrid zamba2-2.7b and the xLSTM xlstm-125m
+(``--smoke`` on the CPU, ``--layers N`` on the card; zamba2's N a
+multiple of its attn_every, 9, xlstm's of its (m, m, s) block, 3);
 internvl2-2b (vlm) needs patch embeddings, which the
 synthetic token data does not carry: drive it with
 ``launch.step.build_train_step`` and ``launch.inputs.materialize_batch``.
@@ -59,7 +64,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
-from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
+from repro_torch.configs.base import ShapeConfig, get_arch, ported_archs, smoke_config
 from repro_torch.core.compressor import (
     compressor_names, leaf_seeds, make_compressor, with_wire,
 )
@@ -213,7 +218,8 @@ def _torchrun_rank():
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help=f"the config: {', '.join(ported_archs())}")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (width kept)")

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense, MoE and hybrid families (port of
+"""Decoder-only LM, dense, MoE, hybrid and xLSTM families (port of
 ``repro/models/transformer.py`` at tp = 1).
 
 Parameters are a flat dict of leaves, not ``nn.Module`` state, because the
@@ -27,7 +27,12 @@ layers (``models/ssm.py``) with two leading axes, ``(n_layers //
 attn_every, attn_every, ...)``, and after every ``attn_every`` of them
 applies one shared attention block to concat[h, embedding]: its
 ``shared_attn/*`` leaves exist once, so autograd sums their gradients over
-the blocks.
+the blocks. The ``ssm`` family (xlstm) stacks (mLSTM, mLSTM, sLSTM) blocks
+(``models/xlstm.py``) with one leading axis, ``(n_layers // 3, ...)``,
+each cell behind its RMSNorm (``m1``, ``m2``, ``s``). With
+``tie_embeddings`` (any family) there is no ``lm_head`` leaf: the head is
+``embed``'s transpose, and autograd sums ``embed``'s gradient over the
+lookup and the head.
 """
 from __future__ import annotations
 
@@ -45,10 +50,10 @@ from repro_torch.models.mla import DH_ROPE, mla_train
 from repro_torch.models.mlp import swiglu_mlp
 from repro_torch.models.moe import moe_tp
 from repro_torch.models.ssm import CONV_K, mamba2_train
+from repro_torch.models.xlstm import mlstm_train, slstm_train
 
 Tree = Dict[str, torch.Tensor]
 
-ATTN_BIASES = ("attn/bk", "attn/bq", "attn/bv")
 # leaves kept in float32 whatever the params' type (the JAX package's
 # ``_init_moe_layer`` makes the router float32)
 FLOAT32_LEAVES = ("layers/moe/router",)
@@ -56,22 +61,25 @@ FLOAT32_LEAVES = ("layers/moe/router",)
 # Mamba2 layers' (the JAX package's ``init_mamba2_params``)
 CONSTANT_INIT = {"ln": 1.0, "ln1": 1.0, "ln2": 1.0, "ln_f": 1.0, "norm_w": 1.0,
                  "d_skip": 1.0, "a_log": 0.0, "dt_bias": -4.0}
+# leaves that start at zeros: the QKV biases and the sLSTM's gate bias
+ZERO_INIT = ("attn/bk", "attn/bq", "attn/bv", "layers/s/cell/b")
 SSM_HEAD_DIM = 64  # the JAX package's ``Dims.ssm_head_dim``
+XLSTM_CELLS = ("m1", "m2", "s")  # one xLSTM block: (mLSTM, mLSTM, sLSTM)
 
 
 def _check_ported(cfg) -> None:
     missing = [
         what for what, on in (
-            (f"family {cfg.family!r}", cfg.family not in ("dense", "vlm", "moe", "hybrid")),
-            ("tied embeddings", cfg.tie_embeddings),
+            (f"family {cfg.family!r}",
+             cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm")),
             (f"the {cfg.frontend!r} frontend", cfg.frontend not in (None, "vit")),
         ) if on
     ]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            "the dense decoder family, its vlm frontend stub, the moe family "
-            "and the hybrid family)"
+            "the dense decoder family, its vlm frontend stub, the moe family, "
+            "the hybrid family and the ssm (xLSTM) family)"
         )
 
 
@@ -114,8 +122,16 @@ def _ssm_heads(cfg) -> int:
 
 
 def _layer_axes(cfg) -> tuple:
-    """The leading axes of the layer leaves: (n_layers,), or in the hybrid
-    family (n_layers // attn_every, attn_every)."""
+    """The leading axes of the layer leaves: (n_layers,), in the hybrid
+    family (n_layers // attn_every, attn_every), in the ssm family
+    (n_layers // 3,)."""
+    if cfg.family == "ssm":
+        if cfg.n_layers <= 0 or cfg.n_layers % len(XLSTM_CELLS):
+            raise ValueError(
+                f"{cfg.name}: n_layers {cfg.n_layers} is not a positive multiple of 3 "
+                "(the xLSTM layers stack in (m, m, s) blocks of 3: two mLSTM layers "
+                "and one sLSTM layer)")
+        return (cfg.n_layers // len(XLSTM_CELLS),)
     if cfg.family != "hybrid":
         return (cfg.n_layers,)
     if cfg.n_layers <= 0 or cfg.n_layers % cfg.attn_every:
@@ -128,8 +144,21 @@ def _layer_axes(cfg) -> tuple:
 
 def _layer_shapes(cfg) -> Dict[str, tuple]:
     """One layer's leaves, without the leading layer axes: a Mamba2 layer
-    in the hybrid family, else attention and the feed-forward."""
+    in the hybrid family, an (m, m, s) block in the ssm family, else
+    attention and the feed-forward."""
     d = cfg.d_model
+    if cfg.family == "ssm":
+        h, dh = cfg.n_heads, _head_dim(cfg)
+        dk = h * dh
+        mlstm = {"if_bias": (2 * h,), "norm_w": (dk,), "w_if": (d, 2 * h), "w_k": (d, dk),
+                 "w_out": (dk, d), "w_q": (d, dk), "w_v": (d, dk)}
+        slstm = {"b": (4 * dk,), "norm_w": (dk,), "r_h": (h, dh, 4 * dh), "w_in": (d, 4 * dk),
+                 "w_out": (dk, d)}
+        shapes = {}
+        for cell, leaves in (("m1", mlstm), ("m2", mlstm), ("s", slstm)):
+            shapes[f"{cell}/ln"] = (d,)
+            shapes.update({f"{cell}/cell/{k}": s for k, s in leaves.items()})
+        return shapes
     if cfg.family == "hybrid":
         n, h = cfg.ssm_state, _ssm_heads(cfg)
         di = h * SSM_HEAD_DIM
@@ -149,7 +178,9 @@ def param_shapes(cfg) -> Dict[str, tuple]:
     lead = _layer_axes(cfg)
     shapes = {"embed": (cfg.vocab, d)}
     shapes.update({f"layers/{k}": (*lead, *s) for k, s in _layer_shapes(cfg).items()})
-    shapes.update({"lm_head": (d, cfg.vocab), "ln_f": (d,)})
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab)
+    shapes["ln_f"] = (d,)
     if cfg.family == "hybrid":  # the shared attention block, once
         shared = {f"attn/{k}": s for k, s in _attn_shapes(cfg).items()}
         shared.update({"ln": (2 * d,), "ln2": (d,), "w_in": (2 * d, d), **_ffn_shapes(cfg)})
@@ -167,7 +198,9 @@ def init_lm_params(cfg, *, generator: torch.Generator, device,
                    dtype=torch.float32) -> Tree:
     """Random weights from ``generator`` (the JAX package's distributions:
     uniform ±1/√fan_in for matrices, fan_in their next-to-last axis; the
-    ``CONSTANT_INIT`` leaves filled; zeros for the QKV biases), on
+    ``CONSTANT_INIT`` leaves filled; zeros for the ``ZERO_INIT`` leaves;
+    each mLSTM's ``if_bias`` -2 for the input gates and 3 for the forget
+    gates of its heads), on
     ``device``, in ``dtype`` but the ``FLOAT32_LEAVES``. The
     JAX package draws an MoE layer's three expert matrices from one key,
     so its ``w_up`` equals its ``w_gate`` and its ``w_down`` holds the same
@@ -182,8 +215,11 @@ def init_lm_params(cfg, *, generator: torch.Generator, device,
         const = CONSTANT_INIT.get(name.rsplit("/", 1)[-1])
         if const is not None:
             params[name] = torch.full(shape, const, dtype=dt, device=device)
-        elif name.endswith(ATTN_BIASES):  # zeros, not fan-in L
+        elif name.endswith(ZERO_INIT):  # zeros, not fan-in L
             params[name] = torch.zeros(shape, dtype=dt, device=device)
+        elif name.endswith("cell/if_bias"):  # [-2]·H ++ [3]·H per block
+            params[name] = torch.full(shape, -2.0, dtype=dt, device=device)
+            params[name][..., shape[-1] // 2:] = 3.0
         else:
             fan_in = cfg.d_model if name == "embed" else shape[-2]
             params[name] = dense_init(
@@ -227,6 +263,16 @@ def _mamba_layer(lp, x, cfg):
                             head_dim=SSM_HEAD_DIM, d_state=cfg.ssm_state)
 
 
+def _xlstm_block(bp, x, cfg):
+    """One (mLSTM, mLSTM, sLSTM) block of the ssm family, each cell behind
+    its RMSNorm and added to the residual."""
+    kw = dict(n_heads=cfg.n_heads, head_dim=_head_dim(cfg))
+    for name, cell in zip(XLSTM_CELLS, (mlstm_train, mlstm_train, slstm_train)):
+        lp = _sub(bp, f"{name}/")
+        x = x + cell(_sub(lp, "cell/"), rmsnorm(x, lp["ln"]), **kw)
+    return x
+
+
 def _shared_attn_block(p, h, emb, positions, cfg):
     """The hybrid family's shared block: RMSNorm of concat[h, emb] over
     2·d_model, ``w_in`` back to d_model, attention (no window) and the
@@ -256,17 +302,21 @@ def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
     """Hidden states after the final norm: (B, T', d), T' counting the
     frontend's positions. In the hybrid family the shared attention block
     follows every ``attn_every`` Mamba2 layers, reading the embedded input
-    in the activation type beside h."""
+    in the activation type beside h; in the ssm family each step of the
+    loop is an (m, m, s) block."""
     _check_ported(cfg)
     x = _embed_inputs(params, batch, cfg).to(dtype)
     b, t = x.shape[:2]
     positions = torch.arange(t, device=x.device).expand(b, t)
-    n_lead = len(_layer_axes(cfg))
-    layers = {k: v.flatten(0, n_lead - 1).unbind(0) for k, v in _sub(params, "layers/").items()}
+    lead = _layer_axes(cfg)
+    layers = {k: v.flatten(0, len(lead) - 1).unbind(0)
+              for k, v in _sub(params, "layers/").items()}
     emb0, shared = x, _sub(params, "shared_attn/")
-    for i in range(cfg.n_layers):
+    for i in range(math.prod(lead)):
         lp = {k: v[i] for k, v in layers.items()}
-        if cfg.family == "hybrid":
+        if cfg.family == "ssm":
+            x = _xlstm_block(lp, x, cfg)
+        elif cfg.family == "hybrid":
             x = _mamba_layer(lp, x, cfg)
             if (i + 1) % cfg.attn_every == 0:
                 x = _shared_attn_block(shared, x, emb0, positions, cfg)
@@ -277,11 +327,13 @@ def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
 
 def lm_loss(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
     """Mean next-token cross entropy over labelled positions (float32); with
-    the vit frontend only the text positions carry labels."""
+    the vit frontend only the text positions carry labels. With tied
+    embeddings the head is ``embed``'s transpose."""
     h = lm_forward(params, batch, cfg, dtype)
     if cfg.frontend == "vit":
         h = h[:, -batch["tokens"].shape[1]:]
-    logits = (h @ params["lm_head"].to(h.dtype)).to(torch.float32)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (h @ head.to(h.dtype)).to(torch.float32)
     labels = batch["labels"]
     per_tok = cross_entropy(logits, labels)
     mask = (labels >= 0).to(torch.float32)

@@ -724,6 +724,72 @@ def test_mamba2_on_the_card_matches_the_cpu(dev, t, chunk):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
 
 
+# the ssm family (xlstm smoke: one (m, m, s) block, tied embeddings) the same
+# way; at T = 512 the mLSTM runs two chunks of 256
+XLSTM_PATHS = {
+    "fused-sgd-bf16": (True, "sgd", torch.bfloat16, 32),
+    "zero1-adamw-t512": (False, "adamw", torch.float32, 512),
+}
+
+
+@pytest.mark.parametrize("route", list(XLSTM_PATHS))
+def test_xlstm_steps_on_the_card_match_the_cpu(dev, route):
+    """xlstm-125m's smoke config the same way as the dense configs' two
+    steps, at its smoke depth (n_layers 3: 24 leaves, no lm_head)."""
+    _config_steps_card_vs_cpu(dev, "xlstm-125m", *XLSTM_PATHS[route], layers=3)
+
+
+def _xlstm_cell_card_vs_cpu(dev, cell, t, **kw):
+    """One mLSTM or sLSTM cell at the smoke widths (4 heads of 16, d_model
+    64) in float32, forward and backward under a random cotangent, on the
+    card against the CPU (TF32 off, as the train step sets it): the output
+    to rtol 1e-4, atol 1e-5, each gradient to atol 1e-5 of its largest
+    |g|."""
+    from repro_torch.models import xlstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(9)
+    d, h, hd = 64, 4, 16
+    dk = h * hd
+    if cell == "mlstm":
+        shapes = {"w_q": (d, dk), "w_k": (d, dk), "w_v": (d, dk), "w_if": (d, 2 * h),
+                  "w_out": (dk, d)}
+        extra = dict(if_bias=torch.tensor([-2.0] * h + [3.0] * h) + torch.rand(2 * h, generator=g))
+        fn = xlstm.mlstm_train
+    else:
+        shapes = {"w_in": (d, 4 * dk), "r_h": (h, hd, 4 * hd), "w_out": (dk, d)}
+        extra = dict(b=torch.randn(4 * dk, generator=g) / 2)
+        fn = xlstm.slstm_train
+    p = {k: (torch.rand(s, generator=g) * 2 - 1) / s[-2] ** 0.5 for k, s in shapes.items()}
+    p.update(extra, norm_w=1.0 + torch.randn(dk, generator=g) / 5)
+    x = torch.randn(2, t, d, generator=g)
+    cot = torch.randn(2, t, d, generator=g)
+    outs = {}
+    for device in ("cpu", dev):
+        pp = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+        xx = x.to(device).requires_grad_(True)
+        out = fn(pp, xx, n_heads=h, head_dim=hd, **kw)
+        grads = torch.autograd.grad((out * cot.to(device)).sum(), [xx, *pp.values()])
+        outs[str(device)] = (out.detach().cpu(), [gr.cpu() for gr in grads])
+    (o_c, g_c), (o_g, g_g) = outs["cpu"], outs[str(dev)]
+    torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-5)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("t,chunk", [(64, 16), (512, 256)])
+def test_mlstm_on_the_card_matches_the_cpu(dev, t, chunk):
+    """mlstm_train in chunks of 16 over T = 64 (C and n carried across four
+    chunks) and two chunks of 256."""
+    _xlstm_cell_card_vs_cpu(dev, "mlstm", t, chunk=chunk)
+
+
+@pytest.mark.parametrize("t", [32, 200])
+def test_slstm_on_the_card_matches_the_cpu(dev, t):
+    """slstm_train over 32 and 200 time steps."""
+    _xlstm_cell_card_vs_cpu(dev, "slstm", t)
+
+
 def _config_steps_card_vs_cpu(dev, name, fused, opt_name, dtype, seq, layers=2):
     import dataclasses
 

@@ -92,10 +92,13 @@ def test_unported_model_features_raise():
     import dataclasses
 
     cfg = smoke_config(get_arch("granite-8b"))
-    for change, name in ((dict(family="ssm"), "family 'ssm'"),
-                         (dict(frontend="audio"), "the 'audio' frontend"),
-                         (dict(tie_embeddings=True), "tied embeddings")):
+    for change, name in ((dict(family="encdec"), "family 'encdec'"),
+                         (dict(frontend="audio"), "the 'audio' frontend")):
         with pytest.raises(NotImplementedError, match=f"{name}.*not ported yet"):
             param_shapes(dataclasses.replace(cfg, **change))
     with pytest.raises(ValueError, match="not ported yet"):
-        get_arch("xlstm-125m")
+        get_arch("seamless-m4t-medium")
+    # ported since: the ssm (xLSTM) family, tied embeddings, xlstm-125m
+    assert "lm_head" not in param_shapes(dataclasses.replace(cfg, tie_embeddings=True))
+    assert get_arch("xlstm-125m").family == "ssm"
+    param_shapes(smoke_config(get_arch("xlstm-125m")))
