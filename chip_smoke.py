@@ -231,6 +231,29 @@ Phases, each of which must pass for the exit code to be 0:
                both timed in turns; the loss at 12 layers, seq 512 (two
                mLSTM chunks, 512 sLSTM steps), float32, on the card against
                the CPU within 1e-3.
+ 20. encdec family — seamless-m4t-medium at published width and full
+               depth, 12 encoder and 12 decoder layers (877,445,120 params
+               in 37 leaves, lm_head untied, the 262,354,944-element embed
+               and lm_head the largest), 4 workers, 4 steps, seq 2048
+               (2,048 audio frames of 160 and 2,048 target tokens a worker,
+               through build_train_step and materialize_batch as VlmRun
+               drives them), IntSGD on packed8, with every check of phases
+               3-8 (launch counts for its 37 leaves: 444 encodes a path):
+               seamless-fused-sgd (fused SGD, lr 0.3, bf16 params) and
+               seamless-zero1-adamw (ZeRO-1 AdamW, lr 3e-4, float32), their
+               peaks below 80 GB, their exact-step losses within 1e-2 of
+               each other (later steps printed: the optimizers differ); the
+               three logits GEMMs at the vocabulary of 256,206 against
+               256,208, timed in turns (printed); one encoder and one
+               decoder layer at full width timed by stage forward and
+               backward with CUDA events (LayerNorm, QKV and RoPE,
+               bidirectional and causal attention, out-projection, cross
+               attention's K/V projection and its attention, the GELU MLP;
+               the logits and the loss), each layer as trained with the
+               host's enqueue time beside the device time (printed); the
+               loss at 2 + 2 layers, seq 256, float32, on the card against
+               the CPU within 1e-3, the encoder states within 1e-4 of their
+               largest |h|.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -903,10 +926,12 @@ class EncodeSpy:
 
 
 class VlmRun:
-    """A config with a modality frontend (internvl2-2b) through the user
+    """A config with a modality frontend (internvl2-2b's patches, or the
+    encoder-decoder seamless-m4t-medium's audio frames) through the user
     entry points ``launch.step.build_train_step`` and
     ``launch.inputs.materialize_batch``, as ``train_loop`` runs the others:
-    weights from a seeded generator on the card, batch i from a generator
+    weights from a seeded generator on the card (``init_encdec_params`` for
+    the encoder-decoder, else ``init_lm_params``), batch i from a generator
     seeded with i, encode seeds from a host generator drawn once a step
     (``skip_seeds`` draws a resumed run's earlier ones)."""
 
@@ -915,6 +940,7 @@ class VlmRun:
         from repro_torch.core.compressor import leaf_seeds, make_compressor, with_wire
         from repro_torch.launch.step import build_init_state, build_train_step
         from repro_torch.launch.train import OPTIMIZERS
+        from repro_torch.models.encdec import init_encdec_params
         from repro_torch.models.transformer import init_lm_params
         from repro_torch.optim.schedules import constant, warmup_wrap
         from repro_torch.wire import make_wire_format
@@ -929,8 +955,9 @@ class VlmRun:
             cfg, shape, n_workers=n_workers, compressor=comp, base_opt=base_opt,
             lr_schedule=warmup_wrap(constant(lr), 5), param_dtype=param_dtype, fused=fused,
             clip_norm=1.0, microbatches=microbatches, device=device)
-        self.params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(
-            seed), device=device, dtype=param_dtype)
+        init = init_encdec_params if cfg.family == "encdec" else init_lm_params
+        self.params = init(cfg, generator=torch.Generator(device=device).manual_seed(seed),
+                           device=device, dtype=param_dtype)
         self.opt_state, self.comp_state = build_init_state(
             self.params, n_workers=n_workers, compressor=comp, base_opt=base_opt, fused=fused)
         self.seed_gen = torch.Generator().manual_seed(seed)
@@ -1914,23 +1941,25 @@ def pin_check(torch, ops, checks, device) -> collections.Counter:
     return launches
 
 
-def vocab_probe(torch, device) -> None:
-    """Where internvl2's step goes: its logits GEMM (2048 tokens x 2048 ->
-    92,553 in bf16, forward and the two backward products) against the same
-    with the vocabulary padded to 92,560 (rows of 16-byte multiples), timed
-    in turns. Printed."""
+def vocab_probe(torch, device, vocab=92553, d_model=2048, tokens=2048) -> None:
+    """Where a misaligned vocabulary's step goes: the logits GEMM (``tokens``
+    x ``d_model`` -> ``vocab`` in bf16, forward and the two backward
+    products) against the same with the vocabulary padded to a multiple of
+    8 (rows of 16-byte multiples), timed in turns. Printed. By default
+    internvl2-2b's: 2048 tokens x 2048 -> 92,553, padded to 92,560."""
+    padded = -(-vocab // 8) * 8
     gen = torch.Generator(device=device).manual_seed(3)
-    h = torch.randn(2048, 2048, generator=gen, device=device).to(torch.bfloat16)
-    out = {}
-    for v in (92553, 92560):
-        w = torch.randn(2048, v, generator=gen, device=device).to(torch.bfloat16)
-        g = torch.randn(2048, v, generator=gen, device=device).to(torch.bfloat16)
-        out[v] = (lambda h=h, w=w: h @ w, lambda g=g, w=w: g @ w.T, lambda g=g: h.T @ g)
+    h = torch.randn(tokens, d_model, generator=gen, device=device).to(torch.bfloat16)
+    out = []
+    for v in (vocab, padded):
+        w = torch.randn(d_model, v, generator=gen, device=device).to(torch.bfloat16)
+        g = torch.randn(tokens, v, generator=gen, device=device).to(torch.bfloat16)
+        out += [lambda h=h, w=w: h @ w, lambda g=g, w=w: g @ w.T, lambda g=g: h.T @ g]
     names = ("h @ W", "dL @ W^T", "h^T @ dL")
-    times = interleaved_ms(torch, [f for v in out for f in out[v]], rounds=4, batch=5)
+    times = interleaved_ms(torch, out, rounds=4, batch=5)
     for i, name in enumerate(names):
-        print(f"vocab-probe: {name}: vocab 92,553 {times[i]:.3f} ms, padded to 92,560 "
-              f"{times[i + 3]:.3f} ms", flush=True)
+        print(f"vocab-probe: {tokens} x {d_model} -> {name}: vocab {vocab:,} {times[i]:.3f} ms, "
+              f"padded to {padded:,} {times[i + 3]:.3f} ms", flush=True)
     del h, out
     torch.cuda.empty_cache()
 
@@ -2616,6 +2645,212 @@ def xlstm_family_phase(torch, ops, checks, device):
     return launches, bf16, histories, peaks
 
 
+# phase 20: the encdec family at published width and full depth, 4 workers,
+# 4 steps, IntSGD on packed8, seq 2048 (2,048 frames of 160 and 2,048 target
+# tokens a worker): (label, optimizer, lr, route). 12 encoder and 12 decoder
+# layers, 877,445,120 params in 37 leaves; embed and lm_head 262,354,944
+# elements each.
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_PATHS = (
+    ("seamless-fused-sgd", "sgd", 0.3, FUSED_BF16),
+    ("seamless-zero1-adamw", "adamw", 3e-4, dict(fused=False)),
+)
+ENCDEC_SEQ = 2048
+ENCDEC_LEAVES, ENCDEC_PARAMS = 37, 877_445_120
+ENCDEC_CPU_LAYERS, ENCDEC_CPU_SEQ = 2, 256  # 2 encoder + 2 decoder layers
+
+
+def encdec_card_cpu_f32(torch, checks, device, layers=ENCDEC_CPU_LAYERS,
+                        seq=ENCDEC_CPU_SEQ) -> None:
+    """seamless-m4t-medium at ``layers`` encoder and decoder layers, batch
+    1, seq ``seq``: the loss from the same float32 params and batch, in
+    float32 activations (TF32 off), on the card against the CPU's plain
+    path within 1e-3 relative; the encoder states within 1e-4 of their
+    largest |h|, the decoder's final states within 1e-3 of theirs."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch.inputs import materialize_batch
+    from repro_torch.models import encdec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(ENCDEC_ARCH), enc_layers=layers, dec_layers=layers)
+    params = encdec.init_encdec_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0), device=device)
+    batch = materialize_batch(cfg, ShapeConfig("card-cpu", seq, 1, "train"),
+                              torch.Generator(device=device).manual_seed(1), device)
+    f32 = dict(dtype=torch.float32)
+    out = {}
+    for where in ("card", "cpu"):
+        if where == "cpu":
+            params = {k: v.cpu() for k, v in params.items()}
+            batch = {k: v.cpu() for k, v in batch.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            enc = encdec.encode(params, batch["frames"], cfg, **f32)
+            dec = encdec.decode_states(params, enc, batch["tokens"], cfg, **f32)
+            loss = encdec.encdec_loss(params, batch, cfg, **f32).item()
+        out[where] = (loss, enc.cpu(), dec.cpu(), time.perf_counter() - t0)
+    del params, batch
+    (card, e_card, d_card, _), (cpu, e_cpu, d_cpu, cpu_s) = out["card"], out["cpu"]
+    gap = abs(card - cpu) / abs(cpu)
+    checks.true(f"card-cpu {ENCDEC_ARCH} ({layers} + {layers} layers, seq {seq}, float32): "
+                f"loss on the card {card!r}, on the CPU {cpu!r}, relative gap {gap:.3g} < 1e-3",
+                math.isfinite(card) and gap < 1e-3)
+    for name, a, b, tol in (("encoder", e_card, e_cpu, 1e-4), ("decoder", d_card, d_cpu, 1e-3)):
+        dh, hmax = (a - b).abs().max().item(), b.abs().max().item()
+        checks.true(f"card-cpu {ENCDEC_ARCH}: {name} states differ by at most {dh:.3g} "
+                    f"(largest |h| {hmax:.3g}), < {tol:g} of it", dh < tol * hmax)
+    print(f"card-cpu {ENCDEC_ARCH}: the CPU forwards took {cpu_s:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+
+def encdec_layer_split(torch, device) -> None:
+    """Where one seamless-m4t-medium encoder layer and one decoder layer
+    spend their time (published width, bf16 params and activations, one
+    worker's 2,048 frames and 2,048 tokens): each stage forward and backward
+    with CUDA events (LayerNorm, QKV and RoPE, bidirectional or causal
+    attention, out-projection; the decoder's cross attention K/V projection
+    and its attention; the GELU MLP), the logits (2,048 x 1,024 -> 256,206)
+    and the loss, then each layer as trained with the host's enqueue time
+    beside the device time. Printed."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import encdec
+    from repro_torch.models.attention import gqa_attend
+    from repro_torch.models.common import cross_entropy, layernorm, rope
+    from repro_torch.models.mlp import gelu_mlp
+
+    cfg = dataclasses.replace(get_arch(ENCDEC_ARCH), enc_layers=1, dec_layers=1)
+    params = encdec.init_encdec_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0), device=device,
+        dtype=torch.bfloat16)
+    layer = lambda stack: {k[len(stack) + 1:]: v[0].detach().requires_grad_(True)
+                           for k, v in params.items() if k.startswith(stack + "/")}
+    enc, dec = layer("enc_layers"), layer("dec_layers")
+    head = params["lm_head"].detach().requires_grad_(True)
+    del params
+    gen = torch.Generator(device=device).manual_seed(5)
+    b, t, d, dh = 1, ENCDEC_SEQ, cfg.d_model, cfg.head_dim
+    rand = lambda: torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+    x, enc_out, grad_out = rand().requires_grad_(True), rand().requires_grad_(True), rand()
+    pos = torch.arange(t, device=device).expand(b, t)
+    heads = lambda y: y.reshape(b, t, -1, dh)
+    ln = lambda z, w, bias: (layernorm(z, w, bias),)
+    qkv = lambda z, wq, wk, wv: (rope(heads(z @ wq), pos), rope(heads(z @ wk), pos),
+                                 heads(z @ wv))
+    attend = lambda causal: lambda q, k, v: (gqa_attend(q, k, v, causal=causal),)
+    residual = lambda a, wo, h: (h + a @ wo,)
+    mlp = lambda z, w_in, b_in, w_out, b_out, h: (
+        h + gelu_mlp(dict(w_in=w_in, b_in=b_in, w_out=w_out, b_out=b_out), z),)
+    mlp_in = ("mlp/w_in", "mlp/b_in", "mlp/w_out", "mlp/b_out")
+    enc_stages = (
+        ("layernorm", ln, ("x", "ln1/w", "ln1/b"), ("z",)),
+        ("qkv and rope", qkv, ("z", "attn/wq", "attn/wk", "attn/wv"), ("q", "k", "v")),
+        ("bidirectional attention", attend(False), ("q", "k", "v"), ("a",)),
+        ("out-projection", residual, ("a", "attn/wo", "x"), ("h",)),
+        ("layernorm 2", ln, ("h", "ln2/w", "ln2/b"), ("z2",)),
+        ("gelu mlp", mlp, ("z2", *mlp_in, "h"), ("out",)),
+    )
+    dec_stages = (
+        ("layernorm", ln, ("x", "ln1/w", "ln1/b"), ("z",)),
+        ("qkv and rope", qkv, ("z", "self_attn/wq", "self_attn/wk", "self_attn/wv"),
+         ("q", "k", "v")),
+        ("causal attention", attend(True), ("q", "k", "v"), ("a",)),
+        ("out-projection", residual, ("a", "self_attn/wo", "x"), ("h",)),
+        ("layernorm x", ln, ("h", "ln_x/w", "ln_x/b"), ("zx",)),
+        ("cross k/v projection", lambda e, wk, wv: (heads(e @ wk), heads(e @ wv)),
+         ("enc_out", "cross_attn/wk", "cross_attn/wv"), ("ck", "cv")),
+        ("cross attention", lambda zx, wq, ck, cv: (
+            gqa_attend(heads(zx @ wq), ck, cv, causal=False),),
+         ("zx", "cross_attn/wq", "ck", "cv"), ("ca",)),
+        ("cross out-projection", residual, ("ca", "cross_attn/wo", "h"), ("h2",)),
+        ("layernorm 2", ln, ("h2", "ln2/w", "ln2/b"), ("z2",)),
+        ("gelu mlp", mlp, ("z2", *mlp_in, "h2"), ("out",)),
+    )
+    labels = torch.randint(0, cfg.vocab, (b, t), generator=gen, device=device)
+    head_stages = (
+        ("logits", lambda hd, w: ((hd @ w).to(torch.float32),), ("hd", "lm_head"), ("logits",)),
+        ("loss", lambda logits: (cross_entropy(logits, labels).mean(),), ("logits",),
+         ("loss",)),
+    )
+    for name, stages, env, out_name, g in (
+            ("encoder", enc_stages, dict(enc, x=x), "out", grad_out),
+            ("decoder", dec_stages, dict(dec, x=x, enc_out=enc_out), "out", grad_out),
+            ("head", head_stages, dict(hd=x, lm_head=head), "loss",
+             torch.ones((), device=device))):
+        med = stage_times(torch, stages, env, out_name, g, reps=3)
+        total = sum(med.values())
+        attn = sum(v for k, v in med.items() if "attention" in k)
+        print(f"{name} {ENCDEC_ARCH} ({t} tokens, {cfg.n_heads} heads of {dh}): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+              + f"; stages {total:.3f} ms forward+backward"
+              + (f", attention {attn:.3f} ms ({100 * attn / total:.1f} %)" if attn else ""),
+              flush=True)
+    for name, fn, args in (
+            ("encoder", lambda x, *_: encdec.encoder_layer(enc, x, pos, cfg), [x, *enc.values()]),
+            ("decoder", lambda x, e, *_: encdec.decoder_layer(dec, x, e, pos, cfg),
+             [x, enc_out, *dec.values()])):
+        dev_ms, host_ms = fwd_bwd_ms(torch, fn, args, grad_out, reps=3)
+        waits = ": the card waits on the host" if host_ms >= 0.9 * dev_ms else ""
+        print(f"{name} layer as trained: device {dev_ms:.3f} ms, host enqueue {host_ms:.3f} ms "
+              f"forward+backward (host/device {host_ms / dev_ms:.2f}{waits})", flush=True)
+    del enc, dec, head, x, enc_out
+    torch.cuda.empty_cache()
+
+
+def encdec_family_phase(torch, ops, checks, device):
+    """Phase 20: seamless-m4t-medium's paths through the user entry points
+    (``build_train_step`` and ``materialize_batch``, as ``VlmRun`` drives
+    them) at published width and full depth, with every check of
+    ``train_phase``; the two routes' exact-step losses against each other;
+    the logits GEMMs at the vocabulary of 256,206 against an aligned one;
+    one encoder and one decoder layer timed by stage; card against CPU.
+    Returns the paths' launch counts and bf16-variant counts, their
+    histories and peaks."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.encdec import param_shapes
+
+    cfg = get_arch(ENCDEC_ARCH)
+    shapes = param_shapes(cfg)
+    size = sum(math.prod(v) for v in shapes.values())
+    checks.true(f"{ENCDEC_ARCH}: {len(shapes)} leaves (expected {ENCDEC_LEAVES}), {size} params "
+                f"(expected {ENCDEC_PARAMS}), lm_head untied",
+                len(shapes) == ENCDEC_LEAVES and size == ENCDEC_PARAMS and "lm_head" in shapes)
+    launches, bf16 = collections.Counter(), collections.Counter()
+    histories, peaks = {}, {}
+    for label, opt, lr, route in ENCDEC_PATHS:
+        t0 = time.perf_counter()
+        counts, histories[label], peaks[label] = train_phase(
+            torch, ops, checks, device, label=label, layers=cfg.n_layers, steps=4, opt=opt,
+            comp="intsgd", wire="packed8", lr=lr, arch=ENCDEC_ARCH, seq=ENCDEC_SEQ, **route)
+        launches.update(counts)
+        bf16.update(ops.bf16_launch_counts())
+        encodes = ENCDEC_LEAVES * N_WORKERS * 3
+        checks.true(f"{label}: {counts['int_compress']} encodes ({ENCDEC_LEAVES} leaves x "
+                    f"{N_WORKERS} workers x 3 compressed steps = {encodes})",
+                    counts["int_compress"] == encodes)
+        checks.true(f"{label}: peak {peaks[label]:.1f} GiB below the card's 80 GB",
+                    peaks[label] * 2**30 < CARD_BYTES)
+        print(f"{label}: {time.perf_counter() - t0:.1f}s", flush=True)
+    # the exact step 0 runs the same weights (bf16 against float32) on the
+    # same batch; after it the routes' optimizers differ (SGD, AdamW), so
+    # their later losses are printed, not held
+    (fused, f_hist), (zero1, z_hist) = histories.items()
+    for i, (f, z) in enumerate(zip(f_hist, z_hist)):
+        print(f"cross-route {ENCDEC_ARCH}: step {i}: {fused} loss {f['loss']!r}, {zero1} loss "
+              f"{z['loss']!r}, relative gap {abs(f['loss'] - z['loss']) / abs(z['loss']):.3g}",
+              flush=True)
+    gap = abs(f_hist[0]["loss"] - z_hist[0]["loss"]) / abs(z_hist[0]["loss"])
+    checks.true(f"cross-route {ENCDEC_ARCH}: step 0 losses within 1e-2 relative ({gap:.3g})",
+                gap < 1e-2)
+    vocab_probe(torch, device, vocab=cfg.vocab, d_model=cfg.d_model, tokens=ENCDEC_SEQ)
+    t0 = time.perf_counter()
+    encdec_layer_split(torch, device)
+    print(f"encdec layer split: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    encdec_card_cpu_f32(torch, checks, device)
+    print(f"encdec card-cpu: {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, bf16, histories, peaks
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -2752,6 +2987,17 @@ def main() -> None:
         print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
               f"peak {xl_peaks[label]:.1f} GiB", flush=True)
     print(f"xlstm family phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 20. the encdec family at published width and full depth
+    t0 = time.perf_counter()
+    counts, b16, ed_hist, ed_peaks = encdec_family_phase(torch, ops, checks, device)
+    for name, c in counts.items():
+        launches[name] += c
+    bf16_launches.update(b16)
+    for label, h in ed_hist.items():
+        print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
+              f"peak {ed_peaks[label]:.1f} GiB", flush=True)
+    print(f"encdec family phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

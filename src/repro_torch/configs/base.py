@@ -3,11 +3,12 @@ port keeps its own copy — it imports nothing from the JAX package).
 
 The port runs the dense decoder family (its ``vlm`` member, internvl2-2b,
 with the modality frontend stub), the ``moe`` family, the ``hybrid``
-family and the ``ssm`` (xLSTM) family: granite-8b, minitron-4b,
-qwen2.5-32b, h2o-danube-3-4b, internvl2-2b, mixtral-8x22b,
+family, the ``ssm`` (xLSTM) family and the ``encdec`` family: granite-8b,
+minitron-4b, qwen2.5-32b, h2o-danube-3-4b, internvl2-2b, mixtral-8x22b,
 deepseek-v2-lite-16b (MLA), zamba2-2.7b (Mamba2 with a shared attention
-block) and xlstm-125m (mLSTM and sLSTM blocks, tied embeddings) are
-registered; any other name raises saying it is not ported yet.
+block), xlstm-125m (mLSTM and sLSTM blocks, tied embeddings) and
+seamless-m4t-medium (encoder-decoder, the audio frontend stub) are
+registered, all ten of the JAX package's configs.
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ _ARCH_MODULES = {
     "minitron-4b": "minitron_4b",
     "mixtral-8x22b": "mixtral_8x22b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "xlstm-125m": "xlstm_125m",
     "zamba2-2.7b": "zamba2_2_7b",
 }

@@ -27,6 +27,19 @@ _MASK = 0xFFFFFFFF
 _LANE_BITS = {torch.int8: 8, torch.int16: 16, torch.int32: 32}
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of float32 ``x``, as the
+    kernels' IEEE ``sqrtf``. On the CPU it goes through float64 (53 >= 2·24
+    + 2 bits, so rounding the float64 root to float32 is exact rounding):
+    the CPU's float32 ``torch.sqrt`` is not correctly rounded, and which
+    elements it misses changes from process to process. On the card
+    ``torch.sqrt`` is IEEE already, and a float64 copy of a leaf would cost
+    memory and time."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def wrap_int(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """int64 -> the signed integer ``dtype`` (int8, int16 or int32),
     keeping its low bits (two's complement): what a sum in that lane type
@@ -198,7 +211,7 @@ def fused_adamw_ref(
     g = clip * g_agg
     new_m = b1 * mu.to(torch.float32) + omb1 * g
     new_v = b2 * nu.to(torch.float32) + omb2 * g * g
-    step = (new_m / bc1) / (torch.sqrt(new_v / bc2) + eps)
+    step = (new_m / bc1) / (sqrt_rn(new_v / bc2) + eps)
     new_p = p32 - lr * (step + wd * p32)
     out = (new_p.to(param.dtype), new_m.to(mu.dtype), new_v.to(nu.dtype))
     return out if shift is None else (*out, g_agg.to(shift.dtype))

@@ -1,10 +1,11 @@
 """Every model input of a train step: names, shapes and types, and a random
 batch of them (port of ``repro/launch/inputs.py``).
 
-For the ``vlm`` family the modality frontend is a stub, as in the JAX
-package: the batch carries precomputed patch embeddings of the frontend's
-width, bf16, and the text is ``n_frontend_tokens`` shorter than the
-shape's sequence.
+For the ``vlm`` family and the ``encdec`` family's audio the modality
+frontend is a stub, as in the JAX package: the batch carries precomputed
+patch or frame embeddings of the frontend's width, bf16. A vlm's text is
+``n_frontend_tokens`` shorter than the shape's sequence; an encdec's
+target is as long as its source (the JAX package's documented choice).
 """
 from __future__ import annotations
 
@@ -22,11 +23,13 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
                 kind: str = "train") -> Dict[str, Tuple[tuple, torch.dtype]]:
     """name -> (shape, dtype) of the batch a step of ``cfg`` takes at
     ``shape`` (global batch)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encdec inputs (frames) are not ported yet; they wait "
-            "for models/encdec.py")
     b, t = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        specs = {"frames": ((b, t, cfg.frontend_dim), torch.bfloat16)}
+        if kind == "train":  # teacher forced, target length = source length
+            specs["tokens"] = ((b, t), TOKEN_DTYPE)
+            specs["labels"] = ((b, t), TOKEN_DTYPE)
+        return specs
     t_text = t - cfg.n_frontend_tokens if cfg.frontend == "vit" else t
     specs = {"tokens": ((b, t_text), TOKEN_DTYPE)}
     if cfg.frontend == "vit":
@@ -41,7 +44,7 @@ def materialize_batch(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Gen
                       device, kind: str = "train") -> Dict[str, torch.Tensor]:
     """A random batch with :func:`input_specs`' structure, on ``device``
     (``generator`` on the same device): token ids uniform in [0, vocab),
-    patch embeddings standard normal cast to bf16. The labels are the
+    patch or frame embeddings standard normal cast to bf16. The labels are the
     tokens themselves, as in the JAX package, which draws both from one
     key."""
     out = {}

@@ -56,6 +56,7 @@ from repro_torch.core.compressor import (
 )
 from repro_torch.core.stats import TreeDims, local_dx_stats, scale_dx_stats
 from repro_torch.kernels import ops
+from repro_torch.models import encdec
 from repro_torch.models.transformer import lm_loss, param_shapes
 from repro_torch.optim import base as optb
 from repro_torch.optim.base import Optimizer
@@ -87,9 +88,17 @@ class StepArtifacts:
     layout: Layout
 
 
+def _loss_fn_for(cfg: ModelConfig):
+    return encdec.encdec_loss if cfg.family == "encdec" else lm_loss
+
+
+def _param_shapes_for(cfg: ModelConfig):
+    return encdec.param_shapes(cfg) if cfg.family == "encdec" else param_shapes(cfg)
+
+
 def _forward_backward(layout: Layout, params: Tree, batch):
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = lm_loss(leaves, batch, layout.cfg, dtype=torch.bfloat16)
+    loss = _loss_fn_for(layout.cfg)(leaves, batch, layout.cfg, dtype=torch.bfloat16)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
@@ -484,7 +493,7 @@ def build_train_step(
                 f"{n_workers} workers) is not divisible into "
                 f"{microbatches} microbatches"
             )
-    shapes = param_shapes(cfg)
+    shapes = _param_shapes_for(cfg)
     # port of specs.global_tree_dims at tp = 1
     dims = TreeDims(
         d=sum(math.prod(s) for s in shapes.values()),

@@ -131,9 +131,10 @@ def train_loop(
     of the steps before it are drawn and dropped, so step s takes the seeds
     an uninterrupted run takes (the JAX package folds the step into its key
     instead)."""
-    if cfg.frontend is not None:
+    if cfg.frontend is not None:  # the JAX CLI's init_lm_params refuses encdec too
         raise ValueError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend takes patch embeddings, which "
+            f"{cfg.name}: the {cfg.frontend!r} frontend takes "
+            f"{'frame' if cfg.frontend == 'audio' else 'patch'} embeddings, which "
             "the synthetic token data does not carry; drive it with "
             "launch.step.build_train_step and launch.inputs.materialize_batch")
     device = resolve_device(device)

@@ -1,6 +1,9 @@
 """Causal GQA self-attention, train path (port of
 ``repro/models/attention.py::attention_train`` at tp = 1), with the optional
-QKV bias and sliding window of the JAX package.
+QKV bias and sliding window of the JAX package, and the unmasked,
+non-causal case of its ``_chunked_attn`` (``causal=False`` masks only
+padding) that the encoder-decoder's bidirectional encoder and its cross
+attention take, the latter with Tq != Tk (:func:`gqa_attend`).
 
 The JAX package computes attention with a chunked online softmax in plain
 XLA code (``_chunked_attn``), not a Pallas kernel, in float32 whatever the
@@ -35,16 +38,34 @@ def window_mask(t: int, window: int, device) -> torch.Tensor:
 
 
 def sdpa_f32(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
-             attn_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Causal attention (or under ``attn_mask``) of float32 (B, H, T, E)
-    q, k and (B, H, T, Ev) v at scale 1/√E; on the card pinned to the
-    memory-efficient backend, which raises rather than fall back."""
+             attn_mask: torch.Tensor | None = None, *, causal: bool = True) -> torch.Tensor:
+    """Attention of float32 (B, H, Tq, E) q, (B, H, Tk, E) k and (B, H, Tk,
+    Ev) v at scale 1/√E: causal, under ``attn_mask``, or with ``causal``
+    false and no mask every query over every key (Tq may differ from Tk);
+    on the card pinned to the memory-efficient backend, which raises rather
+    than fall back."""
     pin = (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if qf.device.type == "cuda"
            else contextlib.nullcontext())
     with pin:
         if attn_mask is None:
-            return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True)
+            return F.scaled_dot_product_attention(qf, kf, vf, is_causal=causal)
         return F.scaled_dot_product_attention(qf, kf, vf, attn_mask=attn_mask)
+
+
+def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+               window: int | None = None) -> torch.Tensor:
+    """q: (B, Tq, Hq, dh); k, v: (B, Tk, Hkv, dh) -> (B, Tq, Hq·dh) in q's
+    type, computed in float32. Query head h reads KV head h // group, the
+    JAX package's (Hkv, group) split of the query heads. Causal (with an
+    optional window) or, with ``causal`` false, unmasked."""
+    b, tq, hq, dh = q.shape
+    group = hq // k.shape[2]
+    qf = q.to(torch.float32).transpose(1, 2)
+    kf = k.to(torch.float32).transpose(1, 2).repeat_interleave(group, dim=1)
+    vf = v.to(torch.float32).transpose(1, 2).repeat_interleave(group, dim=1)
+    mask = None if window is None else window_mask(tq, window, q.device)
+    out = sdpa_f32(qf, kf, vf, mask, causal=causal)
+    return out.transpose(1, 2).reshape(b, tq, hq * dh).to(q.dtype)
 
 
 def attention_train(p, x: torch.Tensor, positions: torch.Tensor, *,
@@ -63,13 +84,4 @@ def attention_train(p, x: torch.Tensor, positions: torch.Tensor, *,
     q = rope(q.reshape(b, t, n_heads, head_dim), positions, rope_theta)
     k = rope(k.reshape(b, t, n_kv_heads, head_dim), positions, rope_theta)
     v = v.reshape(b, t, n_kv_heads, head_dim)
-    group = n_heads // n_kv_heads
-    # (B, H, T, dh) in float32; query head h reads KV head h // group, the
-    # JAX package's (Hkv, group) split of the query heads
-    qf = q.to(torch.float32).transpose(1, 2)
-    kf = k.to(torch.float32).transpose(1, 2).repeat_interleave(group, dim=1)
-    vf = v.to(torch.float32).transpose(1, 2).repeat_interleave(group, dim=1)
-    mask = None if window is None else window_mask(t, window, x.device)
-    out = sdpa_f32(qf, kf, vf, mask)
-    out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim).to(x.dtype)
-    return out @ p["wo"].to(x.dtype)
+    return gqa_attend(q, k, v, window=window) @ p["wo"].to(x.dtype)

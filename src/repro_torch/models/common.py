@@ -23,6 +23,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (x32 * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """The mean and the population variance in float32, then (x − mu)·
+    rsqrt(var + eps)·w + b in float32, cast to x's type."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
     """x: (..., T, H, dh); positions: (..., T) integer. The angle table is
     float32, computed in the JAX package's order."""

@@ -1,7 +1,8 @@
-"""SwiGLU MLP block (port of ``repro/models/mlp.py`` at tp = 1)."""
+"""SwiGLU and GELU MLP blocks (port of ``repro/models/mlp.py`` at tp = 1)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import swiglu
 
@@ -11,3 +12,14 @@ def swiglu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     return swiglu(g, u) @ p["w_down"].to(x.dtype)
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """p: {"w_in": (d, f), "b_in": (f,), "w_out": (f, d), "b_out": (d,)}; x:
+    (B, T, d). ``b_in`` is added in the activation type before the GELU,
+    ``b_out`` after ``w_out``. The GELU is the tanh approximation, the
+    default of ``jax.nn.gelu`` (the exact erf form differs by ~1e-3)."""
+    h = x @ p["w_in"].to(x.dtype)
+    h = F.gelu(h + p["b_in"].to(h.dtype), approximate="tanh")
+    out = h @ p["w_out"].to(x.dtype)
+    return out + p["b_out"].to(out.dtype)

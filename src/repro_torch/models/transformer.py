@@ -68,6 +68,14 @@ XLSTM_CELLS = ("m1", "m2", "s")  # one xLSTM block: (mLSTM, mLSTM, sLSTM)
 
 
 def _check_ported(cfg) -> None:
+    encdec = [what for what, on in ((f"family {cfg.family!r}", cfg.family == "encdec"),
+                                    (f"the {cfg.frontend!r} frontend", cfg.frontend == "audio"))
+              if on]
+    if encdec:  # the JAX package's init_lm_params raises for them too
+        raise ValueError(
+            f"{cfg.name}: {' and '.join(encdec)} is the encoder-decoder's, not the "
+            "decoder-only LM's: its params and loss are models/encdec.py's "
+            "(param_shapes, init_encdec_params, encdec_loss)")
     missing = [
         what for what, on in (
             (f"family {cfg.family!r}",
@@ -77,9 +85,10 @@ def _check_ported(cfg) -> None:
     ]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            "the dense decoder family, its vlm frontend stub, the moe family, "
-            "the hybrid family and the ssm (xLSTM) family)"
+            f"{cfg.name}: {', '.join(missing)} not ported yet (the port's "
+            "decoder-only LM runs the dense family, its vlm frontend stub, the moe "
+            "family, the hybrid family and the ssm (xLSTM) family; models/encdec.py "
+            "the encdec family)"
         )
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import sqrt_rn
 from repro_torch.optim.base import Optimizer
 
 
@@ -41,7 +42,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc2 = 1.0 - torch.pow(b2, t)
 
         def upd(k):
-            step = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
+            step = (mu[k] / bc1) / (sqrt_rn(nu[k] / bc2) + eps)
             return -lr * (step + weight_decay * params[k].to(torch.float32))
 
         return {k: upd(k) for k in grads}, {"mu": mu, "nu": nu, "count": count}

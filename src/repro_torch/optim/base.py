@@ -28,6 +28,7 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import sqrt_rn
 
 OptState = Any
 
@@ -154,7 +155,7 @@ def fused_reference_update(opt: Optimizer, ghat, params, opt_state, eta):
         g32 = ghat[k].to(torch.float32)
         m32 = b1 * opt_state["mu"][k].to(torch.float32) + omb1 * g32
         v32 = b2 * opt_state["nu"][k].to(torch.float32) + omb2 * torch.square(g32)
-        step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
+        step = (m32 / bc1) / (sqrt_rn(v32 / bc2) + eps)
         new_params[k] = (p32 - lr * (step + wd * p32)).to(p.dtype)
         new_mu[k], new_nu[k] = m32, v32
     return new_params, {"mu": new_mu, "nu": new_nu, **new_scalars}

@@ -790,6 +790,91 @@ def test_slstm_on_the_card_matches_the_cpu(dev, t):
     _xlstm_cell_card_vs_cpu(dev, "slstm", t)
 
 
+def test_sqrt_on_the_card_is_correctly_rounded(dev):
+    """``kernels.ref.sqrt_rn`` takes the plain AdamW passes' root through
+    float64 on the CPU only: on the card ``torch.sqrt`` of float32 must be
+    the correctly rounded root already (the fused kernels' ``sqrtf`` is),
+    bit-equal to the float64 root rounded to float32."""
+    from repro_torch.kernels.ref import sqrt_rn
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.cat([10.0 ** (torch.rand(1 << 20, generator=g) * 60 - 30),
+                   torch.rand(1 << 20, generator=g) * 1e-10]).to(dev)
+    got = sqrt_rn(x)
+    torch.testing.assert_close(got, torch.sqrt(x.double()).float(), rtol=0, atol=0)
+
+
+# the encdec family (seamless-m4t smoke: 2 encoder and 2 decoder layers, 37
+# leaves, the frames bf16) the same way
+ENCDEC_PATHS = {
+    "fused-sgd-bf16": (True, "sgd", torch.bfloat16, 32),
+    "zero1-adamw-t200": (False, "adamw", torch.float32, 200),
+}
+
+
+@pytest.mark.parametrize("route", list(ENCDEC_PATHS))
+def test_encdec_steps_on_the_card_match_the_cpu(dev, route):
+    """seamless-m4t-medium's smoke config the same way as the dense
+    configs' two steps (frames, tokens and labels from
+    ``materialize_batch``)."""
+    _config_steps_card_vs_cpu(dev, "seamless-m4t-medium", *ENCDEC_PATHS[route])
+
+
+@pytest.mark.parametrize("tq,tk", [(64, 200), (200, 64), (33, 33)])
+def test_unmasked_attention_on_the_card_matches_the_cpu(dev, tq, tk):
+    """``gqa_attend(causal=False)`` (the encoder's and the cross attention's
+    case, Tq != Tk) in float32 through the pinned memory-efficient SDPA on
+    the card against the CPU, forward and backward, 4 query heads on 2 KV
+    heads."""
+    from repro_torch.models.attention import gqa_attend
+
+    g = torch.Generator().manual_seed(10)
+    q = torch.randn(2, tq, 4, 64, generator=g)
+    k, v = (torch.randn(2, tk, 2, 64, generator=g) for _ in range(2))
+    cot = torch.randn(2, tq, 256, generator=g)
+    outs = {}
+    for device in ("cpu", dev):
+        args = [a.to(device).requires_grad_(True) for a in (q, k, v)]
+        out = gqa_attend(*args, causal=False)
+        grads = torch.autograd.grad((out * cot.to(device)).sum(), args)
+        outs[str(device)] = (out.detach().cpu(), [gr.cpu() for gr in grads])
+    (o_c, g_c), (o_g, g_g) = outs["cpu"], outs[str(dev)]
+    torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-5)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("seq", [24, 200])
+def test_encdec_loss_on_the_card_matches_the_cpu(dev, seq):
+    """seamless-m4t-medium's smoke model in float32 (TF32 off): the encoder
+    states within 1e-4 of their largest |h|, the loss within 1e-5
+    relative, and every gradient leaf within 1e-4 of its largest |g|, on
+    the card against the CPU."""
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
+    from repro_torch.launch.inputs import materialize_batch
+    from repro_torch.models import encdec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(get_arch("seamless-m4t-medium"))
+    params = encdec.init_encdec_params(cfg, generator=torch.Generator().manual_seed(0),
+                                       device="cpu")
+    batch = materialize_batch(cfg, ShapeConfig("t", seq, 2, "train"),
+                              torch.Generator().manual_seed(1), "cpu")
+    outs = {}
+    for device in ("cpu", dev):
+        p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+        b = {k: v.to(device) for k, v in batch.items()}
+        h = encdec.encode(p, b["frames"], cfg, torch.float32)
+        loss = encdec.encdec_loss(p, b, cfg, torch.float32)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        outs[str(device)] = (h.detach().cpu(), loss.item(), [gr.cpu() for gr in grads])
+    (h_c, l_c, g_c), (h_g, l_g, g_g) = outs["cpu"], outs[str(dev)]
+    assert float((h_g - h_c).abs().max()) < 1e-4 * float(h_c.abs().max())
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * max(float(b.abs().max()), 1e-6))
+
+
 def _config_steps_card_vs_cpu(dev, name, fused, opt_name, dtype, seq, layers=2):
     import dataclasses
 
@@ -797,6 +882,7 @@ def _config_steps_card_vs_cpu(dev, name, fused, opt_name, dtype, seq, layers=2):
     from repro_torch.core.compressor import leaf_seeds, make_compressor
     from repro_torch.launch.inputs import materialize_batch
     from repro_torch.launch.step import build_init_state, build_train_step
+    from repro_torch.models.encdec import init_encdec_params
     from repro_torch.models.transformer import init_lm_params
     from repro_torch.optim.adamw import adamw
     from repro_torch.optim.sgd import sgd
@@ -806,8 +892,8 @@ def _config_steps_card_vs_cpu(dev, name, fused, opt_name, dtype, seq, layers=2):
     shape = ShapeConfig("t", seq, 2 * n, "train")
     comp = make_compressor("intsgd8_packed")
     opt = sgd(momentum=0.9, weight_decay=1e-4) if opt_name == "sgd" else adamw(weight_decay=1e-4)
-    params0 = init_lm_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu",
-                             dtype=dtype)
+    init = init_encdec_params if cfg.family == "encdec" else init_lm_params
+    params0 = init(cfg, generator=torch.Generator().manual_seed(0), device="cpu", dtype=dtype)
     n_leaves = len(params0)
     batches = [materialize_batch(cfg, shape, torch.Generator().manual_seed(i), "cpu")
                for i in range(2)]

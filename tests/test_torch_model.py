@@ -92,12 +92,17 @@ def test_unported_model_features_raise():
     import dataclasses
 
     cfg = smoke_config(get_arch("granite-8b"))
+    # the decoder-only LM refuses the encoder-decoder's family and frontend,
+    # as the JAX package's init_lm_params does, naming models/encdec.py
     for change, name in ((dict(family="encdec"), "family 'encdec'"),
                          (dict(frontend="audio"), "the 'audio' frontend")):
-        with pytest.raises(NotImplementedError, match=f"{name}.*not ported yet"):
+        with pytest.raises(ValueError, match=f"{name}.*models/encdec.py"):
             param_shapes(dataclasses.replace(cfg, **change))
-    with pytest.raises(ValueError, match="not ported yet"):
-        get_arch("seamless-m4t-medium")
+    # ported since: the encdec family, seamless-m4t-medium (models/encdec.py)
+    seamless = get_arch("seamless-m4t-medium")
+    assert (seamless.family, seamless.frontend) == ("encdec", "audio")
+    with pytest.raises(ValueError, match="models/encdec.py"):
+        param_shapes(seamless)
     # ported since: the ssm (xLSTM) family, tied embeddings, xlstm-125m
     assert "lm_head" not in param_shapes(dataclasses.replace(cfg, tie_embeddings=True))
     assert get_arch("xlstm-125m").family == "ssm"

@@ -107,6 +107,75 @@ def test_fused_reference_update_matches_jax(kind, count):
         assert int(tnew["count"]) == int(jnew["count"]) == count + 1
 
 
+def _root_f64(x):
+    """The correctly rounded float32 square root: through float64."""
+    return np.sqrt(x.astype(np.float64)).astype(np.float32)
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """``kernels.ref.sqrt_rn`` on the CPU equals numpy's float32 root
+    (IEEE, correctly rounded) bit for bit, over values from 1e-30 to 1e30
+    and the second moments' range."""
+    from repro_torch.kernels.ref import sqrt_rn
+
+    rng = np.random.default_rng(5)
+    x = np.concatenate([10.0 ** rng.uniform(-30, 30, 1 << 18),
+                        np.abs(rng.standard_normal(1 << 18)) * 1e-10]).astype(np.float32)
+    got = sqrt_rn(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.sqrt(x))
+
+
+@pytest.mark.parametrize("path", ["fused_reference_update", "fused_adamw_ref", "adamw_update"])
+def test_adamw_plain_passes_take_a_correctly_rounded_root(path):
+    """Each plain AdamW pass equals, bit for bit, the same float32 arithmetic
+    in numpy with the root taken through float64, on a fixed (300, 70)
+    input whose second moments are tiny (where an ULP of the root moves the
+    step most). The CPU's float32 ``torch.sqrt`` is not correctly rounded,
+    and which elements it gets wrong changes from process to process."""
+    from repro_torch.kernels.ref import fused_adamw_ref
+
+    rng = np.random.default_rng(2024)
+    f32 = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    p, g, mu = f32(300, 70, scale=0.02), f32(300, 70, scale=0.01), f32(300, 70, scale=1e-3)
+    nu = np.abs(f32(300, 70, scale=1e-5))
+    t = lambda a: torch.from_numpy(a)
+    opt = adamw(weight_decay=1e-4)
+    tail, _ = base.fused_step_scalars(opt, {"count": torch.tensor(7, dtype=torch.int32)},
+                                      torch.tensor(3e-4))
+    lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2 = (np.float32(v.item()) for v in tail)
+    if path == "fused_reference_update":
+        got, new = base.fused_reference_update(
+            opt, {"a": t(g)}, {"a": t(p)},
+            {"mu": {"a": t(mu)}, "nu": {"a": t(nu)}, "count": torch.tensor(7, dtype=torch.int32)},
+            torch.tensor(3e-4))
+        got, got_v = got["a"], new["nu"]["a"]
+        m, v = b1 * mu + omb1 * g, b2 * nu + omb2 * (g * g)
+        want = p - lr * ((m / bc1) / (_root_f64(v / bc2) + eps) + wd * p)
+    elif path == "fused_adamw_ref":
+        ints = rng.integers(-400, 400, (300, 70)).astype(np.int32)
+        inv = np.float32(2.5e-5)
+        got, _, got_v = fused_adamw_ref(t(ints), t(p), t(mu), t(nu), inv_nalpha=torch.tensor(inv),
+                                        **dict(zip(base.FUSED_SCALAR_TAIL["adamw"], tail)))
+        gg = ints.astype(np.float32) * inv
+        m, v = b1 * mu + omb1 * gg, b2 * nu + (omb2 * gg) * gg
+        want = p - lr * ((m / bc1) / (_root_f64(v / bc2) + eps) + wd * p)
+    else:
+        state = {"mu": {"a": t(mu)}, "nu": {"a": t(nu)}, "count": torch.tensor(7, dtype=torch.int32)}
+        upd, new = opt.update({"a": t(g)}, state, {"a": t(p)}, torch.tensor(3e-4))
+        got, got_v = upd["a"], new["nu"]["a"]
+        tb1, tb2 = np.float32(0.9), np.float32(0.95)
+        m = tb1 * mu + np.float32(1 - 0.9) * g
+        v = tb2 * nu + np.float32(1 - 0.95) * np.square(g)
+        tc = torch.tensor(8.0)  # the count after the step
+        c1 = np.float32((1.0 - torch.pow(0.9, tc)).item())
+        c2 = np.float32((1.0 - torch.pow(0.95, tc)).item())
+        want = -np.float32(3e-4) * ((m / c1) / (_root_f64(v / c2) + np.float32(1e-8))
+                                     + np.float32(1e-4) * p)
+    np.testing.assert_array_equal(got_v.numpy(), v)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_adamw_unfused_update_matches_jax():
     rng = np.random.default_rng(3)
     params, grads = _tree(rng, 0.02), _tree(rng, 0.01)

@@ -94,10 +94,17 @@ def _f32(tree):
     return {k: v.astype(np.float32) for k, v in tree.items()}
 
 
-def _jax_run(monkeypatch, jcfg, batches, fused, opt, lr, param_dtype):
-    """Steps 0 and 1 of the JAX package: its state before each step, the
-    outputs, the encode seeds, the gradients each step saw and step 1's
-    images."""
+def _jax_batch(b):
+    """A numpy batch as the JAX step takes it: ids int32, float leaves (an
+    encoder-decoder's frames) bf16, as ``input_specs`` declares them."""
+    return {k: jnp.asarray(v, jnp.bfloat16 if np.issubdtype(v.dtype, np.floating) else jnp.int32)
+            for k, v in b.items()}
+
+
+def _jax_run(monkeypatch, jcfg, batches, fused, opt, lr, param_dtype, init=init_lm_params):
+    """Steps 0 and 1 of the JAX package from ``init``'s params: its state
+    before each step, the outputs, the encode seeds, the gradients each
+    step saw and step 1's images."""
     grads, images = [], []
     fb, enc = jstep._forward_backward, JIntSGD.encode_ints
 
@@ -122,7 +129,7 @@ def _jax_run(monkeypatch, jcfg, batches, fused, opt, lr, param_dtype):
         clip_norm=1.0, donate=False,
     )
     key = jax.random.PRNGKey(0)
-    params = init_lm_params(key, jcfg, tp=1, n_shards=1, dtype=param_dtype)
+    params = init(key, jcfg, tp=1, n_shards=1, dtype=param_dtype)
     opt_state, comp_state = jstep.build_init_state(
         jcfg, mesh, compressor=comp, base_opt=base_opt, fused=fused)(params)
     states, outs, seeds = [], [], []
@@ -134,8 +141,7 @@ def _jax_run(monkeypatch, jcfg, batches, fused, opt, lr, param_dtype):
             _leaf_keys(wkey, states[-1][0]))])
         fn = art.jitted["exact"] if i == 0 else art.jitted["compressed"]
         params, opt_state, comp_state, loss, metrics = fn(
-            params, opt_state, comp_state, jnp.int32(i), k,
-            {kk: jnp.asarray(v, jnp.int32) for kk, v in b.items()})
+            params, opt_state, comp_state, jnp.int32(i), k, _jax_batch(b))
         jax.effects_barrier()
         outs.append((float(loss), float(metrics[0]), _flat(params)))
     assert len(grads) == 2 and len(images) == 1
