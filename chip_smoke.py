@@ -133,8 +133,8 @@ Phases, each of which must pass for the exit code to be 0:
                IntDIANA's max_local_int < 64 where IntGD's passes 1e4),
                then logreg at 12 workers x 4,096 rows, d = 300, 200 steps,
                within the 10 % band and timed; launch counts per run.
- 14. baselines — each baseline's aggregate at the largest 2-layer leaf
-               (2 x 4096 x 14336 = 117,440,512 elements), four workers'
+ 14. baselines — each baseline's aggregate at the largest 1-layer leaf
+               (4096 x 14336 = 58,720,256 elements), four workers'
                gradients from a seed, on the card and on CPU copies with
                the same seeds and state: Heuristic IntSGD's ĝ, NatSGD's
                exponents, signs and ĝ, TopK's indices, ĝ and error feedback
@@ -254,6 +254,48 @@ Phases, each of which must pass for the exit code to be 0:
                loss at 2 + 2 layers, seq 256, float32, on the card against
                the CPU within 1e-3, the encoder states within 1e-4 of their
                largest |h|.
+ 21. serve and runtime — the serve path and the runtime through their
+               entry points: granite-8b at published width and full depth
+               (36 layers, bf16 params, 8,254,689,280 of them) served by
+               serving.ServeEngine (4 slots, max_seq 128) to 6 requests of
+               4-7 prompt tokens and 16 new tokens (every request done,
+               every token in the vocabulary, one prompt's continuation the
+               same alone and beside a companion; iterations, ms a decode
+               step, tokens/s, peak GiB and one step's host enqueue over
+               its card time printed); the weight refresh over the integer
+               wire on it (each leaf's Δ = 1e-3·N(0, 1) encoded at α = 1000
+               on packed8 with int_compress and packed with pack_words, one
+               leaf at a time; apply_wire_delta launching unpack_words once
+               a leaf, its params bit-equal to the plain path applied to
+               the same words, chunk by chunk; its wire bytes and time
+               printed); at granite's width and 2 layers, float32: decoding
+               a 32-token prompt gives lm_forward's logits within 1e-4 of
+               the largest |logit|, 8 decode steps on the card give the
+               CPU's logits and caches within 1e-5 of their largest |value|,
+               and the refresh lands within 1/α + 1e-6 of Δ;
+               deepseek-v2-lite-16b at published width and full depth (27
+               layers, MLA's latent cache, 64 routed and 2 shared experts,
+               bf16) serving 4 requests of 8 new tokens with no (token,
+               expert) pair dropped (its latent cache's bytes a token beside
+               a GQA cache's, and ms a decode step, printed), and at 2
+               layers, float32, the first greedy token of 4 slots equal on
+               the card and the CPU; the straggler-tolerant sum
+               (runtime.straggler) of four workers' images of granite's 12
+               leaves at 4 layers (int_compress at the packed8 clip for n =
+               4), worker 2 late: packed8 and dense8 bit-equal, equal to the
+               int64 sum of the three alive images, unchanged when the dead
+               worker's image is in-range garbage, n_live 3, decode_partial
+               bit-equal to its plain expression, an all-dead round flagged
+               and finite, 48 pack_words and 12 unpack_words launches; and
+               the elastic re-plan and resume (runtime.elastic,
+               train_loop(resume=True)): granite's width at 2 layers, fused
+               SGD / IntSGD / packed8, float32, 4 workers for 4 steps with a
+               checkpoint at step 4 (a temporary directory under build/,
+               removed after), plan_after_failures(dp=4, failed [3]) giving
+               3 workers and clip limit 31->42, then 4 steps at 3 workers
+               from the checkpoint: losses finite, max_int <= 3·42, within
+               1e-2 of a fresh 3-worker loop from the restored state, every
+               run's launch counts exact.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -266,6 +308,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -1603,11 +1646,13 @@ def simulator_phase(torch, ops, checks, device) -> dict:
     return launches
 
 
-BASELINE_LEAF = (2, 4096, 14336)  # layers/mlp/w_* at 2 layers: 117,440,512 elements
+# layers/mlp/w_* at 1 layer: 58,720,256 elements (cut from 2 layers, whose CPU
+# side took ~130 s, to keep the script's phases under 840 s)
+BASELINE_LEAF = (1, 4096, 14336)
 
 
 def baseline_phase(torch, checks, device) -> None:
-    """Phase 14: each baseline's aggregate at the largest 2-layer leaf on
+    """Phase 14: each baseline's aggregate at the largest 1-layer leaf on
     the card and on CPU copies (same gradients, seeds and state), held as
     the module docstring says, with both times printed; then TopKInt's
     planes, and a tied image's top-k selection."""
@@ -2851,6 +2896,533 @@ def encdec_family_phase(torch, ops, checks, device):
     return launches, bf16, histories, peaks
 
 
+# phase 21: the serve path and the runtime at published width
+SERVE_ARCH, MLA_ARCH = "granite-8b", "deepseek-v2-lite-16b"
+SERVE_SLOTS, SERVE_MAX_SEQ = 4, 128
+SERVE_REQUESTS, SERVE_MAX_NEW = 6, 16
+MLA_REQUESTS, MLA_MAX_NEW = 4, 8
+REFRESH_ALPHA = 1000.0
+CHECK_LAYERS = 2  # granite's and deepseek's float32 checks, card and CPU
+TRAIN_DECODE_T, CARD_CPU_T = 32, 8
+STRAGGLER_LAYERS = 4  # the main path's leaves
+ELASTIC_SEQ = 512
+REFRESH_CHUNK_WORDS = 1 << 26  # the plain check's words at a time
+
+
+def host_card_ms(torch, fn, reps: int = 5):
+    """Medians of ``fn``'s host enqueue time (host clock until it returns)
+    and its card time (CUDA events around it), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    host, card = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        card.append(a.elapsed_time(b))
+    return statistics.median(host), statistics.median(card)
+
+
+def timed_steps(torch, eng) -> list:
+    """Wrap ``eng.step`` so that each decode step ends in a sync and its
+    host-clock ms is recorded in the returned list."""
+    times, real = [], eng.step
+
+    def step():
+        t0 = time.perf_counter()
+        out = real()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.step = step
+    return times
+
+
+def serve_requests(torch, eng, prompts, max_new):
+    """Submit the prompts, run the engine with its steps timed; (requests,
+    iterations, wall s, step ms)."""
+    from repro_torch.serving.engine import Request
+
+    steps = timed_steps(torch, eng)
+    reqs = [Request(rid=i, prompt=list(p), max_new=max_new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    try:
+        iters = eng.run()
+    finally:
+        del eng.step  # the wrapper refers to the engine: no cycle outlives the run
+    return reqs, iters, time.perf_counter() - t0, steps
+
+
+def serve_checks(checks, label, reqs, vocab) -> None:
+    checks.true(f"{label}: all {len(reqs)} requests done, every token in [0, {vocab})",
+                all(r.done for r in reqs)
+                and all(0 <= t < vocab for r in reqs for t in r.out))
+
+
+def serve_granite(torch, ops, checks, device, counts):
+    """granite-8b at full depth through ServeEngine, then the weight
+    refresh over the integer wire on it."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import prompts
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.utils.tree import tree_size
+
+    cfg = get_arch(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                            device=device, dtype=torch.bfloat16)
+    n_params = tree_size(params)
+    print(f"serve {SERVE_ARCH}: {cfg.n_layers} layers, {n_params} bf16 params, "
+          f"{SERVE_SLOTS} slots, max_seq {SERVE_MAX_SEQ}", flush=True)
+    ps = prompts(SERVE_REQUESTS, cfg.vocab)
+    eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+    reqs, iters, wall, steps = serve_requests(torch, eng, ps, SERVE_MAX_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tok = sum(len(r.out) for r in reqs)
+    host, card = host_card_ms(torch, lambda: ServeEngine.step(eng))
+    print(f"serve {SERVE_ARCH}: {len(reqs)} requests, {iters} engine iterations "
+          f"({wall / iters * 1e3:.2f} ms each on average), {len(steps)} decode steps (median "
+          f"{statistics.median(steps):.2f} ms, min {min(steps):.2f}, max {max(steps):.2f}; each "
+          f"synchronized), {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tokens/s), peak "
+          f"{peak:.2f} GiB; one step: host enqueue {host:.2f} ms, card {card:.2f} ms, host over "
+          f"card {host / card:.2f}", flush=True)
+    serve_checks(checks, f"serve {SERVE_ARCH}", reqs, cfg.vocab)
+    outs = []
+    for companion in (False, True):
+        e = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+        r = Request(rid=0, prompt=list(ps[0]), max_new=SERVE_MAX_NEW)
+        e.submit(r)
+        if companion:
+            e.submit(Request(rid=1, prompt=list(ps[1]), max_new=SERVE_MAX_NEW))
+        e.run()
+        outs.append(r.out)
+        del e
+    checks.true(f"serve {SERVE_ARCH}: request 0's {len(outs[0])} tokens the same alone and "
+                f"beside a companion (and {'the same' if outs[0] == reqs[0].out else 'not'} "
+                "as among 6)", outs[0] == outs[1])
+    refresh_full(torch, ops, checks, device, eng, params, counts)
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def refresh_words(torch, device, params, alpha, gen, keep=False):
+    """The trainer side: each leaf's Δ = 1e-3·N(0, 1), encoded at α for
+    n = 1 and packed8, one leaf at a time (Δ freed before the next unless
+    ``keep``); returns the codec, the words and the kept Δs."""
+    from repro_torch.wire import PackedInt
+
+    wf = PackedInt(bits=8)
+    words, deltas = {}, {}
+    seeds = torch.randint(-(2**31), 2**31, (len(params),), generator=torch.Generator()
+                          .manual_seed(11), dtype=torch.int64).to(torch.int32).to(device)
+    for i, (k, p) in enumerate(params.items()):
+        delta = torch.randn(p.shape, generator=gen, device=device).mul_(1e-3)
+        ints = wf.encode(delta, alpha, seeds[i], n_workers=1)
+        words[k] = wf.pack(ints, n_workers=1)
+        if keep:
+            deltas[k] = delta
+        del ints, delta
+    return wf, words, deltas
+
+
+def refresh_equal_plain(torch, ops, old, words, new, alpha) -> bool:
+    """``new`` == (old.float() + unpack_plain(words) / (1·α)).to(old's
+    type), bit for bit, the plain unpack taken ``REFRESH_CHUNK_WORDS`` words
+    at a time (word w holds elements j·m + w, j < 4)."""
+    k, m, d = 4, words.numel(), old.numel()
+    of, nf = old.reshape(-1), new.reshape(-1)
+    for w0 in range(0, m, REFRESH_CHUNK_WORDS):
+        c = min(m, w0 + REFRESH_CHUNK_WORDS) - w0
+        ints = ops.unpack_words.plain(words[w0:w0 + c], (k * c,), bits=8, n_summed=1)
+        for j in range(k):
+            lo, hi = j * m + w0, min(j * m + w0 + c, d)
+            if hi <= lo:
+                continue
+            delta = ints[j * c:j * c + hi - lo].to(torch.float32) / (1 * alpha)
+            if not torch.equal(nf[lo:hi], (of[lo:hi].float() + delta).to(old.dtype)):
+                return False
+    return True
+
+
+def refresh_full(torch, ops, checks, device, eng, params, counts) -> None:
+    """The weight refresh on the full-depth engine: trainer side (encode
+    and pack, counted), engine side (apply_wire_delta, counted), the new
+    params against the plain path on the same words."""
+    alpha = torch.tensor(REFRESH_ALPHA, device=device)
+    n_leaves = len(params)
+    largest = max(p.numel() for p in params.values())
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    wf, words, _ = refresh_words(torch, device, params, alpha,
+                                 torch.Generator(device=device).manual_seed(7))
+    torch.cuda.synchronize()
+    t_trainer = time.perf_counter() - t0
+    trainer = ops.launch_counts()
+    counts.update(trainer)
+    nbytes = sum(w.numel() * w.element_size() for w in words.values())
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.apply_wire_delta(words, alpha, wf)
+    torch.cuda.synchronize()
+    t_apply = time.perf_counter() - t0
+    engine = ops.launch_counts()
+    counts.update(engine)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"refresh {SERVE_ARCH}: {n_leaves} leaves (largest {largest} elements), wire "
+          f"{nbytes} bytes of packed8 words (float32: {4 * sum(p.numel() for p in params.values())}"
+          f"); trainer side {t_trainer:.3f} s, apply_wire_delta {t_apply * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB; launches trainer {trainer}, engine {engine}", flush=True)
+    want_t = {k.name: 0 for k in ops.KERNELS}
+    want_e = dict(want_t)
+    want_t.update(int_compress=n_leaves, pack_words=n_leaves)
+    want_e.update(unpack_words=n_leaves)
+    checks.true(f"refresh {SERVE_ARCH}: launches {trainer} then {engine} (expected one "
+                "int_compress and one pack_words a leaf, then one unpack_words a leaf)",
+                trainer == want_t and engine == want_e)
+    same = all(eng.params[k].dtype == p.dtype and refresh_equal_plain(
+        torch, ops, p, words[k], eng.params[k], alpha) for k, p in params.items())
+    checks.true(f"refresh {SERVE_ARCH}: every new param bit-equal to the plain path on the "
+                "same words", same)
+    # the same words applied once more, the allocator's segments now mapped
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.apply_wire_delta(words, alpha, wf)
+    torch.cuda.synchronize()
+    print(f"refresh {SERVE_ARCH}: apply_wire_delta again {(time.perf_counter() - t0) * 1e3:.1f} "
+          "ms (the memory already mapped)", flush=True)
+    counts.update(ops.launch_counts())
+
+
+def f32_checks(torch, ops, checks, device, counts) -> None:
+    """granite's width at CHECK_LAYERS layers, float32: train == decode,
+    card against CPU, the refresh within 1/α."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step
+    from repro_torch.models.transformer import init_lm_params, lm_forward, lm_logits
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=CHECK_LAYERS)
+    params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(1),
+                            device=device)
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_DECODE_T),
+                           generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = lm_logits(params, lm_forward(params, {"tokens": tokens.to(device)}, cfg,
+                                            torch.float32), cfg)[0]
+        runs = []  # the card's, then the CPU's
+        for i, dev in enumerate((device, torch.device("cpu"))):
+            p = {k: v.to(dev) for k, v in params.items()}
+            cache = init_lm_cache(cfg, 1, TRAIN_DECODE_T, device=dev, dtype=torch.float32)
+            got = []
+            for t in range(CARD_CPU_T if i else TRAIN_DECODE_T):
+                logits, cache = lm_decode_step(p, cache, tokens[:, t].to(dev),
+                                               torch.full((1,), t, device=dev), cfg,
+                                               dtype=torch.float32)
+                got.append(logits[0].cpu())
+            runs.append((torch.stack(got), {k: v.cpu() for k, v in cache.items()}))
+            del p, cache
+    (decode, cache_g), (cpu, cache_c) = runs
+    err = (decode - want.cpu()).abs().max().item() / want.abs().max().item()
+    checks.true(f"train == decode ({SERVE_ARCH}, {CHECK_LAYERS} layers, float32, "
+                f"{TRAIN_DECODE_T} tokens): logits within 1e-4 of the largest |logit| "
+                f"({err:.3g})", err <= 1e-4)
+    err = (decode[:CARD_CPU_T] - cpu).abs().max().item() / cpu.abs().max().item()
+    cerr = 0.0
+    for k, v in cache_c.items():  # the slots written in the CPU's steps
+        g, c = cache_g[k][:, :, :CARD_CPU_T], v[:, :, :CARD_CPU_T]
+        if k.endswith("kv_pos"):
+            cerr = max(cerr, float(not torch.equal(g, c)))
+        else:
+            cerr = max(cerr, (g - c).abs().max().item() / c.abs().max().item())
+    checks.true(f"decode card vs CPU ({CHECK_LAYERS} layers, float32, {CARD_CPU_T} tokens): "
+                f"logits within 1e-5 of the largest |logit| ({err:.3g}), caches within 1e-5 "
+                f"of their largest |value| ({cerr:.3g}), kv_pos equal", err <= 1e-5
+                and cerr <= 1e-5)
+    eng = ServeEngine(cfg, params, slots=1, max_seq=8, device=device)
+    alpha = torch.tensor(REFRESH_ALPHA, device=device)
+    ops.reset_launch_counts()
+    wf, words, deltas = refresh_words(torch, device, params, alpha,
+                                      torch.Generator(device=device).manual_seed(8), keep=True)
+    eng.apply_wire_delta(words, alpha, wf)
+    counts.update(ops.launch_counts())
+    worst = max(((eng.params[k] - p) - deltas[k]).abs().max().item() for k, p in params.items())
+    checks.true(f"refresh ({CHECK_LAYERS} layers, float32): |applied - delta| <= 1/alpha + "
+                f"1e-6 ({worst:.3g})", worst <= 1.0 / REFRESH_ALPHA + 1e-6)
+    del eng, params, words, deltas
+    torch.cuda.empty_cache()
+
+
+def serve_deepseek(torch, ops, checks, device, counts) -> None:
+    """deepseek-v2-lite-16b at full depth through ServeEngine (MLA's
+    latent cache), the MoE drops counted; at CHECK_LAYERS layers, float32,
+    the first greedy token of every slot on the card and on the CPU. The
+    decode path launches no kernel of ours (``counts`` unchanged)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import prompts
+    from repro_torch.models import moe
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step, tp_greedy
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.utils.tree import tree_size
+
+    cfg = get_arch(MLA_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                            device=device, dtype=torch.bfloat16)
+    eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+    tally = {"dropped": torch.zeros((), dtype=torch.int64, device=device), "pairs": 0}
+    real = moe.dispatch_indices
+
+    def counted(ids, n_experts, cap):
+        flat_e, slot, keep = real(ids, n_experts, cap)
+        tally["dropped"] += (~keep).sum()
+        tally["pairs"] += keep.numel()
+        return flat_e, slot, keep
+
+    moe.dispatch_indices = counted
+    try:
+        reqs, iters, wall, steps = serve_requests(torch, eng, prompts(MLA_REQUESTS, cfg.vocab),
+                                                  MLA_MAX_NEW)
+    finally:
+        moe.dispatch_indices = real
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_tok = sum(v.element_size() * v[0, 0, 0].numel() for k, v in eng.cache.items()
+                  if not k.endswith("kv_pos")) * cfg.n_layers
+    gqa = 2 * cfg.n_kv_heads * cfg.head_dim * 2 * cfg.n_layers
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"serve {MLA_ARCH}: {cfg.n_layers} layers, {tree_size(params)} params (bf16, the "
+          f"router float32), {len(reqs)} requests, {iters} engine iterations "
+          f"({wall / iters * 1e3:.2f} ms each on average), {len(steps)} "
+          f"decode steps (median {statistics.median(steps):.2f} ms, min {min(steps):.2f}, max "
+          f"{max(steps):.2f}), {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tokens/s), "
+          f"peak {peak:.2f} GiB; latent cache {per_tok} bytes a token (a GQA cache of its "
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}: {gqa}); {tally['pairs']} (token, "
+          f"expert) pairs dispatched, {int(tally['dropped'])} dropped", flush=True)
+    serve_checks(checks, f"serve {MLA_ARCH}", reqs, cfg.vocab)
+    checks.true(f"serve {MLA_ARCH}: no (token, expert) pair dropped at {SERVE_SLOTS} slots "
+                f"({int(tally['dropped'])} of {tally['pairs']})",
+                tally["pairs"] > 0 and int(tally["dropped"]) == 0)
+    del eng, params
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    params = init_lm_params(small, generator=torch.Generator(device=device).manual_seed(1),
+                            device=device)
+    first = [p[:4] for p in prompts(SERVE_SLOTS, cfg.vocab)]
+    tokens = torch.tensor(first).T  # (4 steps, slots)
+    picks = []  # the card's, then the CPU's
+    with torch.no_grad():
+        for dev in (device, torch.device("cpu")):
+            p = {k: v.to(dev) for k, v in params.items()}
+            cache = init_lm_cache(small, SERVE_SLOTS, 8, device=dev, dtype=torch.float32)
+            for t in range(tokens.shape[0]):
+                logits, cache = lm_decode_step(p, cache, tokens[t].to(dev),
+                                               torch.full((SERVE_SLOTS,), t, device=dev), small,
+                                               dtype=torch.float32)
+            picks.append((tp_greedy(logits).cpu(), logits.cpu()))
+            del p, cache
+    (g_tok, g_log), (c_tok, c_log) = picks
+    err = (g_log - c_log).abs().max().item() / c_log.abs().max().item()
+    checks.true(f"{MLA_ARCH} ({CHECK_LAYERS} layers, float32): first greedy tokens "
+                f"{g_tok.tolist()} on the card, {c_tok.tolist()} on the CPU (logits within "
+                f"{err:.3g} of the largest)", torch.equal(g_tok, c_tok))
+    del params
+    torch.cuda.empty_cache()
+
+
+def straggler_check(torch, ops, checks, device, counts) -> None:
+    """Four workers' images of granite's leaves at STRAGGLER_LAYERS layers,
+    worker 2 late, through runtime.straggler on packed8 and dense8."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.comm import CommCtx
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.runtime.straggler import decode_partial, straggler_tolerant_sum
+    from repro_torch.wire import DenseInt, PackedInt
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=STRAGGLER_LAYERS)
+    shapes = param_shapes(cfg)
+    n_leaves, alive = len(shapes), [True, True, False, True]
+    packed, dense, ctx = PackedInt(bits=8), DenseInt(bits=8), CommCtx(n_workers=N_WORKERS)
+    alpha = torch.tensor(20.0, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    seeds = torch.randint(-(2**31), 2**31, (N_WORKERS, n_leaves), generator=gen, device=device,
+                          dtype=torch.int64).to(torch.int32)
+    ops.reset_launch_counts()
+    images = []
+    for w in range(N_WORKERS):
+        tree = {}
+        for i, (k, shape) in enumerate(shapes.items()):
+            g = torch.randn(shape, generator=gen, device=device)
+            tree[k] = packed.encode(g, alpha, seeds[w, i], n_workers=N_WORKERS)
+            del g
+        images.append(tree)
+    counts.update(ops.launch_counts())
+    lim = packed.clip_limit(N_WORKERS)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    s_p, n_live = straggler_tolerant_sum(images, alive, ctx, packed)
+    torch.cuda.synchronize()
+    t_sum = time.perf_counter() - t0
+    run = ops.launch_counts()
+    s_d, n_live_d = straggler_tolerant_sum(images, alive, ctx, dense)
+    same = all(torch.equal(s_p[k], s_d[k]) for k in shapes)
+    del s_d
+    same &= all(torch.equal(s_p[k], sum(im[k].to(torch.int64) for im, a in
+                                         zip(images, alive) if a).to(torch.int32))
+                for k in shapes)
+    garbage = list(images)
+    garbage[2] = {k: torch.randint(-lim, lim + 1, v.shape, generator=gen, device=device,
+                                   dtype=torch.int32) for k, v in images[2].items()}
+    s_g, _ = straggler_tolerant_sum(garbage, alive, ctx, packed)
+    del garbage
+    same &= all(torch.equal(s_p[k], s_g[k]) for k in shapes)
+    del s_g
+    ghat, dead = decode_partial(s_p, alpha, n_live)
+    plain = all(torch.equal(ghat[k], s_p[k].float() / (torch.clamp(n_live, min=1).float()
+                                                       * alpha)) for k in shapes)
+    s0, n0 = straggler_tolerant_sum(images, [False] * N_WORKERS, ctx, packed)
+    g0, dead0 = decode_partial(s0, alpha, n0)
+    counts.update(ops.launch_counts())
+    print(f"straggler: {n_leaves} leaves, {sum(math.prod(s) for s in shapes.values())} "
+          f"coordinates, 4 workers (worker 2 late), packed8 sum {t_sum * 1e3:.1f} ms with "
+          f"launches {run}", flush=True)
+    checks.true("straggler: packed8 and dense8 sums bit-equal, equal to the int64 sum of the "
+                "three alive images, unchanged by the dead worker's garbage", same)
+    checks.true(f"straggler: n_live {int(n_live)} (dense8 {int(n_live_d)}) == 3, decode_partial "
+                "bit-equal to s.float() / (max(n_live, 1)·α), not all dead",
+                int(n_live) == int(n_live_d) == 3 and plain and not bool(dead))
+    checks.true(f"straggler: an all-dead round: n_live {int(n0)}, flagged, finite",
+                int(n0) == 0 and bool(dead0) and all(bool(v.isfinite().all()) for v in g0.values()))
+    want = {k.name: 0 for k in ops.KERNELS}
+    want.update(pack_words=N_WORKERS * n_leaves, unpack_words=n_leaves)
+    checks.true(f"straggler: launches {run} (expected {want})", run == want)
+    del images, s_p, ghat, s0, g0
+    torch.cuda.empty_cache()
+
+
+def elastic_check(torch, ops, checks, device, counts) -> None:
+    """The elastic protocol at granite's width: 4 workers, a checkpoint,
+    the re-plan for a failed worker, the resume at 3."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.compressor import leaf_seeds, make_compressor
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.launch.step import build_init_state, build_train_step
+    from repro_torch.launch.train import OPTIMIZERS, train_loop
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.optim.schedules import constant, warmup_wrap
+    from repro_torch.runtime import plan_after_failures
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=CHECK_LAYERS)
+    plan = plan_after_failures(dp=N_WORKERS, tp=1, failed_devices=[3], global_batch=N_WORKERS,
+                               wire="packed8", keep_global_batch=False)
+    print(f"elastic: {plan}", flush=True)
+    checks.true("elastic: the plan keeps 3 workers, clip limit 31->42",
+                plan.n_dp == 3 and "clip limit 31->42" in plan.note)
+    kw = dict(compressor="intsgd8_packed", wire="packed8", fused=True, opt="sgd", lr=0.3,
+              device=device, log_every=100)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_", dir=ROOT / "build")
+    try:
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        _, h4 = train_loop(cfg, ShapeConfig("elastic", ELASTIC_SEQ, N_WORKERS, "train"),
+                           n_workers=N_WORKERS, steps=4, ckpt=CheckpointStore(tmp),
+                           ckpt_every=4, **kw)
+        first = ops.launch_counts()
+        n = plan.n_dp
+        shape = ShapeConfig("elastic", ELASTIC_SEQ, plan.global_batch, "train")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, h3 = train_loop(cfg, shape, n_workers=n, steps=8, ckpt=CheckpointStore(tmp),
+                           ckpt_every=1000, resume=True, **kw)
+        t_resume = time.perf_counter() - t0
+        resumed = ops.launch_counts()
+        # a fresh 3-worker loop from the restored state
+        comp, base_opt = make_compressor("intsgd8_packed"), OPTIMIZERS["sgd"]()
+        art = build_train_step(cfg, shape, n_workers=n, compressor=comp, base_opt=base_opt,
+                               lr_schedule=warmup_wrap(constant(0.3), 5),
+                               param_dtype=torch.float32, fused=True, clip_norm=1.0,
+                               device=device)
+        like = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                              device=device)
+        opt_state, comp_state = build_init_state(like, n_workers=n, compressor=comp,
+                                                 base_opt=base_opt, fused=True)
+        state, _, start = CheckpointStore(tmp).restore(
+            {"params": like, "opt": opt_state, "comp": comp_state})
+        del like, opt_state, comp_state
+        p, o, c = state["params"], state["opt"], state["comp"]
+        del state
+        gen, n_leaves = torch.Generator().manual_seed(0), len(art.layout.names)
+        for _ in range(start):
+            leaf_seeds(gen, n, n_leaves, "cpu")
+        data = SyntheticLMData(cfg.vocab, ELASTIC_SEQ, plan.global_batch, seed=0)
+        ops.reset_launch_counts()
+        fresh = []
+        for i in range(start, 8):
+            p, o, c, loss, m = art.steps["compressed"](p, o, c, i, data.batch(i, 0, device=device),
+                                                       leaf_seeds(gen, n, n_leaves, device))
+            fresh.append(float(loss))
+        fresh_counts = ops.launch_counts()
+        del p, o, c
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for run in (first, resumed, fresh_counts):
+        counts.update(run)
+    torch.cuda.empty_cache()
+    print(f"elastic: 4 workers {[round(r['loss'], 4) for r in h4]}, resumed at "
+          f"{h3[0]['step']} with 3 workers {[r['loss'] for r in h3]} (max_int "
+          f"{[r['max_int'] for r in h3]}, {t_resume:.1f} s with the restore), fresh 3-worker "
+          f"loop {fresh}", flush=True)
+    gaps = [abs(a["loss"] - b) / abs(b) for a, b in zip(h3, fresh)]
+    checks.true(f"elastic: resumed at step {start}: {len(h3)} steps at 3 workers, losses finite "
+                f"and within 1e-2 of the fresh loop's (gaps {[float(f'{g:.3g}') for g in gaps]}), "
+                f"max_int <= 3 x 42", start == 4 and len(h3) == 4 == len(gaps)
+                and all(math.isfinite(r["loss"]) for r in h3 + h4) and all(g < 1e-2 for g in gaps)
+                and all(0 < r["max_int"] <= 3 * 42 for r in h3))
+    n_leaves = len(art.layout.names)
+    want4, _, _ = expected_launches(ops, n_leaves, 4, "sgd", "intsgd", "packed8", fused=True,
+                                    microbatches=1)
+    want3 = {k.name: 0 for k in ops.KERNELS}  # 4 compressed steps at 3 workers
+    want3.update(int_compress=4 * n * n_leaves, pack_words=4 * n * n_leaves,
+                 unpack_words=4 * n_leaves, fused_unpack_sgd=4 * n_leaves,
+                 block_norms=2 * 4 * n_leaves)
+    checks.true(f"elastic: launches {first}, {resumed}, {fresh_counts} (expected {want4}, "
+                f"{want3}, {want3})", first == want4 and resumed == want3 == fresh_counts)
+
+
+def serve_runtime_phase(torch, ops, checks, device) -> collections.Counter:
+    """Phase 21: the serve path and the runtime (see the module docstring).
+    Returns the launch counts of every part, each part's zeroed just before
+    it and read just after."""
+    counts = collections.Counter()
+    for name, part in (("serve granite and refresh", serve_granite),
+                       ("float32 checks", f32_checks), ("serve deepseek", serve_deepseek),
+                       ("straggler", straggler_check), ("elastic", elastic_check)):
+        t0 = time.perf_counter()
+        gc.collect()  # each part starts from the card's memory freed, cycles too
+        torch.cuda.empty_cache()
+        print(f"phase 21 {name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at "
+              "the start", flush=True)
+        part(torch, ops, checks, device, counts)
+        print(f"phase 21 {name}: {time.perf_counter() - t0:.1f}s", flush=True)
+    return counts
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -2998,6 +3570,12 @@ def main() -> None:
         print(f"path {label}: compressed step ms {[round(r['ms'], 1) for r in h[1:]]}, "
               f"peak {ed_peaks[label]:.1f} GiB", flush=True)
     print(f"encdec family phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 21. the serve path and the runtime
+    t0 = time.perf_counter()
+    for name, c in serve_runtime_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"serve and runtime phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

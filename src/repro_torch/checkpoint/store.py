@@ -11,7 +11,10 @@ the same properties and the same layout on disk).
   * ``manifest.json`` with each array's shape and dtype and a sha256
     checksum of the tree (keys and shapes); one ``<sha1(key)[:16]>.npy``
     file per array;
-  * ``restore(tree_like, step)`` rejects a structure or shape mismatch.
+  * ``restore(tree_like, step)`` rejects a structure or shape mismatch, and
+    a leaf held one row per worker (:func:`rank_rows`) saved at another
+    worker count, naming the leaf and both counts (an elastic resume at n'
+    workers loads a state whose leaves are all replicated).
 
 Keys join a state tree's path with "/": dict keys, tuple indices and a
 dataclass's fields as ``.name`` — the JAX package's
@@ -257,11 +260,20 @@ class CheckpointStore:
             extra = set(metas) - set(want)
             raise ValueError(f"tree mismatch: missing={missing} extra={extra}")
         out = {}
+        n_now = None if self.group is None else coll.group_size(self.group)
         for key, like in want.items():
             meta = metas[key]
             a = np.load(os.path.join(d, meta["file"]), mmap_mode="r")
-            if self.group is not None and rank_rows(key):
-                a = a[self.rank:self.rank + 1]
+            if rank_rows(key):
+                n_saved, n = a.shape[0], like.shape[0] if n_now is None else n_now
+                if n_saved != n:  # never sliced or padded to the new count
+                    raise ValueError(
+                        f"{key}: held one row per worker, saved by {n_saved} workers, "
+                        f"cannot be restored at {n}; resume at {n_saved} workers, or from "
+                        "a state whose leaves are all replicated (the fused route with "
+                        "IntSGD)")
+                if self.group is not None:
+                    a = a[self.rank:self.rank + 1]
             if tuple(a.shape) != tuple(like.shape):
                 raise ValueError(f"{key}: shape {tuple(a.shape)} != expected {tuple(like.shape)}")
             out[key] = _from_numpy(np.array(a), meta["dtype"]).to(like.device, like.dtype)

@@ -130,7 +130,16 @@ def train_loop(
     uninterrupted one: the data is indexed by step, and the encode seeds
     of the steps before it are drawn and dropped, so step s takes the seeds
     an uninterrupted run takes (the JAX package folds the step into its key
-    instead)."""
+    instead).
+
+    Elastic resume (``runtime.elastic``'s step 3): ``resume`` with another
+    ``n_workers`` than the checkpoint's restores a state whose leaves are
+    all replicated — the fused route with IntSGD (params, momentum or
+    AdamW moments, α's state) — and goes on at n': the step's clip limit
+    and α's n take n', and the seeds are drawn for n' workers, for the
+    skipped steps too. A leaf held one row per worker (the ZeRO-1 rows,
+    IntDIANA's h_local, an error-feedback residual) is refused by
+    ``CheckpointStore.restore``, naming it and both counts."""
     if cfg.frontend is not None:  # the JAX CLI's init_lm_params refuses encdec too
         raise ValueError(
             f"{cfg.name}: the {cfg.frontend!r} frontend takes "

@@ -17,16 +17,37 @@ On the card the call is pinned to PyTorch's memory-efficient backend, the
 only one that takes float32 (with or without a mask) without materialising
 the (B, H, T, T) scores: a fallback to the math backend would raise rather
 than run slowly (8.6 GB a layer of scores for h2o-danube at T = 8192).
+
+The decode path (:func:`attention_decode`, port of the JAX package's
+``attention_decode`` at tp = 1) steps one token per sequence against a KV
+cache (:func:`init_cache`): float32 logits over the whole cache under the
+causal ``kv_pos <= pos`` mask (and the window), and the JAX package's
+explicit softmax — max, ``exp``, sum, then a division by max(sum, 1e-30) —
+in plain PyTorch, as the JAX package's is plain XLA. Its sequence-sharded
+cache (``axes.sp``, a softmax combined across shards) waits for tensor and
+sequence parallelism.
 """
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from repro_torch.models.common import rope
+
+NEG_INF = -1e30
+EMPTY_POS = 2**30  # kv_pos of a cache slot never written: masked for every query
+
+
+def f32_scale(dim: int) -> float:
+    """1/√dim as the JAX package computes it in float32 (a float32 sqrt,
+    then a float32 division), as a Python float: a float32 tensor times it
+    rounds as the product of two float32 values, and no device tensor (an
+    upload that waits for the card) is made."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dim)))
 
 
 def window_mask(t: int, window: int, device) -> torch.Tensor:
@@ -74,6 +95,15 @@ def attention_train(p, x: torch.Tensor, positions: torch.Tensor, *,
     """x: (B, T, d) -> (B, T, d). p: {"wq", "wk", "wv", "wo"} and, with QKV
     bias, {"bq", "bk", "bv"}, added before RoPE in the activation type."""
     b, t, _ = x.shape
+    q, k, v = _qkv(p, x)
+    q = rope(q.reshape(b, t, n_heads, head_dim), positions, rope_theta)
+    k = rope(k.reshape(b, t, n_kv_heads, head_dim), positions, rope_theta)
+    v = v.reshape(b, t, n_kv_heads, head_dim)
+    return gqa_attend(q, k, v, window=window) @ p["wo"].to(x.dtype)
+
+
+def _qkv(p, x: torch.Tensor):
+    """x @ wq, wk, wv in the activation type, with the QKV bias if any."""
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -81,7 +111,53 @@ def attention_train(p, x: torch.Tensor, positions: torch.Tensor, *,
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = rope(q.reshape(b, t, n_heads, head_dim), positions, rope_theta)
-    k = rope(k.reshape(b, t, n_kv_heads, head_dim), positions, rope_theta)
-    v = v.reshape(b, t, n_kv_heads, head_dim)
-    return gqa_attend(q, k, v, window=window) @ p["wo"].to(x.dtype)
+    return q, k, v
+
+
+def init_cache(batch: int, seq: int, *, n_kv_heads: int, head_dim: int, device,
+               dtype=torch.bfloat16):
+    """One layer's KV cache: {"k", "v": (B, S, Hkv, dh) in ``dtype``,
+    "kv_pos": (B, S) int32}, every slot empty (``EMPTY_POS``)."""
+    kv = (batch, seq, n_kv_heads, head_dim)
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
+            "kv_pos": torch.full((batch, seq), EMPTY_POS, dtype=torch.int32, device=device)}
+
+
+def write_slots(cache, pos: torch.Tensor, new) -> None:
+    """Write ``new[name]`` (B, ...) into ``cache[name]`` at row b, slot
+    clip(pos[b], 0, S - 1), and ``pos`` into ``kv_pos``; in place."""
+    s_len = cache["kv_pos"].shape[1]
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    slot = torch.clamp(pos, 0, s_len - 1).long()
+    for name, v in new.items():
+        cache[name][bidx, slot] = v.to(cache[name].dtype)
+    cache["kv_pos"][bidx, slot] = pos.to(torch.int32)
+
+
+def attention_decode(p, x: torch.Tensor, pos: torch.Tensor, cache, *, n_heads: int,
+                     n_kv_heads: int, head_dim: int, rope_theta: float = 10000.0,
+                     window: int | None = None):
+    """One token per sequence. x: (B, 1, d); pos: (B,) integer positions;
+    cache: :func:`init_cache`'s, written at ``pos`` in place. Returns
+    ``(out (B, 1, d), cache)``. Query head h reads KV head h // group."""
+    b = x.shape[0]
+    q, k, v = _qkv(p, x)
+    q = rope(q.reshape(b, 1, n_heads, head_dim), pos[:, None], rope_theta)
+    k = rope(k.reshape(b, 1, n_kv_heads, head_dim), pos[:, None], rope_theta)
+    write_slots(cache, pos, {"k": k[:, 0], "v": v.reshape(b, n_kv_heads, head_dim)})
+    qh = q.reshape(b, n_kv_heads, n_heads // n_kv_heads, head_dim).to(torch.float32)
+    logits = torch.einsum("bhgd,bshd->bhgs", qh, cache["k"].to(torch.float32))
+    logits = logits * f32_scale(head_dim)
+    kv_pos = cache["kv_pos"][:, None, None, :]
+    now = pos[:, None, None, None]
+    mask = kv_pos <= now
+    if window is not None:
+        mask &= kv_pos > now - window
+    logits = torch.where(mask, logits, NEG_INF)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    s = torch.sum(e, dim=-1, keepdim=True)
+    acc = torch.einsum("bhgs,bshd->bhgd", e, cache["v"].to(torch.float32))
+    out = (acc / torch.clamp(s, min=1e-30)).reshape(b, 1, n_heads * head_dim)
+    return out.to(x.dtype) @ p["wo"].to(x.dtype), cache

@@ -11,14 +11,22 @@ float32 at scale 1/√(head_dim + 64), through the same pinned
 memory-efficient SDPA as ``models/attention.py``. The JAX package pads V
 with zeros to head_dim + 64 for its shared chunked kernel and slices the
 output; here V keeps its head_dim (the backend takes Ev ≠ E), which gives
-the same values. ``mla_decode`` and the latent cache wait for the serving
-slice.
+the same values.
+
+Decode (:func:`mla_decode`, the JAX package's at tp = 1) keeps the latent
+cache (:func:`init_mla_cache`): ``c_kv`` (kv_lora) and the rotary key
+``k_r`` (64) per token in place of 2·H·head_dim, the paper's KV-cache
+compression, and decompresses the whole cache through ``w_uk`` and
+``w_uv`` at every step. As in the JAX package its RoPE takes the default
+theta (10,000, not the config's ``rope_theta``) and its softmax is the
+library's (``torch.softmax`` for ``jax.nn.softmax``), not attention's
+explicit form.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import sdpa_f32
+from repro_torch.models.attention import EMPTY_POS, NEG_INF, f32_scale, sdpa_f32, write_slots
 from repro_torch.models.common import rope
 
 DH_ROPE = 64
@@ -40,3 +48,37 @@ def mla_train(p, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
     out = sdpa_f32(qf, kf, vf)
     out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim).to(x.dtype)
     return out @ p["wo"].to(x.dtype)
+
+
+def init_mla_cache(batch: int, seq: int, *, kv_lora: int, device, dtype=torch.bfloat16):
+    """One layer's latent cache: {"c_kv": (B, S, kv_lora), "k_r": (B, S,
+    64) in ``dtype``, "kv_pos": (B, S) int32}, every slot empty."""
+    return {"c_kv": torch.zeros((batch, seq, kv_lora), dtype=dtype, device=device),
+            "k_r": torch.zeros((batch, seq, DH_ROPE), dtype=dtype, device=device),
+            "kv_pos": torch.full((batch, seq), EMPTY_POS, dtype=torch.int32, device=device)}
+
+
+def mla_decode(p, x: torch.Tensor, pos: torch.Tensor, cache, *, n_heads: int,
+               head_dim: int):
+    """One token per sequence against the latent cache, written at ``pos``
+    in place. x: (B, 1, d); pos: (B,). Returns ``(out (B, 1, d), cache)``."""
+    b = x.shape[0]
+    c_new = (x @ p["w_dkv"].to(x.dtype))[:, 0]
+    k_r_new = rope((x @ p["w_kr"].to(x.dtype)).reshape(b, 1, 1, DH_ROPE), pos[:, None])
+    write_slots(cache, pos, {"c_kv": c_new, "k_r": k_r_new[:, 0, 0]})
+    s_len = cache["c_kv"].shape[1]
+    c_kv = cache["c_kv"].to(x.dtype)
+    k_c = (c_kv @ p["w_uk"].to(x.dtype)).reshape(b, s_len, n_heads, head_dim)
+    v = (c_kv @ p["w_uv"].to(x.dtype)).reshape(b, s_len, n_heads, head_dim)
+    q = (x @ p["w_q"].to(x.dtype)).reshape(b, 1, n_heads, head_dim + DH_ROPE)
+    q_c, q_r = q[..., :head_dim], rope(q[..., head_dim:], pos[:, None])
+    logits = torch.einsum("bhd,bshd->bhs", q_c[:, 0].to(torch.float32),
+                          k_c.to(torch.float32))
+    logits = logits + torch.einsum("bhr,bsr->bhs", q_r[:, 0].to(torch.float32),
+                                   cache["k_r"].to(torch.float32))
+    logits = logits * f32_scale(head_dim + DH_ROPE)
+    mask = cache["kv_pos"][:, None, :] <= pos[:, None, None]
+    w = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", w, v.to(torch.float32))
+    out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
+    return out @ p["wo"].to(x.dtype), cache

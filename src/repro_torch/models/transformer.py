@@ -237,9 +237,11 @@ def init_lm_params(cfg, *, generator: torch.Generator, device,
     if "layers/moe/w_gate" in params:
         gate = params["layers/moe/w_gate"]
         params["layers/moe/w_up"] = gate.clone()
-        params["layers/moe/w_down"] = (
-            gate.to(torch.float32).reshape(shapes["layers/moe/w_down"])
-            * math.sqrt(cfg.d_model / cfg.d_ff)).to(dtype)
+        down = torch.empty(shapes["layers/moe/w_down"], dtype=dtype, device=device)
+        for i in range(down.shape[0]):  # a layer at a time: float32 copies of one layer
+            down[i] = (gate[i].to(torch.float32).reshape(down.shape[1:])
+                       * math.sqrt(cfg.d_model / cfg.d_ff)).to(dtype)
+        params["layers/moe/w_down"] = down
     return params
 
 
@@ -334,6 +336,13 @@ def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
     return rmsnorm(x, params["ln_f"])
 
 
+def lm_logits(params: Tree, h: torch.Tensor, cfg) -> torch.Tensor:
+    """The JAX package's ``lm_logits_local`` at tp = 1: h @ head in h's
+    type, then float32; the head is ``embed``'s transpose when tied."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (h @ head.to(h.dtype)).to(torch.float32)
+
+
 def lm_loss(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
     """Mean next-token cross entropy over labelled positions (float32); with
     the vit frontend only the text positions carry labels. With tied
@@ -341,8 +350,7 @@ def lm_loss(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
     h = lm_forward(params, batch, cfg, dtype)
     if cfg.frontend == "vit":
         h = h[:, -batch["tokens"].shape[1]:]
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (h @ head.to(h.dtype)).to(torch.float32)
+    logits = lm_logits(params, h, cfg)
     labels = batch["labels"]
     per_tok = cross_entropy(logits, labels)
     mask = (labels >= 0).to(torch.float32)

@@ -1047,3 +1047,89 @@ def test_checkpoint_of_card_state_round_trips(dev, tmp_path):
     assert torch.equal(got["params"]["w"].view(torch.int16), tree["params"]["w"].view(torch.int16))
     assert torch.equal(got["opt"]["master"]["w"], tree["opt"]["master"]["w"])
     assert torch.equal(got["comp"].r, tree["comp"].r) and int(got["comp"].step) == 7
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b", "deepseek-v2-lite-16b"])
+def test_decode_on_the_card_matches_the_cpu(dev, name):
+    """``lm_decode_step`` (smoke widths, float32) for 6 steps of 3
+    sequences on the card and on the CPU from the same weights: logits
+    within 1e-5 of the largest |logit|, the caches within 1e-5 of their
+    largest |value|, kv_pos equal, the greedy tokens equal."""
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step, tp_greedy
+    from repro_torch.models.transformer import init_lm_params
+
+    cfg = smoke_config(get_arch(name))
+    params = init_lm_params(cfg, generator=torch.Generator().manual_seed(2), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (6, 3), generator=torch.Generator().manual_seed(3))
+    runs = {}
+    for device in ("cpu", dev):
+        p = {k: v.to(device) for k, v in params.items()}
+        cache = init_lm_cache(cfg, 3, 16, device=device, dtype=torch.float32)
+        logits = []
+        for t in range(6):
+            out, cache = lm_decode_step(p, cache, tokens[t].to(device),
+                                        torch.full((3,), t, device=device), cfg,
+                                        dtype=torch.float32)
+            logits.append(out.cpu())
+        runs[str(device)] = torch.stack(logits), {k: v.cpu() for k, v in cache.items()}
+    (l_c, c_c), (l_g, c_g) = runs["cpu"], runs[str(dev)]
+    big = l_c.abs().max().item()
+    torch.testing.assert_close(l_g, l_c, rtol=0, atol=1e-5 * big)
+    assert torch.equal(tp_greedy(l_g), tp_greedy(l_c))
+    for k in c_c:
+        if k.endswith("kv_pos"):
+            assert torch.equal(c_g[k], c_c[k]), k
+        else:
+            torch.testing.assert_close(c_g[k], c_c[k], rtol=0,
+                                       atol=1e-5 * c_c[k].abs().max().item())
+
+
+def test_wire_delta_on_a_leaf_past_2_to_30_matches_plain(dev):
+    """``ServeEngine.apply_wire_delta`` on one bf16 leaf of 2^30 + 4,099
+    elements (the int64 index arithmetic of ``csrc/wire_pack.cu``): the
+    ``unpack_words`` kernel path bit-equal to the plain path on the same
+    packed8 words, one launch."""
+    import types
+
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.wire import PackedInt
+
+    d = 2**30 + 4099
+    wf = PackedInt(bits=8)
+    g = torch.Generator(device=dev).manual_seed(1)
+    p = torch.randn(d, generator=g, device=dev).to(torch.bfloat16)
+    ints = torch.randint(-127, 128, (d,), generator=g, device=dev, dtype=torch.int32)
+    words = ops.pack_words(ints, bits=8, n_workers=1)
+    del ints
+    alpha = torch.tensor(1000.0, device=dev)
+    want = (p.float() + ops.unpack_words.plain(words, (d,), bits=8, n_summed=1).float()
+            / (1 * alpha)).to(torch.bfloat16)
+    eng = types.SimpleNamespace(params={"w": p})
+    before = ops.unpack_words.launches
+    ServeEngine.apply_wire_delta(eng, {"w": words}, alpha, wf)
+    assert ops.unpack_words.launches == before + 1
+    assert torch.equal(eng.params["w"].view(torch.int16), want.view(torch.int16))
+
+
+def test_straggler_sum_launch_counts_on_the_card(dev):
+    """packed8, 4 workers, 3 leaves, worker 2 late: 4 x 3 pack_words
+    launches, 3 unpack_words launches, the sum equal to the alive images'
+    sum, and dense8 (no pack or unpack kernel) equal to it."""
+    from repro_torch.core.comm import CommCtx
+    from repro_torch.runtime.straggler import straggler_tolerant_sum
+    from repro_torch.wire import DenseInt, PackedInt
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    shapes = {"a": (1000, 33), "b": (7,), "c": (4096,)}
+    images = [{k: torch.randint(-31, 32, s, generator=g, device=dev, dtype=torch.int32)
+               for k, s in shapes.items()} for _ in range(4)]
+    alive = [True, True, False, True]
+    ops.reset_launch_counts()
+    s, n_live = straggler_tolerant_sum(images, alive, CommCtx(n_workers=4), PackedInt(bits=8))
+    assert ops.pack_words.launches == 12 and ops.unpack_words.launches == 3
+    assert int(n_live) == 3
+    d, _ = straggler_tolerant_sum(images, alive, CommCtx(n_workers=4), DenseInt(bits=8))
+    for k in shapes:
+        want = sum(im[k] for im, a in zip(images, alive) if a)
+        assert torch.equal(s[k], want) and torch.equal(d[k], want), k
