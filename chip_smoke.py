@@ -296,6 +296,27 @@ Phases, each of which must pass for the exit code to be 0:
                from the checkpoint: losses finite, max_int <= 3·42, within
                1e-2 of a fresh 3-worker loop from the restored state, every
                run's launch counts exact.
+ 22. recurrent and encoder-decoder decode — zamba2-2.7b at published
+               width and full depth (54 Mamba2 layers, 6 applications of the
+               shared block, bf16 params) served by ServeEngine with phase
+               21's traffic (every request done, every token in the
+               vocabulary), then refreshed over packed8 as phase 21 does
+               (int_compress and pack_words once a leaf, unpack_words once a
+               leaf in apply_wire_delta; the largest leaf bit-equal to the
+               plain path); xlstm-125m at full depth (12 layers) served the
+               same way; seamless-m4t-medium at full depth (12 + 12 layers,
+               bf16): encdec_prefill of 4 sequences of 2,048 frames and 16
+               greedy encdec_decode_step tokens (finite logits, tokens in the
+               vocabulary). Per family: ms a decode step (median, min), one
+               step's host enqueue over its card time, iterations, tokens/s,
+               peak GiB, the state's bytes a slot beside a GQA cache's at
+               max_seq (seamless: the prefill's ms). At 2 layers (xlstm: one
+               block of 3; zamba2 with attn_every 2, so that the shared block
+               runs; seamless 2 + 2), float32: decoding a 32-token prompt
+               gives lm_forward's (seamless: decode_states') logits within
+               1e-4 of the largest |logit|, and 8 decode steps on the card
+               give the CPU's logits and caches within 1e-5 of their largest
+               |value|.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -3054,10 +3075,12 @@ def refresh_equal_plain(torch, ops, old, words, new, alpha) -> bool:
     return True
 
 
-def refresh_full(torch, ops, checks, device, eng, params, counts) -> None:
-    """The weight refresh on the full-depth engine: trainer side (encode
-    and pack, counted), engine side (apply_wire_delta, counted), the new
-    params against the plain path on the same words."""
+def refresh_full(torch, ops, checks, device, eng, params, counts, label=SERVE_ARCH,
+                 held=None) -> None:
+    """The weight refresh on the full-depth engine of ``label``: trainer
+    side (encode and pack, counted), engine side (apply_wire_delta,
+    counted), the new params of the leaves ``held`` (every leaf if None)
+    against the plain path on the same words."""
     alpha = torch.tensor(REFRESH_ALPHA, device=device)
     n_leaves = len(params)
     largest = max(p.numel() for p in params.values())
@@ -3079,7 +3102,7 @@ def refresh_full(torch, ops, checks, device, eng, params, counts) -> None:
     engine = ops.launch_counts()
     counts.update(engine)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"refresh {SERVE_ARCH}: {n_leaves} leaves (largest {largest} elements), wire "
+    print(f"refresh {label}: {n_leaves} leaves (largest {largest} elements), wire "
           f"{nbytes} bytes of packed8 words (float32: {4 * sum(p.numel() for p in params.values())}"
           f"); trainer side {t_trainer:.3f} s, apply_wire_delta {t_apply * 1e3:.1f} ms, peak "
           f"{peak:.2f} GiB; launches trainer {trainer}, engine {engine}", flush=True)
@@ -3087,19 +3110,21 @@ def refresh_full(torch, ops, checks, device, eng, params, counts) -> None:
     want_e = dict(want_t)
     want_t.update(int_compress=n_leaves, pack_words=n_leaves)
     want_e.update(unpack_words=n_leaves)
-    checks.true(f"refresh {SERVE_ARCH}: launches {trainer} then {engine} (expected one "
+    checks.true(f"refresh {label}: launches {trainer} then {engine} (expected one "
                 "int_compress and one pack_words a leaf, then one unpack_words a leaf)",
                 trainer == want_t and engine == want_e)
-    same = all(eng.params[k].dtype == p.dtype and refresh_equal_plain(
-        torch, ops, p, words[k], eng.params[k], alpha) for k, p in params.items())
-    checks.true(f"refresh {SERVE_ARCH}: every new param bit-equal to the plain path on the "
-                "same words", same)
+    held = list(params) if held is None else held
+    same = all(eng.params[k].dtype == params[k].dtype and refresh_equal_plain(
+        torch, ops, params[k], words[k], eng.params[k], alpha) for k in held)
+    which = "every new param" if len(held) == n_leaves else f"new {', '.join(held)}"
+    checks.true(f"refresh {label}: {which} bit-equal to the plain path on the same words",
+                same)
     # the same words applied once more, the allocator's segments now mapped
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     eng.apply_wire_delta(words, alpha, wf)
     torch.cuda.synchronize()
-    print(f"refresh {SERVE_ARCH}: apply_wire_delta again {(time.perf_counter() - t0) * 1e3:.1f} "
+    print(f"refresh {label}: apply_wire_delta again {(time.perf_counter() - t0) * 1e3:.1f} "
           "ms (the memory already mapped)", flush=True)
     counts.update(ops.launch_counts())
 
@@ -3423,6 +3448,262 @@ def serve_runtime_phase(torch, ops, checks, device) -> collections.Counter:
     return counts
 
 
+# phase 22: the recurrent and encoder-decoder decode at published width
+HYBRID_ARCH, SSM_ARCH = "zamba2-2.7b", "xlstm-125m"
+ENCDEC_SEQS, ENCDEC_FRAMES, ENCDEC_NEW = 4, 2048, 16
+ENCDEC_CHECK_FRAMES = 256
+
+
+def state_bytes(eng, cfg) -> tuple:
+    """(bytes of one slot's cache, the recurrent state's share of it, a
+    GQA cache's bytes a slot at max_seq for every layer at the config's
+    widths and the engine's cache type)."""
+    slot = sum(v.element_size() * v.numel() // eng.slots for v in eng.cache.values())
+    rec = sum(v.element_size() * v.numel() // eng.slots for k, v in eng.cache.items()
+              if k.startswith(("mamba/", "blocks/")))
+    gqa = cfg.n_layers * eng.max_seq * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    return slot, rec, gqa
+
+
+def serve_recurrent(torch, ops, checks, device, counts, arch, refresh) -> None:
+    """``arch`` at full depth through ServeEngine with phase 21's traffic;
+    with ``refresh``, then the weight refresh over packed8 (the largest
+    leaf held bit-equal to the plain path)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import prompts
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.utils.tree import tree_size
+
+    cfg = get_arch(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                            device=device, dtype=torch.bfloat16)
+    eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=device)
+    ops.reset_launch_counts()
+    reqs, iters, wall, steps = serve_requests(torch, eng, prompts(SERVE_REQUESTS, cfg.vocab),
+                                              SERVE_MAX_NEW)
+    served = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tok = sum(len(r.out) for r in reqs)
+    host, card = host_card_ms(torch, lambda: ServeEngine.step(eng))
+    slot, rec, gqa = state_bytes(eng, cfg)
+    print(f"serve {arch}: {cfg.n_layers} layers, {tree_size(params)} bf16 params, "
+          f"{len(reqs)} requests, {iters} engine iterations ({wall / iters * 1e3:.2f} ms each on "
+          f"average), {len(steps)} decode steps (median {statistics.median(steps):.2f} ms, min "
+          f"{min(steps):.2f}, max {max(steps):.2f}; each synchronized), {n_tok} tokens in "
+          f"{wall:.3f} s ({n_tok / wall:.1f} tokens/s), peak {peak:.2f} GiB; one step: host "
+          f"enqueue {host:.2f} ms, card {card:.2f} ms, host over card {host / card:.2f}; cache "
+          f"{slot} bytes a slot, of which recurrent state {rec} (a GQA cache of "
+          f"{cfg.n_layers} layers at max_seq {SERVE_MAX_SEQ}: {gqa}); launches {served}",
+          flush=True)
+    serve_checks(checks, f"serve {arch}", reqs, cfg.vocab)
+    checks.true(f"serve {arch}: the decode path launches no kernel of ours ({served})",
+                not any(served.values()))
+    if refresh:
+        largest = max(params, key=lambda k: params[k].numel())
+        refresh_full(torch, ops, checks, device, eng, params, counts, label=arch,
+                     held=[largest])
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def encdec_serve(torch, ops, checks, device, counts) -> None:
+    """seamless-m4t-medium at full depth, bf16: the prefill of
+    ENCDEC_SEQS sequences of ENCDEC_FRAMES frames, then a greedy loop of
+    ENCDEC_NEW encdec_decode_step tokens."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import encdec
+    from repro_torch.models.decode import tp_greedy
+
+    cfg = get_arch(ENCDEC_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = encdec.init_encdec_params(cfg, generator=torch.Generator(device=device)
+                                       .manual_seed(0), device=device, dtype=torch.bfloat16)
+    frames = torch.randn(ENCDEC_SEQS, ENCDEC_FRAMES, cfg.frontend_dim, device=device,
+                         generator=torch.Generator(device=device).manual_seed(1))
+    b = ENCDEC_SEQS
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        cache = encdec.init_encdec_cache(cfg, b, ENCDEC_NEW, ENCDEC_FRAMES, device=device)
+        prefill = []  # the first, then again warm
+        for _ in range(2):
+            t0 = time.perf_counter()
+            cache = encdec.encdec_prefill(params, frames, cache, cfg)
+            torch.cuda.synchronize()
+            prefill.append((time.perf_counter() - t0) * 1e3)
+        tok = torch.ones(b, dtype=torch.long, device=device)
+        out, steps, finite = [], [], True
+        t_loop = time.perf_counter()
+        for t in range(ENCDEC_NEW):
+            t0 = time.perf_counter()
+            logits, cache = encdec.encdec_decode_step(params, cache, tok,
+                                                      torch.full((b,), t, device=device), cfg)
+            tok = tp_greedy(logits)
+            out.append(tok.tolist())  # the loop's one read to the host a step
+            steps.append((time.perf_counter() - t0) * 1e3)
+            finite &= bool(torch.isfinite(logits).all())
+        wall = time.perf_counter() - t_loop
+        pos = torch.full((b,), ENCDEC_NEW - 1, device=device)
+        host, card = host_card_ms(torch, lambda: encdec.encdec_decode_step(
+            params, cache, tok, pos, cfg))
+    served = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cross = sum(v.element_size() * v.numel() for k, v in cache.items() if k.startswith("cross/"))
+    print(f"decode {ENCDEC_ARCH}: {cfg.enc_layers} + {cfg.dec_layers} layers, bf16, {b} "
+          f"sequences of {ENCDEC_FRAMES} frames: prefill {prefill[0]:.2f} ms, again "
+          f"{prefill[1]:.2f} ms (cross cache {cross} "
+          f"bytes); {ENCDEC_NEW} greedy steps (median {statistics.median(steps):.2f} ms, min "
+          f"{min(steps):.2f}, max {max(steps):.2f}; each ending in the tokens' read), "
+          f"{b * ENCDEC_NEW} tokens in {wall:.3f} s ({b * ENCDEC_NEW / wall:.1f} tokens/s), peak "
+          f"{peak:.2f} GiB; one step: host enqueue {host:.2f} ms, card {card:.2f} ms, host over "
+          f"card {host / card:.2f}; launches {served}", flush=True)
+    checks.true(f"decode {ENCDEC_ARCH}: logits finite, {b * ENCDEC_NEW} greedy tokens in "
+                f"[0, {cfg.vocab}), no kernel of ours launched",
+                finite and all(0 <= t < cfg.vocab for row in out for t in row)
+                and not any(served.values()))
+    del params, cache, frames
+    torch.cuda.empty_cache()
+
+
+def small_config(arch):
+    """``arch`` at CHECK_LAYERS layers: xlstm one (m, m, s) block of 3;
+    zamba2 with attn_every 2, so that the shared block runs once; seamless
+    2 + 2."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch(arch)
+    if cfg.family == "ssm":
+        return dataclasses.replace(cfg, n_layers=3)
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, n_layers=CHECK_LAYERS, attn_every=CHECK_LAYERS)
+    return dataclasses.replace(cfg, enc_layers=CHECK_LAYERS, dec_layers=CHECK_LAYERS,
+                               n_layers=2 * CHECK_LAYERS)
+
+
+def f32_decode_checks(torch, checks, device, label, step, want, make_cache) -> None:
+    """``step(device, cache, t)`` -> logits (1, V) on ``device``: the card
+    steps TRAIN_DECODE_T tokens, its logits within 1e-4 of ``want`` (T, V)'s
+    largest |logit|; the CPU steps CARD_CPU_T, its logits and cache within
+    1e-5 of the card's after as many."""
+    runs = []  # the card's, then the CPU's
+    with torch.no_grad():
+        for i, dev in enumerate((device, torch.device("cpu"))):
+            cache, got, snap = make_cache(dev), [], None
+            for t in range(CARD_CPU_T if i else TRAIN_DECODE_T):
+                got.append(step(dev, cache, t)[0].cpu())
+                if t == CARD_CPU_T - 1:
+                    snap = {k: v.cpu().clone() for k, v in cache.items()}
+            runs.append((torch.stack(got), snap))
+            del cache
+    (decode, cache_g), (cpu, cache_c) = runs
+    err = (decode - want).abs().max().item() / want.abs().max().item()
+    checks.true(f"train == decode ({label}, float32, {TRAIN_DECODE_T} tokens): logits within "
+                f"1e-4 of the largest |logit| ({err:.3g})", err <= 1e-4)
+    err = (decode[:CARD_CPU_T] - cpu).abs().max().item() / cpu.abs().max().item()
+    cerr = 0.0
+    for k, c in cache_c.items():
+        g = cache_g[k]
+        if not c.is_floating_point():
+            cerr = max(cerr, float(not torch.equal(g, c)))
+        elif c.abs().max().item() > 0:
+            cerr = max(cerr, (g.float() - c.float()).abs().max().item() / c.abs().max().item())
+    checks.true(f"decode card vs CPU ({label}, float32, {CARD_CPU_T} tokens): logits within "
+                f"1e-5 of the largest |logit| ({err:.3g}), caches within 1e-5 of their largest "
+                f"|value| ({cerr:.3g}), integers equal", err <= 1e-5 and cerr <= 1e-5)
+
+
+def recurrent_f32_checks(torch, ops, checks, device, counts) -> None:
+    """zamba2 and xlstm at their small configs, float32: train == decode
+    and card against CPU."""
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step
+    from repro_torch.models.transformer import init_lm_params, lm_forward, lm_logits
+
+    for arch in (HYBRID_ARCH, SSM_ARCH):
+        cfg = small_config(arch)
+        params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(1),
+                                device=device)
+        tokens = torch.randint(0, cfg.vocab, (1, TRAIN_DECODE_T),
+                               generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            want = lm_logits(params, lm_forward(params, {"tokens": tokens.to(device)}, cfg,
+                                                torch.float32), cfg)[0].cpu()
+        on = {"cpu": {k: v.cpu() for k, v in params.items()}, "cuda": params}
+
+        def step(dev, cache, t):
+            logits, _ = lm_decode_step(on[dev.type], cache, tokens[:, t].to(dev),
+                                       torch.full((1,), t, device=dev), cfg, dtype=torch.float32)
+            return logits
+
+        f32_decode_checks(torch, checks, device, f"{arch}, {cfg.n_layers} layers", step,
+                          want, lambda dev: init_lm_cache(cfg, 1, TRAIN_DECODE_T, device=dev,
+                                                          dtype=torch.float32))
+        del params, on
+        torch.cuda.empty_cache()
+
+
+def encdec_f32_checks(torch, ops, checks, device, counts) -> None:
+    """seamless at 2 + 2 layers, float32, one sequence of
+    ENCDEC_CHECK_FRAMES frames: decode == decode_states and card against
+    CPU (the prefill's cross cache included)."""
+    from repro_torch.models import encdec
+
+    cfg = small_config(ENCDEC_ARCH)
+    params = encdec.init_encdec_params(cfg, generator=torch.Generator(device=device)
+                                       .manual_seed(1), device=device)
+    frames = torch.randn(1, ENCDEC_CHECK_FRAMES, cfg.frontend_dim,
+                         generator=torch.Generator().manual_seed(3))
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_DECODE_T),
+                           generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        enc = encdec.encode(params, frames.to(device), cfg, torch.float32)
+        h = encdec.decode_states(params, enc, tokens.to(device), cfg, torch.float32)
+        want = (h @ params["lm_head"])[0].cpu()
+        del enc, h
+    on = {"cpu": {k: v.cpu() for k, v in params.items()}, "cuda": params}
+
+    def make_cache(dev):
+        cache = encdec.init_encdec_cache(cfg, 1, TRAIN_DECODE_T, ENCDEC_CHECK_FRAMES, device=dev,
+                                         dtype=torch.float32)
+        return encdec.encdec_prefill(on[dev.type], frames.to(dev), cache, cfg, torch.float32)
+
+    def step(dev, cache, t):
+        logits, _ = encdec.encdec_decode_step(on[dev.type], cache, tokens[:, t].to(dev),
+                                              torch.full((1,), t, device=dev), cfg,
+                                              dtype=torch.float32)
+        return logits
+
+    f32_decode_checks(torch, checks, device, f"{ENCDEC_ARCH}, {cfg.enc_layers} + "
+                      f"{cfg.dec_layers} layers, {ENCDEC_CHECK_FRAMES} frames", step, want,
+                      make_cache)
+    del params, on
+    torch.cuda.empty_cache()
+
+
+def recurrent_decode_phase(torch, ops, checks, device) -> collections.Counter:
+    """Phase 22: the recurrent and encoder-decoder decode (see the module
+    docstring). Returns the launch counts of every part, each part's zeroed
+    just before it and read just after."""
+    counts = collections.Counter()
+    for name, part in (("serve zamba2 and refresh", functools.partial(
+                            serve_recurrent, arch=HYBRID_ARCH, refresh=True)),
+                       ("serve xlstm", functools.partial(serve_recurrent, arch=SSM_ARCH,
+                                                         refresh=False)),
+                       ("seamless prefill and decode", encdec_serve),
+                       ("recurrent float32 checks", recurrent_f32_checks),
+                       ("seamless float32 checks", encdec_f32_checks)):
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 22 {name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at "
+              "the start", flush=True)
+        part(torch, ops, checks, device, counts)
+        print(f"phase 22 {name}: {time.perf_counter() - t0:.1f}s", flush=True)
+    return counts
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -3576,6 +3857,12 @@ def main() -> None:
     for name, c in serve_runtime_phase(torch, ops, checks, device).items():
         launches[name] += c
     print(f"serve and runtime phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 22. the recurrent and encoder-decoder decode
+    t0 = time.perf_counter()
+    for name, c in recurrent_decode_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"recurrent and encdec decode phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

@@ -2,13 +2,17 @@
 ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --requests 6
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --device cpu
 
 Runs on the card unless ``--device cpu`` is given. The weights come from a
 ``torch.Generator`` seeded with 0 and the prompts (4 to 7 tokens) from one
 seeded with 1, so they differ from the JAX CLI's, which draws both with
-``jax.random``. ``--arch`` takes the attention families (dense, vlm, moe);
-the others' decode is not ported yet and raises.
+``jax.random``. ``--arch`` takes every decoder-only family: dense, vlm,
+moe, hybrid (zamba2-2.7b) and ssm (xlstm-125m). The encoder-decoder
+(seamless-m4t-medium) is refused, as the JAX package's engine cannot serve
+it either (its ``init_lm_cache`` raises for the family); its decode is
+``models/encdec.py``'s, driven by a greedy loop.
 """
 from __future__ import annotations
 
@@ -39,8 +43,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = smoke_config(get_arch(args.arch))
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{args.arch}: the serving engine runs the decoder-only families; the JAX "
+            "package's engine does not serve the encoder-decoder either (its init_lm_cache "
+            "raises for it). Its decode is models/encdec.py's init_encdec_cache, "
+            "encdec_prefill and encdec_decode_step, driven by a greedy loop")
+    device = resolve_device(args.device)
     params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
                             device=device)
     eng = ServeEngine(cfg, params, slots=args.slots, max_seq=128, device=device)

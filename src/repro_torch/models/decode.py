@@ -1,24 +1,41 @@
-"""Single-token decode (the serve path) of the attention families, with
+"""Single-token decode (the serve path) of the decoder-only families, with
 their caches (port of ``repro/models/decode.py`` at tp = 1).
 
-The cache is a flat dict of stacked leaves, as the params are, each with a
-leading layer axis::
+The cache is a flat dict of stacked leaves, as the params are, each with
+the layer leaves' leading axes::
 
     dense / vlm / moe, GQA : {"layers/k", "layers/v": (L, B, S, Hkv, dh),
                               "layers/kv_pos": (L, B, S) int32}
     MLA (a ``kv_lora``)    : {"layers/c_kv": (L, B, S, kv_lora),
                               "layers/k_r": (L, B, S, 64), "layers/kv_pos"}
+    hybrid (Mamba2)        : {"mamba/conv": (nb, per, B, K - 1, H·P) float32,
+                              "mamba/h": (nb, per, B, H, N, P) float32,
+                              "attn/k", "attn/v": (nb, B, S, Hkv, dh),
+                              "attn/kv_pos": (nb, B, S)}
+    ssm (xLSTM)            : {"blocks/m1/C", "blocks/m2/C": (nb, B, H, dh, dh),
+                              "blocks/m1/n", "blocks/m2/n": (nb, B, H, dh),
+                              "blocks/s/h", "blocks/s/c": (nb, B, H, dh)},
+                             all float32
+
+with nb = n_layers // attn_every blocks of per = attn_every Mamba2 layers
+(one application of the shared attention block each) in the hybrid
+family, and nb = n_layers // 3 (m, m, s) blocks in the ssm family. The
+recurrent state is O(1) in the sequence: S does not appear in it.
 
 :func:`lm_decode_step` runs one token per sequence through the layers in a
 Python loop over the stacked leaves (the JAX package's ``lax.scan``) and
 writes each layer's cache in place; the final norm and the logits follow
-``lm_logits_local``: the product in the step's type, then float32. The JAX
-package's decode is plain XLA, so this is plain PyTorch (``torch.matmul``
-and attention's explicit softmax); no TPU kernel stands behind it.
+``lm_logits_local``: the product in the step's type, then float32. In the
+hybrid family the shared block reads ``[h, emb0]``, emb0 the step's
+embedding, and attends with the config's ``rope_theta`` and no window. The
+JAX package's decode is plain XLA, so this is plain PyTorch
+(``torch.matmul``, attention's explicit softmax, the recurrences' einsums);
+no TPU kernel stands behind it.
 
-The hybrid (Mamba2), ssm (xLSTM) and encdec caches are refused: their
-decode halves are not ported yet (ROADMAP item 12.5b). At tp = 1 the JAX
-package's vocab-sharded greedy pick is the argmax (:func:`tp_greedy`).
+The encoder-decoder family has no decoder-only cache: :func:`init_lm_cache`
+raises ``ValueError`` for it, as the JAX package's does; its decode is
+``models/encdec.py``'s. At tp = 1 the JAX package's vocab-sharded greedy
+pick is the argmax (:func:`tp_greedy`).
 """
 from __future__ import annotations
 
@@ -32,35 +49,59 @@ from repro_torch.models.common import rmsnorm
 from repro_torch.models.mla import init_mla_cache, mla_decode
 from repro_torch.models.mlp import swiglu_mlp
 from repro_torch.models.moe import moe_tp
+from repro_torch.models.ssm import init_mamba2_cache, mamba2_decode
 from repro_torch.models.transformer import (
-    _check_ported, _head_dim, _sub, lm_logits, params_from_jax,
+    SSM_HEAD_DIM, XLSTM_CELLS, _check_ported, _head_dim, _layer_axes, _ssm_heads, _sub,
+    lm_logits, params_from_jax,
+)
+from repro_torch.models.xlstm import (
+    init_mlstm_cache, init_slstm_cache, mlstm_decode, slstm_decode,
 )
 
 Tree = Dict[str, torch.Tensor]
-DECODE_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _check_decode(cfg) -> None:
-    """Refuse a config whose decode is not ported yet."""
-    if cfg.family not in DECODE_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: decode of family {cfg.family!r} is not ported yet (the port's "
-            f"decode step runs the attention families {', '.join(DECODE_FAMILIES)}; the "
-            "Mamba2, xLSTM and encoder-decoder caches are ROADMAP item 12.5b)")
+    """Refuse the encoder-decoder (no decoder-only cache, as in the JAX
+    package) and any config the decoder-only LM does not run."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: family 'encdec' has no decoder-only cache (the JAX package's "
+            "init_lm_cache raises ValueError too); its decode is models/encdec.py's "
+            "init_encdec_cache, encdec_prefill and encdec_decode_step")
     _check_ported(cfg)
+
+
+def _stacked(base: Tree, lead: tuple, prefix: str) -> Tree:
+    return {f"{prefix}{k}": v.expand(*lead, *v.shape).clone() for k, v in base.items()}
 
 
 def init_lm_cache(cfg, batch: int, seq: int, *, device, dtype=torch.bfloat16) -> Tree:
     """An empty cache of ``batch`` sequences of up to ``seq`` tokens for
-    every layer: MLA's latent cache where the config has a ``kv_lora``,
-    else the GQA KV cache."""
+    every layer (the module docstring's layout): MLA's latent cache where
+    the config has a ``kv_lora``, else the GQA KV cache (in ``dtype``); the
+    hybrid family's Mamba2 states and the shared block's KV cache; the ssm
+    family's mLSTM and sLSTM states."""
     _check_decode(cfg)
+    lead = _layer_axes(cfg)
+    kv = dict(n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg), device=device, dtype=dtype)
+    if cfg.family == "hybrid":
+        m = init_mamba2_cache(batch, n_heads=_ssm_heads(cfg), head_dim=SSM_HEAD_DIM,
+                              d_state=cfg.ssm_state, device=device)
+        return {**_stacked(m, lead, "mamba/"),
+                **_stacked(init_cache(batch, seq, **kv), lead[:1], "attn/")}
+    if cfg.family == "ssm":
+        heads = dict(n_heads=cfg.n_heads, head_dim=_head_dim(cfg), device=device)
+        cache = {}
+        for cell in XLSTM_CELLS:
+            init = init_slstm_cache if cell == "s" else init_mlstm_cache
+            cache.update(_stacked(init(batch, **heads), lead, f"blocks/{cell}/"))
+        return cache
     if cfg.kv_lora:
         base = init_mla_cache(batch, seq, kv_lora=cfg.kv_lora, device=device, dtype=dtype)
     else:
-        base = init_cache(batch, seq, n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg),
-                          device=device, dtype=dtype)
-    return {f"layers/{k}": v.expand(cfg.n_layers, *v.shape).clone() for k, v in base.items()}
+        base = init_cache(batch, seq, **kv)
+    return _stacked(base, lead, "layers/")
 
 
 def cache_from_jax(tree_of_numpy, device) -> Tree:
@@ -78,25 +119,79 @@ def _attn_decode_any(lp, h, pos, lc, cfg):
                             window=cfg.window)
 
 
-def lm_decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, pos: torch.Tensor, cfg,
-                   dtype=torch.bfloat16):
-    """tokens: (B,) ids of this step; pos: (B,) their positions. Writes
-    each layer's cache at ``pos`` in place. Returns ``(logits (B, V)
-    float32, cache)``."""
-    _check_decode(cfg)
-    x = F.embedding(tokens[:, None], params["embed"]).to(dtype)
-    layers = _sub(params, "layers/")
-    caches = _sub(cache, "layers/")
+def _index(tree: Tree, *idx) -> Tree:
+    return {k: v[idx] for k, v in tree.items()}
+
+
+def _hybrid_layers(params, cache, x, pos, cfg):
+    """The Mamba2 layers, each block followed by the shared block on
+    ``[h, emb0]``."""
+    layers, emb0 = _sub(params, "layers/"), x
+    mamba, attn = _sub(cache, "mamba/"), _sub(cache, "attn/")
+    sp = _sub(params, "shared_attn/")
+    nb, per = _layer_axes(cfg)
+    kw = dict(n_heads=_ssm_heads(cfg), head_dim=SSM_HEAD_DIM, d_state=cfg.ssm_state)
+    for i in range(nb):
+        for j in range(per):
+            lp = _index(layers, i, j)
+            out, _ = mamba2_decode(_sub(lp, "m/"), rmsnorm(x, lp["ln"]), _index(mamba, i, j),
+                                   **kw)
+            x = x + out
+        z = rmsnorm(torch.cat([x, emb0], dim=-1), sp["ln"])
+        z = z @ sp["w_in"].to(z.dtype)
+        a, _ = attention_decode(_sub(sp, "attn/"), z, pos, _index(attn, i),
+                                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                                head_dim=_head_dim(cfg), rope_theta=cfg.rope_theta)
+        z = z + a
+        z = z + swiglu_mlp(_sub(sp, "mlp/"), rmsnorm(z, sp["ln2"]))
+        x = x + z
+    return x
+
+
+def _ssm_layers(params, cache, x, cfg):
+    """The (mLSTM, mLSTM, sLSTM) blocks, each cell behind its RMSNorm and
+    added to the residual."""
+    layers, blocks = _sub(params, "layers/"), _sub(cache, "blocks/")
+    kw = dict(n_heads=cfg.n_heads, head_dim=_head_dim(cfg))
+    for i in range(_layer_axes(cfg)[0]):
+        bp, bc = _index(layers, i), _index(blocks, i)
+        for cell, step in zip(XLSTM_CELLS, (mlstm_decode, mlstm_decode, slstm_decode)):
+            lp = _sub(bp, f"{cell}/")
+            out, _ = step(_sub(lp, "cell/"), rmsnorm(x, lp["ln"]), _sub(bc, f"{cell}/"), **kw)
+            x = x + out
+    return x
+
+
+def _attn_layers(params, cache, x, pos, cfg):
+    """The attention families' layers: attention (GQA or MLA), then the
+    SwiGLU or the MoE block."""
+    layers, caches = _sub(params, "layers/"), _sub(cache, "layers/")
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in layers.items()}
+        lp = _index(layers, i)
         a, _ = _attn_decode_any(_sub(lp, "attn/"), rmsnorm(x, lp["ln1"]), pos,
-                                {k: v[i] for k, v in caches.items()}, cfg)
+                                _index(caches, i), cfg)
         x = x + a
         z = rmsnorm(x, lp["ln2"])
         if cfg.family == "moe":
             x = x + moe_tp(_sub(lp, "moe/"), z, n_experts=cfg.n_experts, top_k=cfg.top_k)
         else:
             x = x + swiglu_mlp(_sub(lp, "mlp/"), z)
+    return x
+
+
+def lm_decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, pos: torch.Tensor, cfg,
+                   dtype=torch.bfloat16):
+    """tokens: (B,) ids of this step; pos: (B,) their positions. Writes
+    each layer's cache (at ``pos``, or the recurrent state) in place.
+    Returns ``(logits (B, V) float32, cache)``."""
+    _check_decode(cfg)
+    x = F.embedding(tokens[:, None], params["embed"]).to(dtype)
+    if cfg.family == "hybrid":
+        x = _hybrid_layers(params, cache, x, pos, cfg)
+    elif cfg.family == "ssm":
+        x = _ssm_layers(params, cache, x, cfg)
+    else:
+        x = _attn_layers(params, cache, x, pos, cfg)
     h = rmsnorm(x, params["ln_f"])
     return lm_logits(params, h, cfg)[:, 0], cache
 

@@ -1,5 +1,5 @@
-"""Encoder-decoder transformer, train path (port of the train half of
-``repro/models/encdec.py`` at tp = 1: the seamless-m4t backbone).
+"""Encoder-decoder transformer (port of ``repro/models/encdec.py`` at
+tp = 1: the seamless-m4t backbone), train and decode.
 
 Encoder: the audio frontend is a stub, as in the JAX package: the batch
 carries precomputed frame embeddings (B, T_src, frontend_dim), cast to
@@ -18,9 +18,20 @@ Parameters are a flat dict of leaves named by their JAX pytree paths
 (``enc_layers/attn/wq``, ``dec_layers/ln_x/w``), every per-layer weight
 one leaf with a leading layer axis, as in ``models/transformer.py``. The
 JAX package wraps each layer in ``jax.checkpoint``; that changes memory,
-not values, and the port keeps the activations instead. The decode half
-(``init_encdec_cache``, ``encdec_prefill``, ``encdec_decode_step``) is not
-ported yet.
+not values, and the port keeps the activations instead.
+
+Decode (:func:`init_encdec_cache`, :func:`encdec_prefill`,
+:func:`encdec_decode_step`): the prefill runs the encoder and projects
+every decoder layer's cross-attention K and V once; each step then runs
+the decoder on one token per sequence, its causal self-attention through
+``attention_decode`` (θ 10,000, no window; the cache written in place at
+``pos``) and its cross attention over the whole encoder cache in float32,
+unmasked, with ``torch.softmax`` (the JAX package's ``jax.nn.softmax``).
+The cache is a flat dict of stacked leaves with a leading decoder-layer
+axis: ``self/k``, ``self/v`` (L, B, S, Hkv, dh), ``self/kv_pos`` (L, B,
+S) and ``cross/k``, ``cross/v`` (L, B, S_src, Hkv, dh), ``cross/pos`` (L,
+B, S_src). The JAX package has no engine for this family; a greedy loop
+over :func:`encdec_decode_step` drives it.
 """
 from __future__ import annotations
 
@@ -29,7 +40,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.attention import attention_train, gqa_attend
+from repro_torch.models.attention import (
+    attention_decode, attention_train, f32_scale, gqa_attend, init_cache,
+)
 from repro_torch.models.common import cross_entropy, dense_init, layernorm, rope
 from repro_torch.models.mlp import gelu_mlp
 from repro_torch.models.transformer import _attn_shapes, _head_dim, _sub
@@ -197,3 +210,75 @@ def encdec_loss(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
     per_tok = cross_entropy(logits, labels)
     mask = (labels >= 0).to(torch.float32)
     return torch.sum(per_tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def init_encdec_cache(cfg, batch: int, seq: int, s_src: int, *, device,
+                      dtype=torch.bfloat16) -> Tree:
+    """An empty decode cache for every decoder layer (the module
+    docstring's layout): the self-attention's KV cache of ``seq`` slots,
+    every slot empty, and a zero cross-attention cache of ``s_src``
+    encoder positions, both in ``dtype``."""
+    hkv, dh = cfg.n_kv_heads, _head_dim(cfg)
+    base = {f"self/{k}": v for k, v in init_cache(batch, seq, n_kv_heads=hkv, head_dim=dh,
+                                                  device=device, dtype=dtype).items()}
+    base.update({f"cross/{k}": torch.zeros(batch, s_src, hkv, dh, dtype=dtype, device=device)
+                 for k in ("k", "v")})
+    base["cross/pos"] = torch.zeros(batch, s_src, dtype=torch.int32, device=device)
+    return {k: v.expand(cfg.dec_layers, *v.shape).clone() for k, v in base.items()}
+
+
+def encdec_prefill(params: Tree, frames: torch.Tensor, cache: Tree, cfg,
+                   dtype=torch.bfloat16) -> Tree:
+    """Run the encoder on ``frames`` (B, Ts, frontend_dim) and fill the
+    cross-attention cache: each decoder layer's K and V of the encoder
+    states, cast to ``dtype``, and their positions 0 ... Ts - 1. As in the
+    JAX package the cross entries are replaced (their S_src becomes Ts);
+    the self-attention cache is kept. Returns the cache."""
+    enc_out = encode(params, frames, cfg, dtype)
+    b, ts = enc_out.shape[:2]
+    ks, vs = [], []
+    for lp in _layers(params, "dec_layers"):
+        k, v = _project_enc_kv(_sub(lp, "cross_attn/"), enc_out, cfg)
+        ks.append(k.to(dtype))
+        vs.append(v.to(dtype))
+    pos = torch.arange(ts, dtype=torch.int32, device=enc_out.device).expand(b, ts)
+    cache.update({"cross/k": torch.stack(ks), "cross/v": torch.stack(vs),
+                  "cross/pos": pos.expand(len(ks), b, ts).clone()})
+    return cache
+
+
+def _cross_attention_decode(p, z: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            cfg) -> torch.Tensor:
+    """One query per sequence, z (B, 1, d), over every cached encoder
+    position (k, v: (B, S_src, Hkv, dh)) in float32, no mask: the logits
+    times 1/√dh (float32), ``torch.softmax``, then ``wo`` in z's type."""
+    b, hq, hkv, dh = z.shape[0], cfg.n_heads, cfg.n_kv_heads, _head_dim(cfg)
+    q = (z @ p["wq"].to(z.dtype)).reshape(b, hkv, hq // hkv, dh)
+    logits = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32), k.to(torch.float32))
+    w = torch.softmax(logits * f32_scale(dh), dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", w, v.to(torch.float32))
+    return o.reshape(b, 1, hq * dh).to(z.dtype) @ p["wo"].to(z.dtype)
+
+
+def encdec_decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, pos: torch.Tensor,
+                       cfg, dtype=torch.bfloat16):
+    """tokens: (B,) ids of this step; pos: (B,) their positions. Each
+    decoder layer: causal self-attention against the cache (written at
+    ``pos`` in place), cross attention to the prefilled encoder cache, the
+    GELU MLP, each behind its LayerNorm. Returns ``(logits (B, V)
+    float32, cache)``."""
+    x = F.embedding(tokens[:, None], params["embed"]).to(dtype)
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg))
+    selfc, cross = _sub(cache, "self/"), _sub(cache, "cross/")
+    for i, lp in enumerate(_layers(params, "dec_layers")):
+        a, _ = attention_decode(_sub(lp, "self_attn/"), _ln(x, lp, "ln1"), pos,
+                                {k: v[i] for k, v in selfc.items()}, **kw)
+        x = x + a
+        x = x + _cross_attention_decode(_sub(lp, "cross_attn/"), _ln(x, lp, "ln_x"),
+                                        cross["k"][i], cross["v"][i], cfg)
+        x = x + gelu_mlp(_sub(lp, "mlp/"), _ln(x, lp, "ln2"))
+    x = _ln(x, params, "ln_dec")
+    return (x @ params["lm_head"].to(x.dtype)).to(torch.float32)[:, 0], cache

@@ -1,5 +1,7 @@
-"""Mamba2 (SSD) block, train path (port of ``repro/models/ssm.py`` at
-tp = 1: ``_causal_conv``, ``_ssd_chunk`` and ``mamba2_train``).
+"""Mamba2 (SSD) block (port of ``repro/models/ssm.py`` at tp = 1): the
+train path (``_causal_conv``, ``_ssd_chunk``, ``mamba2_train``) and the
+one-token decode with its O(1) state (``init_mamba2_cache``,
+``mamba2_decode``).
 
 State space:  h_t = exp(A·dt_t) h_{t-1} + dt_t · (B_t ⊗ x_t),   y_t = C_t · h_t
 with scalar A<0 per head, shared B/C projections (ngroups=1), per-head dt.
@@ -20,6 +22,14 @@ recomputes it rather than keep its (B, Q, Q, H) float32 temporaries.
 The stages (:func:`in_proj`, :func:`_causal_conv`, :func:`ssd_intra`,
 :func:`ssd_states`, :func:`ssd_inter`, :func:`gate_norm`) are separate
 functions so that each can be timed alone.
+
+The decode step (:func:`mamba2_decode`) keeps the conv's last K - 1
+inputs and the (N, P) state of every head, float32, and writes both in
+place. It follows the JAX package's types, which differ from train's: the
+conv buffer is float32 (``init_mamba2_cache``'s default), so the new
+input joins it in float32 and the taps' products and sum are float32
+(``jnp.sum`` sums a bf16 product in float32 too, then rounds); the SiLU'd
+conv output stays float32 into the state update and the skip term.
 """
 from __future__ import annotations
 
@@ -142,3 +152,42 @@ def mamba2_train(p, x: torch.Tensor, *, n_heads: int, head_dim: int, d_state: in
     )
     y = gate_norm(p, y.reshape(b, t, n_heads, head_dim), xh, z)
     return y @ p["w_out"].to(x.dtype)
+
+
+def init_mamba2_cache(batch: int, *, n_heads: int, head_dim: int, d_state: int, device,
+                      dtype=torch.float32):
+    """One layer's decode state: {"conv": (B, K - 1, H·P) in ``dtype`` (the
+    last K - 1 conv inputs), "h": (B, H, N, P) float32}, all zeros."""
+    return {"conv": torch.zeros(batch, CONV_K - 1, n_heads * head_dim, dtype=dtype,
+                                device=device),
+            "h": torch.zeros(batch, n_heads, d_state, head_dim, dtype=torch.float32,
+                             device=device)}
+
+
+def mamba2_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int, d_state: int):
+    """One token per sequence. x: (B, 1, d); cache: :func:`init_mamba2_cache`'s,
+    written in place. Returns ``(out (B, 1, d), cache)``."""
+    b, n = x.shape[0], d_state
+    xz = (x @ p["w_xz"].to(x.dtype))[:, 0]
+    xin, z = torch.chunk(xz, 2, dim=-1)
+    ct = torch.promote_types(cache["conv"].dtype, xin.dtype)
+    hist = torch.cat([cache["conv"].to(ct), xin[:, None, :].to(ct)], dim=1)  # (B, K, C)
+    prod = hist * p["conv_w"].to(x.dtype)[None]
+    conv = torch.sum(prod, dim=1, dtype=torch.float32).to(prod.dtype)
+    xh = F.silu(conv.to(torch.float32)).reshape(b, n_heads, head_dim)
+    cache["conv"].copy_(hist[:, 1:])
+    x0 = x[:, 0]
+    bc = (x0 @ p["w_bc"].to(x.dtype)).to(torch.float32)
+    dt = _softplus((x0 @ p["w_dt"].to(x.dtype)).to(torch.float32)
+                   + p["dt_bias"].to(torch.float32))
+    a = -torch.exp(p["a_log"].to(torch.float32))
+    decay = torch.exp(a[None, :] * dt)  # (B, H)
+    h = decay[:, :, None, None] * cache["h"] + torch.einsum(
+        "bh,bn,bhp->bhnp", dt, bc[:, :n], xh)
+    cache["h"].copy_(h)
+    y = torch.einsum("bn,bhnp->bhp", bc[:, n:], h)
+    y = y + p["d_skip"].to(torch.float32)[None, :, None] * xh
+    y = y.reshape(b, 1, n_heads * head_dim).to(x.dtype)
+    y = y * F.silu(z.to(torch.float32)).to(x.dtype)[:, None, :]
+    y = rmsnorm(y, p["norm_w"])
+    return y @ p["w_out"].to(x.dtype), cache

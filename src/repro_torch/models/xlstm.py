@@ -1,5 +1,7 @@
-"""xLSTM blocks, train path (port of ``repro/models/xlstm.py`` at tp = 1:
-``_mlstm_chunk``, ``mlstm_train``, ``_slstm_cell`` and ``slstm_train``).
+"""xLSTM blocks (port of ``repro/models/xlstm.py`` at tp = 1): the train
+path (``_mlstm_chunk``, ``mlstm_train``, ``_slstm_cell``, ``slstm_train``)
+and the one-token decode with its O(1) state (``init_mlstm_cache``,
+``mlstm_decode``, ``init_slstm_cache``, ``slstm_decode``).
 
 mLSTM (matrix memory, per head; f = sigmoid(f̃), i = exp(min(ĩ, 0))):
     C_t = f_t C_{t-1} + i_t (k_t ⊗ v_t),   n_t = f_t n_{t-1} + i_t k_t,
@@ -24,11 +26,19 @@ bf16.
 The stages (:func:`mlstm_proj`, :func:`mlstm_intra`, :func:`mlstm_states`,
 :func:`mlstm_inter`, :func:`slstm_proj`, :func:`slstm_scan`,
 :func:`out_proj`) are separate functions so that each can be timed alone.
+
+The decode steps (:func:`mlstm_decode`, :func:`slstm_decode`) carry each
+head's state in float32 (mLSTM: C (dh, dh) and n (dh,); sLSTM: h and c)
+and write it in place. The mLSTM step divides q and k by √dh as the JAX
+package does, by a float32 tensor: a division by a Python scalar becomes a
+product with its reciprocal on the card, which rounds differently. The
+sLSTM step is one step of :func:`slstm_scan_reference` (:func:`slstm_cell`).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.models.common import rmsnorm
@@ -229,21 +239,32 @@ def slstm_scan(zx: torch.Tensor, r_h: torch.Tensor, n_heads: int,
     return hs.permute(2, 0, 1, 3).reshape(b, t, n_heads * head_dim)
 
 
+def slstm_cell(zx_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor, r: torch.Tensor,
+               n_heads: int, head_dim: int):
+    """One step of the cell as the JAX package's ``_slstm_cell`` writes it,
+    float32: zx_t (B, 4·H·dh) read as (B, H, 4·dh) gains h @ r per head
+    (h, c: (B, H, dh); r: (H, dh, 4·dh) float32), splits into i, f, g, o,
+    and ``c = sigmoid(f)·c + exp(min(i, 0))·tanh(g)``,
+    ``h = sigmoid(o)·tanh(c)``. Returns the new (h, c)."""
+    z = zx_t.reshape(zx_t.shape[0], n_heads, 4 * head_dim) + torch.einsum("bhd,hde->bhe", h, r)
+    zi, zf, zg, zo = torch.split(z, head_dim, dim=-1)
+    c = torch.sigmoid(zf) * c + torch.exp(torch.clamp(zi, max=0.0)) * torch.tanh(zg)
+    return torch.sigmoid(zo) * torch.tanh(c), c
+
+
 def slstm_scan_reference(zx: torch.Tensor, r_h: torch.Tensor, n_heads: int,
                          head_dim: int) -> torch.Tensor:
     """:func:`slstm_scan` as the JAX package writes its step, each step
-    through autograd: the reference that the hand-written backward is held
-    to (on the CPU by the tests, on the card by ``chip_smoke.py``)."""
+    (:func:`slstm_cell`) through autograd: the reference that the
+    hand-written backward is held to (on the CPU by the tests, on the card
+    by ``chip_smoke.py``)."""
     b, t, _ = zx.shape
     r = r_h.to(torch.float32)
     h = torch.zeros(b, n_heads, head_dim, dtype=torch.float32, device=zx.device)
     c = torch.zeros_like(h)
     hs = []
     for i in range(t):
-        z = zx[:, i].reshape(b, n_heads, 4 * head_dim) + torch.einsum("bhd,hde->bhe", h, r)
-        zi, zf, zg, zo = torch.split(z, head_dim, dim=-1)
-        c = torch.sigmoid(zf) * c + torch.exp(torch.clamp(zi, max=0.0)) * torch.tanh(zg)
-        h = torch.sigmoid(zo) * torch.tanh(c)
+        h, c = slstm_cell(zx[:, i], h, c, r, n_heads, head_dim)
         hs.append(h)
     return torch.stack(hs, dim=1).reshape(b, t, n_heads * head_dim)
 
@@ -252,3 +273,56 @@ def slstm_train(p, x: torch.Tensor, *, n_heads: int, head_dim: int) -> torch.Ten
     """x: (B, T, d) -> (B, T, d)."""
     hs = slstm_scan(slstm_proj(p, x), p["r_h"], n_heads, head_dim)
     return out_proj(p, hs, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode: one token per sequence, the state written in place
+# ---------------------------------------------------------------------------
+def init_mlstm_cache(batch: int, *, n_heads: int, head_dim: int, device):
+    """One mLSTM layer's state: {"C": (B, H, dh, dh), "n": (B, H, dh)},
+    float32 zeros."""
+    return {"C": torch.zeros(batch, n_heads, head_dim, head_dim, dtype=torch.float32,
+                             device=device),
+            "n": torch.zeros(batch, n_heads, head_dim, dtype=torch.float32, device=device)}
+
+
+def mlstm_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int):
+    """x: (B, 1, d); cache: :func:`init_mlstm_cache`'s, written in place.
+    Returns ``(out (B, 1, d), cache)``."""
+    b, h, dh = x.shape[0], n_heads, head_dim
+    to = lambda w: (x[:, 0] @ w.to(x.dtype)).to(torch.float32)
+    # √dh in float32 as a one-element tensor: a true division on the card too
+    root = torch.full((1,), float(np.sqrt(np.float32(dh))), dtype=torch.float32,
+                      device=x.device)
+    q = to(p["w_q"]).reshape(b, h, dh) / root
+    k = to(p["w_k"]).reshape(b, h, dh) / root
+    v = to(p["w_v"]).reshape(b, h, dh)
+    gi = to(p["w_if"]) + p["if_bias"].to(torch.float32)
+    i_g = torch.exp(torch.clamp(gi[..., :h], max=0.0))
+    f_g = torch.sigmoid(gi[..., h:])
+    c = f_g[:, :, None, None] * cache["C"] + i_g[:, :, None, None] * torch.einsum(
+        "bhd,bhe->bhde", k, v)
+    n = f_g[:, :, None] * cache["n"] + i_g[:, :, None] * k
+    cache["C"].copy_(c)
+    cache["n"].copy_(n)
+    denom = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", q, n)), min=1.0)
+    y = torch.einsum("bhd,bhde->bhe", q, c) / denom[..., None]
+    return out_proj(p, y.reshape(b, 1, h * dh), x.dtype), cache
+
+
+def init_slstm_cache(batch: int, *, n_heads: int, head_dim: int, device):
+    """One sLSTM layer's state: {"h", "c": (B, H, dh)}, float32 zeros."""
+    return {k: torch.zeros(batch, n_heads, head_dim, dtype=torch.float32, device=device)
+            for k in ("h", "c")}
+
+
+def slstm_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int):
+    """x: (B, 1, d); cache: :func:`init_slstm_cache`'s, written in place.
+    Returns ``(out (B, 1, d), cache)``."""
+    b = x.shape[0]
+    zx = slstm_proj(p, x)[:, 0]
+    h, c = slstm_cell(zx, cache["h"], cache["c"], p["r_h"].to(torch.float32), n_heads,
+                      head_dim)
+    cache["h"].copy_(h)
+    cache["c"].copy_(c)
+    return out_proj(p, h.reshape(b, 1, n_heads * head_dim), x.dtype), cache

@@ -3,9 +3,14 @@
 
   * slot-based continuous batching: requests claim free slots, and a
     finished sequence frees its slot without stalling the batch;
-  * prompt prefill token by token through the batched decode step (every
-    slot steps; the other slots rewrite their current entry with the same
-    values);
+  * prompt prefill token by token through the batched decode step: every
+    slot steps, as in the JAX package's engine. In the attention families
+    the other slots rewrite their current KV entry with the same values.
+    In the recurrent families (hybrid, ssm) they do not: each slot's O(1)
+    state advances on every step, the other slots' prefill steps included,
+    and a slot's state is not reset when it admits a request, which so
+    inherits the state its slot's last occupant left. The port keeps this
+    reference behaviour, so that its token streams equal the JAX engine's;
   * greedy sampling (:func:`~repro_torch.models.decode.tp_greedy`, the
     argmax at tp = 1);
   * a train→serve weight refresh over the integer wire
@@ -41,8 +46,8 @@ class Request:
 
 class ServeEngine:
     """``slots`` sequences of up to ``max_seq`` tokens decoded together:
-    bf16 activations and a bf16 cache (the JAX engine's), params in their
-    own type."""
+    bf16 activations and a bf16 KV cache (the JAX engine's; the recurrent
+    families' states float32), params in their own type."""
 
     def __init__(self, cfg, params: Dict[str, torch.Tensor], *, slots: int = 4,
                  max_seq: int = 256, device=None):

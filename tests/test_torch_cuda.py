@@ -1049,7 +1049,8 @@ def test_checkpoint_of_card_state_round_trips(dev, tmp_path):
     assert torch.equal(got["comp"].r, tree["comp"].r) and int(got["comp"].step) == 7
 
 
-@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b", "deepseek-v2-lite-16b",
+                                  "zamba2-2.7b", "xlstm-125m"])
 def test_decode_on_the_card_matches_the_cpu(dev, name):
     """``lm_decode_step`` (smoke widths, float32) for 6 steps of 3
     sequences on the card and on the CPU from the same weights: logits
@@ -1083,6 +1084,115 @@ def test_decode_on_the_card_matches_the_cpu(dev, name):
         else:
             torch.testing.assert_close(c_g[k], c_c[k], rtol=0,
                                        atol=1e-5 * c_c[k].abs().max().item())
+
+
+def _recurrent_step_case(name):
+    """(port step, weights, random nonzero state) of one recurrent decode
+    step at the smoke widths (d 64, 4 heads; Mamba2 2 heads of 64, N 16)."""
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.common import dense_init
+
+    g = torch.Generator().manual_seed(6)
+    d, h, dh = 64, 4, 16
+    w = lambda *shape: dense_init(shape, shape[-2], generator=g, device="cpu")
+    if name == "mamba2":
+        hm, pm, n = 2, 64, 16
+        di = hm * pm
+        p = {"w_xz": w(d, 2 * di), "w_bc": w(d, 2 * n), "w_dt": w(d, hm),
+             "dt_bias": torch.full((hm,), -4.0), "conv_w": w(ssm.CONV_K, di),
+             "a_log": torch.zeros(hm), "d_skip": torch.ones(hm), "norm_w": torch.ones(di),
+             "w_out": w(di, d)}
+        state = {"conv": torch.randn(3, ssm.CONV_K - 1, di, generator=g),
+                 "h": torch.randn(3, hm, n, pm, generator=g)}
+        return lambda *a: ssm.mamba2_decode(*a, n_heads=hm, head_dim=pm, d_state=n), p, state
+    dk = h * dh
+    if name == "mlstm":
+        p = {"w_q": w(d, dk), "w_k": w(d, dk), "w_v": w(d, dk), "w_if": w(d, 2 * h),
+             "if_bias": torch.cat([torch.full((h,), -2.0), torch.full((h,), 3.0)]),
+             "norm_w": torch.ones(dk), "w_out": w(dk, d)}
+        state = {"C": torch.randn(3, h, dh, dh, generator=g),
+                 "n": torch.randn(3, h, dh, generator=g)}
+        return lambda *a: xlstm.mlstm_decode(*a, n_heads=h, head_dim=dh), p, state
+    p = {"w_in": w(d, 4 * dk), "r_h": w(h, dh, 4 * dh), "b": torch.zeros(4 * dk),
+         "norm_w": torch.ones(dk), "w_out": w(dk, d)}
+    state = {"h": torch.randn(3, h, dh, generator=g), "c": torch.randn(3, h, dh, generator=g)}
+    return lambda *a: xlstm.slstm_decode(*a, n_heads=h, head_dim=dh), p, state
+
+
+@pytest.mark.parametrize("name", ["mamba2", "mlstm", "slstm"])
+def test_recurrent_decode_step_on_the_card_matches_the_cpu(dev, name):
+    """One float32 step of ``mamba2_decode``, ``mlstm_decode`` or
+    ``slstm_decode`` from a random nonzero state, on the card and on the
+    CPU: the output and the new state within 1e-5 of their largest |value|,
+    the state written in place."""
+    step, p, state = _recurrent_step_case(name)
+    x = torch.randn(3, 1, 64, generator=torch.Generator().manual_seed(7))
+    runs = {}
+    for device in ("cpu", dev):
+        cache = {k: v.to(device, copy=True) for k, v in state.items()}  # each run's own
+        ptrs = {k: v.data_ptr() for k, v in cache.items()}
+        out, new = step({k: v.to(device) for k, v in p.items()}, x.to(device), cache)
+        assert new is cache and {k: v.data_ptr() for k, v in new.items()} == ptrs
+        runs[str(device)] = out.cpu(), {k: v.cpu() for k, v in new.items()}
+    (o_c, s_c), (o_g, s_g) = runs["cpu"], runs[str(dev)]
+    torch.testing.assert_close(o_g, o_c, rtol=0, atol=1e-5 * o_c.abs().max().item())
+    for k in s_c:
+        torch.testing.assert_close(s_g[k], s_c[k], rtol=0, atol=1e-5 * s_c[k].abs().max().item())
+
+
+def test_served_zamba2_step_on_the_card(dev):
+    """The engine serves the zamba2-2.7b smoke model on the card (bf16
+    activations and cache, float32 Mamba2 states): one step's logits
+    finite, every token of two requests in the vocabulary."""
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.models.decode import lm_decode_step
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = smoke_config(get_arch("zamba2-2.7b"))
+    params = init_lm_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    eng = ServeEngine(cfg, params, slots=2, max_seq=32, device=dev)
+    with torch.no_grad():
+        logits, _ = lm_decode_step(eng.params, eng.cache, torch.tensor([5, 6], device=dev),
+                                   torch.zeros(2, dtype=torch.long, device=dev), cfg)
+    assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+    reqs = [Request(rid=i, prompt=[3 + i, 4, 5], max_new=4) for i in range(2)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done and all(0 <= t < cfg.vocab for t in r.out) for r in reqs)
+    assert eng.cache["mamba/h"].dtype == torch.float32 and eng.cache["attn/k"].is_cuda
+
+
+def test_encdec_decode_on_the_card_matches_the_cpu(dev):
+    """seamless-m4t's smoke decode (float32): prefill from 24 frames and 6
+    greedy steps of 3 sequences on the card and on the CPU, logits within
+    1e-5 of the largest |logit|, the same greedy tokens."""
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.models import encdec
+    from repro_torch.models.decode import tp_greedy
+
+    cfg = smoke_config(get_arch("seamless-m4t-medium"))
+    params = encdec.init_encdec_params(cfg, generator=torch.Generator().manual_seed(2),
+                                       device="cpu")
+    frames = torch.randn(3, 24, cfg.frontend_dim, generator=torch.Generator().manual_seed(3))
+    runs = {}
+    for device in ("cpu", dev):
+        p = {k: v.to(device) for k, v in params.items()}
+        cache = encdec.init_encdec_cache(cfg, 3, 8, 24, device=device, dtype=torch.float32)
+        cache = encdec.encdec_prefill(p, frames.to(device), cache, cfg, torch.float32)
+        tok, logits = torch.tensor([1, 2, 3], device=device), []
+        for t in range(6):
+            out, cache = encdec.encdec_decode_step(p, cache, tok, torch.full((3,), t,
+                                                                              device=device),
+                                                   cfg, dtype=torch.float32)
+            tok = tp_greedy(out)
+            logits.append(out.cpu())
+        runs[str(device)] = torch.stack(logits)
+    l_c, l_g = runs["cpu"], runs[str(dev)]
+    torch.testing.assert_close(l_g, l_c, rtol=0, atol=1e-5 * l_c.abs().max().item())
+    assert torch.equal(tp_greedy(l_g), tp_greedy(l_c))
 
 
 def test_wire_delta_on_a_leaf_past_2_to_30_matches_plain(dev):

@@ -22,7 +22,10 @@
    where the MoE capacity of 8 drops nothing in either).
 4. MoE decode drops nothing at 8 slots or fewer, even with every token on
    one expert (a token picks an expert at most once); at 9 tokens it can.
-5. The hybrid, ssm and encdec configs are refused, naming item 12.5b.
+5. The encoder-decoder has no decoder-only cache: ``init_lm_cache`` and
+   ``lm_decode_step`` raise ``ValueError`` for it, as the JAX package's
+   ``init_lm_cache`` does (the recurrent families' decode is
+   ``test_torch_recurrent_decode.py``'s).
 
 Tolerances: float32 at rtol 1e-5 with atol 1e-5 of the largest |value|
 (the two packages sum the products in different orders); bf16 within 2
@@ -251,10 +254,12 @@ def test_moe_decode_batch_equals_alone():
 
 
 # --------------------------------------------------------------------- 5.
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "xlstm-125m", "seamless-m4t-medium"])
+@pytest.mark.parametrize("name", ["seamless-m4t-medium"])
 def test_unported_decode_raises(name):
     cfg = smoke_config(get_arch(name))
-    with pytest.raises(NotImplementedError, match="12.5b"):
+    with pytest.raises(ValueError):  # as JAX's init_lm_cache
+        jdecode.init_lm_cache(jsmoke(jget_arch(name)), 1, 1, 2, 8)
+    with pytest.raises(ValueError, match="init_encdec_cache"):
         init_lm_cache(cfg, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="12.5b"):
+    with pytest.raises(ValueError, match="init_encdec_cache"):
         lm_decode_step({}, {}, torch.zeros(2, dtype=torch.long), torch.zeros(2), cfg)

@@ -112,7 +112,7 @@ def test_chunk_rule_pins_jax(size, nblocks, per, nonzero):
     assert (want[nonzero:] == 0).all()
 
 
-@settings(max_examples=30, deadline=None)
+@settings(max_examples=30, deadline=None, derandomize=True)
 @given(size=st.integers(1, 5000), nblocks=st.integers(1, 8), seed=st.integers(0, 2**31 - 1),
        integer=st.booleans())
 def test_chunk_rule_sweep_matches_jax(size, nblocks, seed, integer):

@@ -86,7 +86,7 @@ if HAVE_HYPOTHESIS:
         size=st.integers(1, 300),
         seed=st.integers(0, 2**31 - 1),
     )
-    @settings(max_examples=60, deadline=None)
+    @settings(max_examples=60, deadline=None, derandomize=True)
     def test_gather_aggregation_safety(bits, k, n, size, seed):
         """unpack of the n stacked payloads == the sum of the n workers'
         top-k-masked images, at the full-range boundary too and for k past
