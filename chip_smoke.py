@@ -103,7 +103,8 @@ Phases, each of which must pass for the exit code to be 0:
                for all corners) sharing the card through a gloo process
                group, each one worker of three corners at full width, seq
                2048, batch 1 per worker, 3 steps: ranks zero1-sgd (SGD /
-               IntSGD / packed8, 2 layers), ranks zero1-adamw-intdiana-m2
+               IntSGD / packed8, 1 layer: at 2 the script's phases had
+               reached 872.7 s), ranks zero1-adamw-intdiana-m2
                (AdamW / IntDIANA / dense8, 2 pipelined microbatches whose
                reduces are issued async; 1 layer, as four ranks of it do not
                fit in 80 GB at 2), ranks fused-sgd-ring (fused SGD / IntSGD /
@@ -317,6 +318,22 @@ Phases, each of which must pass for the exit code to be 0:
                1e-4 of the largest |logit|, and 8 decode steps on the card
                give the CPU's logits and caches within 1e-5 of their largest
                |value|.
+ 23. tensor parallelism — four gloo ranks sharing the card on a 2 × 2
+               data × model grid (launch.mesh.make_debug_mesh), train_loop
+               on each rank's shard at published width: granite-8b at 2
+               layers, bf16 params, fused SGD / IntSGD / packed8, and
+               deepseek-v2-lite-16b at 1 layer (moe_ep: 32 experts a rank,
+               the dispatch exchanged by all-to-all; MLA on 8 heads a rank),
+               float32, ZeRO-1 AdamW / IntSGD / packed8, 3 steps each at seq
+               2048, global batch 4. Checks: losses finite; max_int <= 2·63;
+               the two dp replicas of each model shard bit-identical after
+               every step (params' checksums); the step-0 loss within 1e-2
+               relative of the same global params at tp = 1 on the local
+               backend (n = 2, on the card); every rank's kernel launches
+               exact for its local leaves; deepseek's MoE dropped share of
+               (token, choice) pairs under 30 %. Prints each rank's ms a step
+               and peak GiB, the all-to-all's ms and the psum_tp calls a
+               step.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -1372,9 +1389,11 @@ def cross_route_phase(checks, histories) -> None:
 # accumulator whole), so that corner runs at depth 1. So does the fused
 # ring corner: at depth 2 its four ranks reserved 74.4 GiB of the card's
 # 78.3 free (its old and new params and momentum are alive together), too
-# little room for the ranks' CUDA contexts.
+# little room for the ranks' CUDA contexts. The ZeRO-1 SGD corner runs at
+# depth 1 to keep the script's phases under ~840 s: at depth 2 they reached
+# 872.7 s on a slow host, phase 11 taking 201.0 s of it.
 RANK_CORNERS = (
-    ("ranks zero1-sgd", 2, 3, "sgd", "intsgd", "packed8", 0.3, False, 1, "off"),
+    ("ranks zero1-sgd", 1, 3, "sgd", "intsgd", "packed8", 0.3, False, 1, "off"),
     ("ranks zero1-adamw-intdiana-m2", 1, 3, "adamw", "intdiana", "dense8", 3e-4, False, 2,
      "off"),
     ("ranks fused-sgd-ring", 1, 3, "sgd", "intsgd", "packed8", 0.3, True, 1, "ring"),
@@ -2158,7 +2177,7 @@ def moe_layer_inputs(torch, cfg, device):
     """One full-width layer of ``cfg`` in bf16 on the card, seeded: its
     MoE block's params and input (the embedding through attention and the
     ln2 norm, batch 1, ``MOE_SEQ`` tokens), caught as the forward hands
-    them to ``moe_tp``."""
+    them to the MoE block (``moe_block``)."""
     import repro_torch.models.transformer as transformer
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.inputs import materialize_batch
@@ -2168,18 +2187,18 @@ def moe_layer_inputs(torch, cfg, device):
         dtype=torch.bfloat16)
     batch = materialize_batch(cfg, ShapeConfig("moe", MOE_SEQ, 1, "train"),
                               torch.Generator(device=device).manual_seed(1), device)
-    caught, real = [], transformer.moe_tp
+    caught, real = [], transformer.moe_block
 
     def catch(p, x, **kw):
         caught.append(({k: v.detach() for k, v in p.items()}, x.detach()))
         return real(p, x, **kw)
 
-    transformer.moe_tp = catch
+    transformer.moe_block = catch
     try:
         with torch.no_grad():
             transformer.lm_forward(params, batch, cfg)
     finally:
-        transformer.moe_tp = real
+        transformer.moe_block = real
     del params, batch
     return caught[0]
 
@@ -3704,6 +3723,184 @@ def recurrent_decode_phase(torch, ops, checks, device) -> collections.Counter:
     return counts
 
 
+# phase 23: tensor parallelism on a 2 x 2 grid of gloo ranks sharing the card:
+# (label, arch, layers, steps, optimizer, compressor, wire, lr, fused, param type)
+TP_GRID = (2, 2)  # (data, model)
+TP_PATHS = (
+    ("tp granite-fused-sgd-bf16", "granite-8b", 2, 3, "sgd", "intsgd", "packed8", 0.3, True,
+     "bfloat16"),
+    ("tp deepseek-zero1-adamw", "deepseek-v2-lite-16b", 1, 3, "adamw", "intsgd", "packed8",
+     3e-4, False, "float32"),
+)
+TP_SEQ = 2048
+# the dropped share of (token, choice) pairs at init: 14-19 % at tp = 1 (phase
+# 17); capacity is counted on each rank's half of the tokens here
+MAX_DROPPED = 0.3
+
+
+def tp_rank_paths(group, rank, paths, device):
+    """One rank of phase 23: each path through ``train_loop`` on this rank's
+    shard of the grid, on the shared card; per path the history, the
+    params' checksums after every step, the kernel launches, the model
+    axis's calls, the all-to-all's time, the MoE dropped pairs and the
+    peak memory."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import moe
+    from repro_torch.parallel import collectives as coll
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    grid = make_debug_mesh(*TP_GRID)
+    exchange, dispatch_indices = coll.exchange_tp, moe.dispatch_indices
+    a2a_s, dropped = [], []
+
+    def timed_exchange(x, g):  # the card's queue drained on both sides
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = exchange(x, g)
+        torch.cuda.synchronize(device)
+        a2a_s.append(time.perf_counter() - t0)
+        return out
+
+    def counted_dispatch(ids, n_experts, cap):
+        flat_e, slot, keep = dispatch_indices(ids, n_experts, cap)
+        dropped.append(torch.stack([(~keep).sum(), torch.tensor(keep.numel(),
+                                                                device=keep.device)]))
+        return flat_e, slot, keep
+
+    coll.exchange_tp, moe.dispatch_indices = timed_exchange, counted_dispatch
+    out = []
+    try:
+        for label, arch, layers, steps, opt, comp, wire, lr, fused, dtype in paths:
+            cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+            shape = ShapeConfig("chip-smoke", TP_SEQ, 2 * TP_GRID[0], "train")
+            sums = []
+
+            def on_step(i, p):
+                sums.append(params_checksums(torch, p))
+                torch.cuda.empty_cache()  # four ranks share the card
+
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            coll.reset_tp_counts()
+            a2a_s.clear()
+            dropped.clear()
+            params, history = train_loop(
+                cfg, shape, n_workers=grid.n_dp, compressor=compressor_name(comp, wire),
+                wire=wire, steps=steps, lr=lr, log_every=1, seed=0, fused=fused,
+                clip_norm=1.0, opt=opt, param_dtype=getattr(torch, dtype), device=device,
+                grid=grid, on_step=on_step)
+            drops = torch.stack(dropped).sum(0).tolist() if dropped else [0, 0]
+            out.append(dict(history=history, checksums=sums, n_leaves=len(params),
+                            launches=ops.launch_counts(), bf16=ops.bf16_launch_counts(),
+                            tp=coll.tp_counts(), a2a_ms=1e3 * sum(a2a_s), n_a2a=len(a2a_s),
+                            dropped=drops, grid=(grid.dp_index, grid.tp_index),
+                            dtypes=sorted({str(p.dtype) for p in params.values()}),
+                            peak=torch.cuda.max_memory_allocated() / 2**30,
+                            reserved=torch.cuda.max_memory_reserved() / 2**30))
+            del params
+    finally:
+        coll.exchange_tp, moe.dispatch_indices = exchange, dispatch_indices
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(torch, ops, checks, device) -> collections.Counter:
+    """Phase 23: each path's step 0 at tp = 1 on the local backend (the
+    same global weights: neither config pads for tp = 2), then the paths on
+    four gloo ranks of a 2 x 2 grid (one spawn). Returns every rank's
+    launch counts."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.parallel.spawn import run_ranks
+
+    launches = collections.Counter()
+    n_dp, tp = TP_GRID
+    step0 = {}
+    for label, arch, layers, steps, opt, comp, wire, lr, fused, dtype in TP_PATHS:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        params, hist = train_loop(
+            cfg, ShapeConfig("chip-smoke", TP_SEQ, 2 * n_dp, "train"), n_workers=n_dp,
+            compressor=compressor_name(comp, wire), wire=wire, steps=1, lr=lr, log_every=1,
+            seed=0, fused=fused, clip_norm=1.0, opt=opt, param_dtype=getattr(torch, dtype),
+            device=device)
+        launches.update(ops.launch_counts())
+        step0[label] = hist[0]["loss"]
+        print(f"{label} (tp = 1, local n = {n_dp}): step-0 loss {step0[label]!r}, "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        del params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"tp: before the spawn the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank_paths, n_dp * tp, args=(TP_PATHS, str(device)), backend="gloo",
+                      timeout_s=600)
+    print(f"tp: {n_dp} x {tp} grid of gloo ranks on one card, both paths in "
+          f"{time.perf_counter() - t0:.1f}s (spawn included)", flush=True)
+    for pi, (label, arch, layers, steps, opt, comp, wire, lr, fused, dtype) in enumerate(
+            TP_PATHS):
+        res = [r[pi] for r in ranks]
+        checks.true(f"{label}: ranks on grid places {[r['grid'] for r in res]}",
+                    [r["grid"] for r in res] == [divmod(i, tp) for i in range(n_dp * tp)])
+        checks.true(f"{label}: params {res[0]['dtypes']}", all(
+            r["dtypes"] == [f"torch.{dtype}"] for r in res))
+        hist = res[0]["history"]
+        for r in res:
+            checks.true(f"{label}: rank {r['grid']} losses finite",
+                        all(math.isfinite(h["loss"]) for h in r["history"]))
+        lim_sum = wire_limits(comp, wire, n_dp, 1)[1]
+        checks.true(f"{label}: max_int <= {lim_sum} on every compressed step, every rank "
+                    f"({[h['max_int'] for h in hist[1:]]})",
+                    all(0 < h["max_int"] <= lim_sum for r in res for h in r["history"][1:]))
+        for step in range(steps):
+            for t in range(tp):
+                sums = [res[d * tp + t]["checksums"][step] for d in range(n_dp)]
+                checks.true(f"{label}: step {step}: the {n_dp} dp replicas of model shard {t} "
+                            f"bit-identical ({len(sums[0])} leaves' checksums)",
+                            all(x == sums[0] for x in sums))
+        gap = abs(hist[0]["loss"] - step0[label]) / abs(step0[label])
+        checks.true(f"{label}: step-0 loss {hist[0]['loss']!r} on the grid within 1e-2 of "
+                    f"{step0[label]!r} at tp = 1 (relative gap {gap:.3g})", gap < 1e-2)
+        want, _, want_bf16 = expected_launches(
+            ops, res[0]["n_leaves"], steps, opt, comp, wire, fused=fused, microbatches=1,
+            n_local=1, param_dtype=dtype, n_workers=n_dp)
+        for r in res:
+            ok = all(r["launches"][k] == want[k] and r["bf16"][k] == want_bf16[k]
+                     for k in want)
+            checks.true(f"{label}: rank {r['grid']} launches {r['launches']} (expected {want}), "
+                        f"bf16 {r['bf16']} (expected {want_bf16})", ok)
+            launches.update(r["launches"])
+        if arch == "deepseek-v2-lite-16b":
+            d, n = (sum(r["dropped"][i] for r in res) for i in (0, 1))
+            checks.true(f"{label}: MoE dropped share {d}/{n} = {d / max(n, 1):.4f} "
+                        f"(< {MAX_DROPPED})", n > 0 and d / n < MAX_DROPPED)
+            checks.true(f"{label}: all-to-all calls {[r['n_a2a'] for r in res]} "
+                        f"(4 a layer and step)", all(r["n_a2a"] == 4 * layers * steps
+                                                     for r in res))
+        for r in res:
+            print(f"  {label}: rank {r['grid']}: step ms "
+                  f"{[round(h['ms'], 1) for h in r['history']]}, peak {r['peak']:.1f} GiB "
+                  f"({r['reserved']:.1f} reserved), psum_tp {r['tp'].get('psum_tp', 0) / steps:g}"
+                  f" forward + {r['tp'].get('psum_tp_backward', 0) / steps:g} backward a step, "
+                  f"all-to-all {r['a2a_ms'] / steps:.1f} ms a step over {r['n_a2a'] // steps} "
+                  f"calls (4 processes time-sharing one card, gloo staging through the host: "
+                  f"not a transport speed)", flush=True)
+        print(f"  {label}: losses {[h['loss'] for h in hist]!r}, the ranks' reserved peaks sum "
+              f"to {sum(r['reserved'] for r in res):.1f} GiB of the {free / 2**30:.2f} free",
+              flush=True)
+    return launches
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -3863,6 +4060,12 @@ def main() -> None:
     for name, c in recurrent_decode_phase(torch, ops, checks, device).items():
         launches[name] += c
     print(f"recurrent and encdec decode phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 23. tensor parallelism on a 2 x 2 grid of gloo ranks sharing the card
+    t0 = time.perf_counter()
+    for name, c in tp_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"tensor parallelism phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

@@ -29,6 +29,11 @@ optimizer rows, IntDIANA's ``h_local``, the error-feedback residuals:
 :func:`rank_rows`) are gathered on save and rank 0 writes; on restore each
 rank takes its own row. So a checkpoint written by n ranks resumes on the
 local n-worker backend, and the other way round.
+
+At tp > 1 (a data × model grid) each rank holds only its shard of the
+model axis: a store that wrote one rank's shard as if it were the global
+leaf would be a silent fault, so ``save`` and ``restore`` of a store made
+with ``tp > 1`` raise (:func:`refuse_model_shards`; ROADMAP item 12.6c).
 """
 from __future__ import annotations
 
@@ -97,6 +102,17 @@ def unflatten_like(tree_like: Any, arrays: Arrays, prefix: str = "") -> Any:
 _REPLICATED_COMP = (".r", ".step", "alpha", "h_global", "q")
 
 
+def refuse_model_shards(tp: int) -> None:
+    """Raise at tp > 1: the global layout needs every leaf whole, and the
+    model shards' gather is not ported (ROADMAP item 12.6c). The train loop
+    and an elastic resume at tp > 1 refuse through this check too."""
+    if tp > 1:
+        raise ValueError(
+            f"a checkpoint at tp = {tp}: each rank holds its shard of the model axis, and "
+            "saving or restoring the global layout from model shards is ROADMAP item "
+            "12.6c (not ported yet); checkpoint at tp = 1")
+
+
 def rank_rows(key: str) -> bool:
     """Whether the leaf ``key`` of a ``{"params", "opt", "comp"}`` train
     state is held one row per rank on a process group (its leading axis is
@@ -138,8 +154,9 @@ class CheckpointStore:
     (see the module docstring)."""
 
     def __init__(self, directory: str, keep_last: int = 3, async_writes: bool = True,
-                 group=None):
+                 group=None, tp: int = 1):
         self.dir = directory
+        self.tp = tp
         self.keep_last = keep_last
         self.group = group
         self.rank = 0 if group is None else coll.group_rank(group)
@@ -156,6 +173,7 @@ class CheckpointStore:
     def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> None:
         """Snapshot ``tree`` to host memory now; write it in the background
         (or now, without async writes)."""
+        refuse_model_shards(self.tp)
         tensors = flatten_state(tree)
         if self.group is not None:
             tensors = {k: self._gather(t) if rank_rows(k) else t for k, t in tensors.items()}
@@ -244,6 +262,7 @@ class CheckpointStore:
         """``(tree, extra, step)``: the checkpoint of ``step`` (the latest by
         default) in ``tree_like``'s structure, each tensor in the type and
         on the device of ``tree_like``'s; on a group each rank's own rows."""
+        refuse_model_shards(self.tp)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")

@@ -17,6 +17,13 @@ that aggregate take the contributions of this context's LOCAL workers
 
 Everything downstream of a sum is the same on every rank, so every rank
 ends a step with bit-identical params.
+
+On a data × model grid (``launch/mesh.py``) the context's group is the
+rank's data group: n is the number of dp replicas and ``worker_index()``
+the dp index, so the TP members of one replica draw the same encode seeds
+(the JAX package's ``fold_worker_key`` folds in the data-parallel index
+only). ``model_group`` is the rank's model group, which only
+:meth:`CommCtx.pmax_global` reads.
 """
 from __future__ import annotations
 
@@ -43,8 +50,15 @@ class CommCtx:
     # each all-reduced on its own (the JAX package's overlapped ring wire)
     overlap: str = "off"
     bucket_words: int = bucketing.DEFAULT_BUCKET_WORDS
+    # the model group of a data × model grid (tp > 1), or None: the JAX
+    # package's model_axis
+    model_group: Optional[Any] = None
 
     def __post_init__(self):
+        if self.model_group is not None and self.group is None:
+            raise ValueError(
+                "a model group needs the data group of its grid: the local backend "
+                "simulates data-parallel workers only and holds no model shards")
         if self.n_workers < 1 or not 0 <= self.worker < self.n_workers:
             raise ValueError(
                 f"worker {self.worker} of {self.n_workers} is out of range"
@@ -224,6 +238,9 @@ class CommCtx:
 
     def pmax_global(self, worker_trees: Iterable[Tree]) -> Tree:
         """Max over the workers AND the TP shards (profiling reductions that
-        must see the whole model, e.g. Heuristic IntSGD's max_exp). The port
-        runs tp = 1, so this is :meth:`pmax`."""
-        return self.pmax(worker_trees)
+        must see the whole model, e.g. Heuristic IntSGD's max_exp): over
+        the data group, then the model group when there is one."""
+        out = self.pmax(worker_trees)
+        if self.model_group is not None:
+            out = coll.pmax_tree([out], self.model_group)
+        return out

@@ -1,6 +1,7 @@
 """Model-update statistics feeding the adaptive α rules (port of
-``repro/core/stats.py``, tp = 1: every worker holds the whole model, so the
-local values are the global ones)."""
+``repro/core/stats.py``). These are a process's local values; with tensor
+parallelism the train step reduces them over the model group
+(``launch/step.py::_global_reduce_leaf_sq``)."""
 from __future__ import annotations
 
 import dataclasses

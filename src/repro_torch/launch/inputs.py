@@ -6,6 +6,12 @@ frontend is a stub, as in the JAX package: the batch carries precomputed
 patch or frame embeddings of the frontend's width, bf16. A vlm's text is
 ``n_frontend_tokens`` shorter than the shape's sequence; an encdec's
 target is as long as its source (the JAX package's documented choice).
+
+A batch is global: the train step gives each data-parallel worker its
+contiguous share by the worker's dp index (``CommCtx.worker_index()``),
+so on a data × model grid every TP member of one dp replica takes that
+replica's share, not its rank's (the JAX package shards the batch over
+the data axes only).
 """
 from __future__ import annotations
 

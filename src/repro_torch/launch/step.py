@@ -38,13 +38,28 @@ One step, as the JAX package's ``_make_train_body`` runs it:
 
 α, η, the clip factor and the kernels' scalar vectors stay on the card: the
 step makes no host sync. ``overlap="ring"`` sends the integer wire in
-buckets (:mod:`repro_torch.wire.bucketing`). Tensor parallelism is not
-ported yet.
+buckets (:mod:`repro_torch.wire.bucketing`).
+
+Tensor parallelism (``grid=``, a data × model grid of ranks from
+``launch/mesh.py``; the attention families): each rank holds its shard of
+the params over the model axis (``launch/specs.py``) and runs the step on
+it; the data group carries the integer wire, the ZeRO-1 rows and the
+loss's mean, exactly as on a plain group of n_dp ranks. The gradient
+follows the JAX package's convention: the model's ``psum_tp`` sums its
+cotangents in the backward pass as well, and the replicated leaves'
+partial gradients are summed over the model group
+(``_fix_replicated_grads``), so every gradient is tp times the tp = 1 one
+(ROADMAP's reference behaviours). ||·||² of a sharded leaf (the clip
+factor, ||Δx_l||² for α) is summed over the model group, a replicated
+leaf's counted once (``_global_reduce_leaf_sq``); α's d and each d_l are
+the global padded counts (``specs.global_tree_dims``); max_int and the
+bit width are maxed over the model group. IntSGD on the dense and packed
+wires, blockwise α, IntDIANA and Heuristic IntSGD run at tp > 1; the
+other compressors raise (ROADMAP item 12.6d).
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -52,12 +67,15 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.comm import CommCtx
 from repro_torch.core.compressor import (
-    Compressor, aggregate_exact, max_over_workers, new_peak, wire_bits, with_wire,
+    Compressor, HeuristicIntSGD, IntDIANA, IntSGD, aggregate_exact, max_over_workers,
+    new_peak, wire_bits, with_wire,
 )
-from repro_torch.core.stats import TreeDims, local_dx_stats, scale_dx_stats
+from repro_torch.core.stats import DxStats, TreeDims, local_dx_stats, scale_dx_stats
 from repro_torch.kernels import ops
+from repro_torch.launch import specs as specs_mod
 from repro_torch.models import encdec
-from repro_torch.models.transformer import lm_loss, param_shapes
+from repro_torch.models.common import SINGLE, Axes
+from repro_torch.models.transformer import check_tp, lm_loss
 from repro_torch.optim import base as optb
 from repro_torch.optim.base import Optimizer
 from repro_torch.optim.zero1 import zero1_init, zero1_update
@@ -80,6 +98,13 @@ class Layout:
     dims: TreeDims
     names: tuple  # leaf names in jax.tree.flatten order
     device: torch.device
+    # the model axis: its size, the model code's handle on it, and the
+    # leaves every rank of a model group holds whole (the JAX package's
+    # rep_mask), as a bool vector in ``names`` order on the device
+    tp: int = 1
+    axes: Axes = SINGLE
+    rep: frozenset = frozenset()
+    rep_mask: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,15 +117,37 @@ def _loss_fn_for(cfg: ModelConfig):
     return encdec.encdec_loss if cfg.family == "encdec" else lm_loss
 
 
-def _param_shapes_for(cfg: ModelConfig):
-    return encdec.param_shapes(cfg) if cfg.family == "encdec" else param_shapes(cfg)
-
-
 def _forward_backward(layout: Layout, params: Tree, batch):
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = _loss_fn_for(layout.cfg)(leaves, batch, layout.cfg, dtype=torch.bfloat16)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), dict(zip(leaves, grads))
+    kw = {} if layout.tp == 1 else {"axes": layout.axes}
+    loss = _loss_fn_for(layout.cfg)(leaves, batch, layout.cfg, dtype=torch.bfloat16, **kw)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    if layout.tp > 1:
+        grads.update(_fix_replicated_grads(layout, grads))
+    return loss.detach(), grads
+
+
+def _fix_replicated_grads(layout: Layout, grads: Tree) -> Tree:
+    """The replicated leaves' gradients, each rank's partial one summed over
+    the model group (the JAX package's ``_fix_replicated_grads``)."""
+    return coll.psum_tp_tree({k: grads[k] for k in layout.names if k in layout.rep},
+                             layout.axes.group)
+
+
+def _global_reduce_leaf_sq(layout: Layout, leaf_sq: Dict[str, torch.Tensor]) -> DxStats:
+    """Per-leaf ||·||² of the local shards -> the global values and their
+    sum: at tp > 1 one all-reduce over the model group of the stacked
+    sharded leaves' values, the replicated ones added once (the JAX
+    package's ``_global_reduce_leaf_sq``); at tp = 1 the sum of the
+    values as they come."""
+    if layout.tp == 1:
+        return DxStats(sq=torch.sum(torch.stack(list(leaf_sq.values()))), leaf_sq=leaf_sq)
+    vec = torch.stack([leaf_sq[k] for k in layout.names])
+    zero = torch.zeros((), dtype=vec.dtype, device=vec.device)
+    sharded = coll.psum_tp_tree({"v": torch.where(layout.rep_mask, zero, vec)},
+                                layout.axes.group)["v"]
+    vec = sharded + torch.where(layout.rep_mask, vec, zero)
+    return DxStats(sq=torch.sum(vec), leaf_sq=dict(zip(layout.names, vec.unbind(0))))
 
 
 def _microbatch(batch, m: int, n_micro: int):
@@ -260,29 +307,33 @@ def _clip_factor(layout: Layout, clip_norm: float, *, ghat=None, int_sum=None,
     relative."""
     n = layout.ctx.n
     if int_sum is not None and shift is None:
-        leaf_sq = [
-            ops.sq_norm(s) / torch.square(n * alphas[k]) for k, s in int_sum.items()
-        ]
+        leaf_sq = {
+            k: ops.sq_norm(s) / torch.square(n * alphas[k]) for k, s in int_sum.items()
+        }
     elif int_sum is not None:
-        leaf_sq = [
-            torch.sum(torch.square(shift[k] + s.to(torch.float32) / (n * alphas[k])))
+        leaf_sq = {
+            k: torch.sum(torch.square(shift[k] + s.to(torch.float32) / (n * alphas[k])))
             for k, s in int_sum.items()
-        ]
+        }
     else:
-        leaf_sq = [ops.sq_norm(g) for g in ghat.values()]
-    norm = torch.sqrt(torch.sum(torch.stack(leaf_sq))) + 1e-12
+        leaf_sq = {k: ops.sq_norm(g) for k, g in ghat.items()}
+    norm = torch.sqrt(_global_reduce_leaf_sq(layout, leaf_sq).sq) + 1e-12
     return torch.clamp(torch.full_like(norm, clip_norm) / norm, max=1.0)
 
 
-def _observe_dx(compressor, base_opt: Optimizer, cs, new_params: Tree, params: Tree):
+def _observe_dx(layout: Layout, compressor, base_opt: Optimizer, cs, new_params: Tree,
+                params: Tree):
     """||Δx||² -> α rule, rescaled to gradient-equivalent units
     (base_opt.dx_scale — §4.1 momentum correction). Each leaf's Δx is made
-    and reduced in turn, so one is alive at a time."""
+    and reduced in turn, so one is alive at a time; at tp > 1 the local
+    shards' values are reduced to the global ones."""
     delta = (
         (k, new_params[k].to(torch.float32) - p.to(torch.float32))
         for k, p in params.items()
     )
     stats = local_dx_stats(delta)
+    if layout.tp > 1:
+        stats = _global_reduce_leaf_sq(layout, stats.leaf_sq)
     return compressor.observe_update(cs, scale_dx_stats(stats, base_opt.dx_scale))
 
 
@@ -419,7 +470,11 @@ def _make_train_step(layout: Layout, *, compressor, base_opt, lr_schedule,
                 params_like=params, group=ctx.group, consume_grads=True,
             )
         del ghat, words
-        cs = _observe_dx(compressor, base_opt, cs, new_params, params)
+        cs = _observe_dx(layout, compressor, base_opt, cs, new_params, params)
+        if layout.tp > 1:  # the whole model's widths (the JAX package's pmax over dp + model)
+            peaks = coll.pmax_tp(torch.stack([metrics[0], metrics[1], metrics[3]]),
+                                 layout.axes.group)
+            metrics = (peaks[0], peaks[1], metrics[2], peaks[2])
         return new_params, new_opt, cs, loss, metrics
 
     return step
@@ -442,6 +497,7 @@ def build_train_step(
     group=None,
     overlap: str = "off",
     bucket_words: int = bucketing.DEFAULT_BUCKET_WORDS,
+    grid=None,
 ) -> StepArtifacts:
     """The exact (step-0) and compressed train steps of ``cfg`` with
     ``n_workers`` data-parallel workers: simulated in turn on one device, or
@@ -453,7 +509,10 @@ def build_train_step(
     in the JAX package (the ZeRO-1 route gathers its f32 master rows into
     it; the fused kernels read and write a bf16 param themselves and keep
     their state in f32). ``overlap="ring"`` sends
-    the integer wire in buckets of ``bucket_words`` words."""
+    the integer wire in buckets of ``bucket_words`` words. With ``grid`` (a
+    ``launch.mesh.Grid``, in place of ``group``) the step runs on this
+    rank's shard of a data × model grid: ``n_workers`` is the number of dp
+    replicas, the params the rank's shard (``specs.tp_shard``)."""
     device = resolve_device(device)
     # float32 matmuls in full float32 on the card (no TF32), as in the JAX
     # package: the bf16 forward is the train path's only reduced precision
@@ -468,10 +527,19 @@ def build_train_step(
         )
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    tp = 1 if grid is None else grid.tp
+    if grid is not None:
+        if group is not None:
+            raise ValueError("pass the grid or a group, not both: the grid's data group "
+                             "carries the workers")
+        group = grid.data_group
+        check_tp(cfg, tp)
+        _check_tp_compressor(compressor, tp)
     if group is None:
         ctx = CommCtx(n_workers=n_workers, overlap=overlap, bucket_words=bucket_words)
     else:
-        ctx = CommCtx.on_group(group, overlap=overlap, bucket_words=bucket_words)
+        ctx = CommCtx.on_group(group, overlap=overlap, bucket_words=bucket_words,
+                               model_group=grid.model_group if tp > 1 else None)
         if ctx.n != n_workers:
             raise ValueError(
                 f"{n_workers} workers on a process group of {ctx.n} ranks: one "
@@ -493,15 +561,15 @@ def build_train_step(
                 f"{n_workers} workers) is not divisible into "
                 f"{microbatches} microbatches"
             )
-    shapes = _param_shapes_for(cfg)
-    # port of specs.global_tree_dims at tp = 1
-    dims = TreeDims(
-        d=sum(math.prod(s) for s in shapes.values()),
-        leaf_dims={k: float(math.prod(s)) for k, s in shapes.items()},
-    )
+    _, shapes, specs = specs_mod.infer_param_specs(cfg, tp)
+    names = tuple(leaf_names(shapes))
+    rep = frozenset(k for k, d in specs.items() if d is None)
+    axes = SINGLE if tp == 1 else Axes(group=grid.model_group, tp_size=tp,
+                                       tp_index=grid.tp_index)
     layout = Layout(
-        cfg=cfg, ctx=ctx, dims=dims,
-        names=tuple(leaf_names(shapes)), device=device,
+        cfg=cfg, ctx=ctx, dims=specs_mod.global_tree_dims(cfg, tp), names=names,
+        device=device, tp=tp, axes=axes, rep=rep,
+        rep_mask=None if tp == 1 else torch.tensor([k in rep for k in names], device=device),
     )
 
     def make(exact):
@@ -514,6 +582,22 @@ def build_train_step(
 
     return StepArtifacts(steps={"compressed": make(False), "exact": make(True)},
                          layout=layout)
+
+
+def _check_tp_compressor(compressor: Compressor, tp: int) -> None:
+    """At tp > 1 only the compressors held to the JAX package's TP step run:
+    IntSGD on a dense or packed wire (either α rule), IntDIANA and
+    Heuristic IntSGD."""
+    if tp == 1:
+        return
+    wf = getattr(compressor, "wire_format", None)
+    psum_wire = wf is not None and getattr(wf, "transport", "psum") == "psum"
+    if not (isinstance(compressor, (IntSGD, IntDIANA, HeuristicIntSGD)) and psum_wire):
+        on = f" on the {wf.name} wire" if wf is not None else ""
+        raise NotImplementedError(
+            f"compressor {compressor.name!r}{on} at tp = {tp} is not ported yet (tensor "
+            "parallelism runs IntSGD on dense and packed wires, IntDIANA and Heuristic "
+            "IntSGD; the other compressors at tp > 1 are ROADMAP item 12.6d)")
 
 
 def _check_group_wire(compressor: Compressor) -> None:
@@ -530,13 +614,16 @@ def _check_group_wire(compressor: Compressor) -> None:
 
 
 def build_init_state(params: Tree, *, n_workers: int, compressor: Compressor,
-                     base_opt: Optimizer, fused: bool = False, group=None):
+                     base_opt: Optimizer, fused: bool = False, group=None, grid=None):
     """``(opt_state, comp_state)`` for ``params``: ZeRO-1 masters (equal to
     the params) with the optimizer state in their row layout by default, the
     fused route's f32 state tree with ``fused=True``; the compressor's state
     for the workers this process runs. With a process ``group`` (of
     ``n_workers`` ranks) the ZeRO-1 rows and IntDIANA's local shift are
-    the rank's alone."""
+    the rank's alone; with a ``grid`` its data group is that group and
+    ``params`` the rank's shard."""
+    if grid is not None:
+        group = grid.data_group
     rank = None
     if group is not None:
         if coll.group_size(group) != n_workers:

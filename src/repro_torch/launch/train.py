@@ -20,6 +20,10 @@ CLI (runs on the card; ``--device cpu`` runs the kernels' plain versions)::
       --smoke --steps 8 --workers 4 --batch 4 --seq 32 --device cpu \\
       --ckpt-dir /path/to/ckpt [--resume]
 
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch granite-8b --smoke --data 2 --model 2 --steps 6 --batch 4 \\
+      --seq 32 --device cpu
+
 Under ``torchrun`` (its ``RANK``/``WORLD_SIZE`` environment) each process
 is one worker: the process group is NCCL on the card (one card per rank)
 and gloo on the CPU; ``--dist-backend gloo`` lets ranks share one card.
@@ -51,8 +55,15 @@ synthetic token data does not carry: drive it with
 ``launch.step.build_train_step`` and ``launch.inputs.materialize_batch``.
 ``--ckpt-dir DIR`` saves the params, optimizer and compressor state every
 20 steps (``checkpoint.CheckpointStore``, the JAX package's layout);
-``--resume`` starts from its latest step. Not ported yet, and raising so:
-``--model`` > 1 (tensor parallelism).
+``--resume`` starts from its latest step.
+
+``--model M`` (tensor parallelism, the attention families) runs under
+``torchrun`` on a ``--data`` × ``--model`` grid of ranks
+(``launch.mesh.make_debug_mesh``): the world size is data · model, each
+rank holds its shard of the model axis, and ``--data`` (or ``--workers``)
+defaults to world // model. Without ``torchrun`` it raises. A checkpoint
+at tp > 1 is refused (``checkpoint.store.refuse_model_shards``; ROADMAP
+item 12.6c).
 """
 from __future__ import annotations
 
@@ -64,11 +75,14 @@ import time
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
+from repro_torch.checkpoint.store import refuse_model_shards
 from repro_torch.configs.base import ShapeConfig, get_arch, ported_archs, smoke_config
 from repro_torch.core.compressor import (
     compressor_names, leaf_seeds, make_compressor, with_wire,
 )
 from repro_torch.data.synthetic import SyntheticLMData
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.step import build_init_state, build_train_step
 from repro_torch.models.transformer import init_lm_params
 from repro_torch.optim.adamw import adamw
@@ -110,6 +124,7 @@ def train_loop(
     ckpt: CheckpointStore | None = None,
     ckpt_every: int = 20,
     resume: bool = False,
+    grid=None,
 ):
     """Train ``cfg`` for ``steps`` steps (step 0 exact, the rest compressed)
     on synthetic data, on the ZeRO-1 route or, with ``fused=True``, the
@@ -139,7 +154,14 @@ def train_loop(
     and α's n take n', and the seeds are drawn for n' workers, for the
     skipped steps too. A leaf held one row per worker (the ZeRO-1 rows,
     IntDIANA's h_local, an error-feedback residual) is refused by
-    ``CheckpointStore.restore``, naming it and both counts."""
+    ``CheckpointStore.restore``, naming it and both counts.
+
+    With ``grid`` (``launch.mesh.Grid``, in place of ``group``) the loop
+    runs this rank's part of a data × model grid: ``n_workers`` is the
+    number of dp replicas, every rank draws the global weights padded for
+    the grid's tp and keeps its shard, and the TP members of a replica take
+    the replica's share of each batch. A checkpoint (and so an elastic
+    resume) at tp > 1 is refused (ROADMAP item 12.6c)."""
     if cfg.frontend is not None:  # the JAX CLI's init_lm_params refuses encdec too
         raise ValueError(
             f"{cfg.name}: the {cfg.frontend!r} frontend takes "
@@ -147,6 +169,14 @@ def train_loop(
             "the synthetic token data does not carry; drive it with "
             "launch.step.build_train_step and launch.inputs.materialize_batch")
     device = resolve_device(device)
+    tp = 1 if grid is None else grid.tp
+    if ckpt is not None:
+        refuse_model_shards(tp)
+    if grid is not None:
+        if group is not None:
+            raise ValueError("pass the grid or a group, not both")
+        if n_workers != grid.n_dp:
+            raise ValueError(f"{n_workers} workers on a grid of {grid.n_dp} dp replicas")
     if opt not in OPTIMIZERS:
         raise ValueError(f"optimizer {opt!r}; options {sorted(OPTIMIZERS)}")
     comp = make_compressor(compressor)
@@ -161,16 +191,19 @@ def train_loop(
         cfg, shape, n_workers=n_workers, compressor=comp, base_opt=base_opt,
         lr_schedule=sched, param_dtype=param_dtype, fused=fused,
         clip_norm=clip_norm, microbatches=microbatches, device=device, group=group,
-        overlap=overlap, bucket_words=bucket_words,
+        overlap=overlap, bucket_words=bucket_words, grid=grid,
     )
     params = init_lm_params(
         cfg, generator=torch.Generator(device=device).manual_seed(seed),
-        device=device, dtype=param_dtype,
+        device=device, dtype=param_dtype, tp=tp,
     )
+    if tp > 1:  # the rank's slice of the global draw
+        params = specs.tp_shard(cfg, tp, grid.tp_index).tree(params)
     opt_state, comp_state = build_init_state(
         params, n_workers=n_workers, compressor=comp, base_opt=base_opt, fused=fused,
-        group=group,
+        group=group, grid=grid,
     )
+    first_rank = art.layout.ctx.worker_index() == 0 and (grid is None or grid.tp_index == 0)
     seed_gen = torch.Generator().manual_seed(seed)
     data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=seed)
     n_leaves = len(art.layout.names)
@@ -181,7 +214,7 @@ def train_loop(
         del state
         for _ in range(start):  # the seeds of the steps already taken
             leaf_seeds(seed_gen, n_workers, n_leaves, "cpu", microbatches)
-        if art.layout.ctx.worker_index() == 0:
+        if first_rank:
             print(f"[train] resumed from step {start}", flush=True)
 
     history = []
@@ -204,7 +237,7 @@ def train_loop(
                    bits=float(metrics[1]), max_local_int=float(metrics[3]),
                    alpha=dict(zip(alphas, alpha_vals)), ms=ms)
         history.append(rec)
-        if art.layout.ctx.worker_index() == 0 and (i % log_every == 0 or i == steps - 1):
+        if first_rank and (i % log_every == 0 or i == steps - 1):
             print(
                 f"[train] step {i:5d} loss {rec['loss']:.4f} "
                 f"max_int {rec['max_int']:.0f} bits {rec['bits']:.0f} "
@@ -260,7 +293,8 @@ def main(argv=None):
                     help="start from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--data", type=int, default=None,
                     help="data-parallel degree (the JAX CLI's mesh axis): as --workers")
-    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel degree: under torchrun, a --data x --model grid")
     ap.add_argument("--overlap", default="off", choices=["off", "ring"])
     ap.add_argument("--bucket-words", type=int, default=bucketing.DEFAULT_BUCKET_WORDS,
                     help="words per bucket of the --overlap ring wire")
@@ -268,16 +302,25 @@ def main(argv=None):
                     help="pipelined microbatches per step (ZeRO-1 route)")
     args = ap.parse_args(argv)
 
-    if args.model > 1:
-        raise NotImplementedError("--model > 1 (tensor parallelism): not ported yet")
     if args.workers is not None and args.data is not None and args.workers != args.data:
         raise ValueError(f"--workers {args.workers} and --data {args.data} disagree")
     workers = args.workers if args.workers is not None else args.data
     run = _torchrun_rank()
-    if run is not None and workers is not None and workers != run[1]:
+    if args.model < 1:
+        raise ValueError(f"--model must be >= 1, got {args.model}")
+    if args.model > 1 and run is None:
+        raise ValueError(
+            f"--model {args.model} (tensor parallelism) runs one process per rank of a "
+            f"--data x --model grid: launch it with torchrun --nproc-per-node "
+            f"{(workers or 1) * args.model} (data x model processes)")
+    if run is not None and run[1] % args.model:
+        raise ValueError(f"--model {args.model} does not divide the {run[1]} processes "
+                         "of the --data x --model grid")
+    if run is not None and workers is not None and workers * args.model != run[1]:
         raise ValueError(
             f"--workers {workers} under torchrun with {run[1]} processes: one "
-            "process per worker"
+            f"process per worker" + (f" and model shard (--data x --model = "
+                                     f"{workers * args.model})" if args.model > 1 else "")
         )
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -302,6 +345,13 @@ def main(argv=None):
         device = torch.device("cuda", local_rank % torch.cuda.device_count())
     group = coll.init_process_group(backend, device=device)
     try:
+        if args.model > 1:
+            grid = make_debug_mesh(world // args.model, args.model)
+            ckpt = CheckpointStore(args.ckpt_dir, group=grid.data_group,
+                                   tp=args.model) if args.ckpt_dir else None
+            train_loop(cfg, shape, n_workers=grid.n_dp, device=device, grid=grid, ckpt=ckpt,
+                       resume=args.resume, **kw)
+            return
         ckpt = CheckpointStore(args.ckpt_dir, group=group) if args.ckpt_dir else None
         train_loop(cfg, shape, n_workers=world, device=device, group=group, ckpt=ckpt,
                    resume=args.resume, **kw)

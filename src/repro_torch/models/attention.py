@@ -1,5 +1,7 @@
 """Causal GQA self-attention, train path (port of
-``repro/models/attention.py::attention_train`` at tp = 1), with the optional
+``repro/models/attention.py::attention_train``; at tp > 1 on the rank's
+local heads, the QKV projections column-parallel and the out projection
+row-parallel, a psum over the model group), with the optional
 QKV bias and sliding window of the JAX package, and the unmasked,
 non-causal case of its ``_chunked_attn`` (``causal=False`` masks only
 padding) that the encoder-decoder's bidirectional encoder and its cross
@@ -36,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from repro_torch.models.common import rope
+from repro_torch.models.common import SINGLE, Axes, rope
 
 NEG_INF = -1e30
 EMPTY_POS = 2**30  # kv_pos of a cache slot never written: masked for every query
@@ -91,15 +93,18 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
 
 def attention_train(p, x: torch.Tensor, positions: torch.Tensor, *,
                     n_heads: int, n_kv_heads: int, head_dim: int,
-                    rope_theta: float = 10000.0, window: int | None = None) -> torch.Tensor:
+                    rope_theta: float = 10000.0, window: int | None = None,
+                    axes: Axes = SINGLE) -> torch.Tensor:
     """x: (B, T, d) -> (B, T, d). p: {"wq", "wk", "wv", "wo"} and, with QKV
-    bias, {"bq", "bk", "bv"}, added before RoPE in the activation type."""
+    bias, {"bq", "bk", "bv"}, added before RoPE in the activation type.
+    ``n_heads`` and ``n_kv_heads`` are the rank's local heads; the out
+    projection's partial sums are summed over ``axes``' model group."""
     b, t, _ = x.shape
     q, k, v = _qkv(p, x)
     q = rope(q.reshape(b, t, n_heads, head_dim), positions, rope_theta)
     k = rope(k.reshape(b, t, n_kv_heads, head_dim), positions, rope_theta)
     v = v.reshape(b, t, n_kv_heads, head_dim)
-    return gqa_attend(q, k, v, window=window) @ p["wo"].to(x.dtype)
+    return axes.psum_tp(gqa_attend(q, k, v, window=window) @ p["wo"].to(x.dtype))
 
 
 def _qkv(p, x: torch.Tensor):

@@ -1,5 +1,8 @@
 """Multi-head Latent Attention, train path (port of
-``repro/models/mla.py::mla_train`` at tp = 1; DeepSeek-V2).
+``repro/models/mla.py::mla_train``; DeepSeek-V2). At tp > 1 each rank
+decompresses and attends its local heads (``w_q``, ``w_uk``, ``w_uv``
+column-parallel, ``wo`` row-parallel with a psum over the model group);
+the latent projections ``w_dkv`` and ``w_kr`` are replicated.
 
   c_kv = x @ w_dkv                      (T, kv_lora)   the shared latent
   k_c, v = c_kv @ w_uk, c_kv @ w_uv     per-head decompression
@@ -27,15 +30,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.attention import EMPTY_POS, NEG_INF, f32_scale, sdpa_f32, write_slots
-from repro_torch.models.common import rope
+from repro_torch.models.common import SINGLE, Axes, rope
 
 DH_ROPE = 64
 
 
 def mla_train(p, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
-              head_dim: int) -> torch.Tensor:
+              head_dim: int, axes: Axes = SINGLE) -> torch.Tensor:
     """x: (B, T, d) -> (B, T, d). p: {"w_dkv", "w_kr", "w_q", "w_uk",
-    "w_uv", "wo"}."""
+    "w_uv", "wo"}; ``n_heads`` the rank's local heads."""
     b, t, _ = x.shape
     c_kv = x @ p["w_dkv"].to(x.dtype)
     k_r = rope((x @ p["w_kr"].to(x.dtype)).reshape(b, t, 1, DH_ROPE), positions)
@@ -47,7 +50,7 @@ def mla_train(p, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
     qf, kf, vf = (a.to(torch.float32).transpose(1, 2) for a in (q_full, k_full, v))
     out = sdpa_f32(qf, kf, vf)
     out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim).to(x.dtype)
-    return out @ p["wo"].to(x.dtype)
+    return axes.psum_tp(out @ p["wo"].to(x.dtype))
 
 
 def init_mla_cache(batch: int, seq: int, *, kv_lora: int, device, dtype=torch.bfloat16):

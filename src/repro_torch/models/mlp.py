@@ -1,17 +1,20 @@
-"""SwiGLU and GELU MLP blocks (port of ``repro/models/mlp.py`` at tp = 1)."""
+"""SwiGLU and GELU MLP blocks (port of ``repro/models/mlp.py``; the
+SwiGLU column-parallel in and row-parallel out over the model axis)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import swiglu
+from repro_torch.models.common import SINGLE, Axes, swiglu
 
 
-def swiglu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """p: {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}; x: (B, T, d)."""
+def swiglu_mlp(p, x: torch.Tensor, axes: Axes = SINGLE) -> torch.Tensor:
+    """p: {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}, f the
+    rank's d_ff/tp columns; x: (B, T, d). The out projection's partial
+    sums are summed over ``axes``' model group."""
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
-    return swiglu(g, u) @ p["w_down"].to(x.dtype)
+    return axes.psum_tp(swiglu(g, u) @ p["w_down"].to(x.dtype))
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,17 @@
-"""Mixture-of-Experts block (port of ``repro/models/moe.py`` at tp = 1).
+"""Mixture-of-Experts block (port of ``repro/models/moe.py``), with the
+JAX package's two strategies over the model axis (:func:`pick_strategy`):
 
-At tp = 1 the JAX package's ``pick_strategy`` always picks ``"tp"``, so
-this is ``moe_tp``: top-k token-choice routing with the probabilities
-renormalised over the chosen k, a capacity buffer per expert with tokens
-past capacity dropped (Switch/Mixtral style), the experts' SwiGLU batched
-over the experts, and the shared experts (DeepSeek-V2) added to every
-token. ``moe_ep`` (the all_to_all over a model axis) waits for tensor
-parallelism.
+- ``moe_tp`` (tp = 1, or an expert count tp does not divide): top-k
+  token-choice routing with the probabilities renormalised over the chosen
+  k, a capacity buffer per expert with tokens past capacity dropped
+  (Switch/Mixtral style), the experts' SwiGLU batched over the experts
+  (at tp > 1 each expert's d_ff sharded, the out buffer summed over the
+  model group), and the shared experts (DeepSeek-V2) added to every token;
+- ``moe_ep`` (tp > 1 dividing the expert count): each rank owns E/tp
+  experts and routes its 1/tp slice of the tokens; the dispatch buffer,
+  grouped by owner, goes out and comes back by all-to-all over the model
+  group; the slices are reassembled by a psum of zeros and the rank's
+  slice.
 
 The block is cut into its stages — :func:`route`, :func:`dispatch_indices`,
 :func:`dispatch`, :func:`expert_ffn`, :func:`combine` — which
@@ -23,10 +28,18 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import swiglu
+from repro_torch.models.common import SINGLE, Axes, swiglu
 from repro_torch.models.mlp import swiglu_mlp
+from repro_torch.parallel import collectives as coll
 
 CAPACITY_FACTOR = 1.25  # the JAX package's default, which its model keeps
+
+
+def pick_strategy(n_experts: int, tp: int) -> str:
+    """"ep" when tp > 1 divides the expert count, else "tp"."""
+    if tp == 1:
+        return "tp"
+    return "ep" if n_experts % tp == 0 else "tp"
 
 
 def capacity(n_tokens: int, top_k: int, n_experts: int) -> int:
@@ -88,11 +101,19 @@ def combine(out_buf: torch.Tensor, dest: torch.Tensor, w: torch.Tensor, keep: to
     return torch.sum((picked * wk[:, None]).reshape(-1, top_k, out_buf.shape[1]), dim=1)
 
 
+def _shared(p: Dict[str, torch.Tensor], x: torch.Tensor, out: torch.Tensor,
+            axes: Axes) -> torch.Tensor:
+    """``out`` plus the shared experts' SwiGLU of x, if the block has any."""
+    shared = {k[len("shared/"):]: v for k, v in p.items() if k.startswith("shared/")}
+    return out + swiglu_mlp(shared, x, axes) if shared else out
+
+
 def moe_tp(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_experts: int,
-           top_k: int) -> torch.Tensor:
+           top_k: int, axes: Axes = SINGLE) -> torch.Tensor:
     """x: (B, T, d) -> (B, T, d). p: {"router": (d, E), "w_gate", "w_up":
     (E, d, f), "w_down": (E, f, d)} and, with shared experts,
-    {"shared/w_gate", "shared/w_up", "shared/w_down"}."""
+    {"shared/w_gate", "shared/w_up", "shared/w_down"}; f the rank's
+    d_ff/tp columns, x replicated over the model group."""
     b, t, d = x.shape
     xf = x.reshape(b * t, d)
     w, ids = route(p["router"], xf, top_k)
@@ -100,9 +121,45 @@ def moe_tp(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_experts: int,
     flat_e, slot, keep = dispatch_indices(ids, n_experts, cap)
     dest = flat_e * cap + slot
     buf = dispatch(xf, dest, keep, top_k, n_experts * cap)
-    out_buf = expert_ffn(p, buf.reshape(n_experts, cap, d))
+    out_buf = axes.psum_tp(expert_ffn(p, buf.reshape(n_experts, cap, d)))
     out = combine(out_buf.reshape(n_experts * cap, d), dest, w, keep, top_k).reshape(b, t, d)
-    shared = {k[len("shared/"):]: v for k, v in p.items() if k.startswith("shared/")}
-    if shared:
-        out = out + swiglu_mlp(shared, x)
-    return out
+    return _shared(p, x, out, axes)
+
+
+def moe_ep(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_experts: int,
+           top_k: int, axes: Axes) -> torch.Tensor:
+    """Expert parallelism: p's ``w_*`` are the rank's E/tp experts (whole
+    d_ff), x (B, T, d) replicated over the model group. The rank routes
+    tokens [i·N/tp, (i+1)·N/tp) of the B·T, with the capacity counted on
+    that slice; its (tp, E/tp, C, d) dispatch buffer (owner-major, so
+    flat index expert·C + slot, as in :func:`moe_tp`) is exchanged by
+    all-to-all, each owned expert runs over the tp·C slots it received,
+    and the outputs go back by the inverse all-to-all. The slice's
+    combined output is placed in zeros of all B·T tokens and summed over
+    the group."""
+    tp = axes.tp_size
+    b, t, d = x.shape
+    n_all = b * t
+    n = n_all // tp
+    start = axes.tp_index * n
+    xf = x.reshape(n_all, d)[start:start + n]
+    w, ids = route(p["router"], xf, top_k)
+    e_loc = n_experts // tp
+    cap = capacity(n, top_k, n_experts)
+    flat_e, slot, keep = dispatch_indices(ids, n_experts, cap)
+    dest = flat_e * cap + slot
+    buf = dispatch(xf, dest, keep, top_k, n_experts * cap).reshape(tp, e_loc, cap, d)
+    recv = coll.all_to_all_tp(buf, axes.group)  # (sender, e_loc, C, d)
+    recv = recv.transpose(0, 1).reshape(e_loc, tp * cap, d)
+    out_buf = expert_ffn(p, recv).reshape(e_loc, tp, cap, d).transpose(0, 1)
+    back = coll.all_to_all_tp(out_buf, axes.group)  # (owner, e_loc, C, d)
+    out = combine(back.reshape(n_experts * cap, d), dest, w, keep, top_k)
+    full = F.pad(out, (0, 0, start, n_all - start - n))  # zeros around the slice
+    return _shared(p, x, axes.psum_tp(full).reshape(b, t, d), axes)
+
+
+def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_experts: int,
+              top_k: int, axes: Axes = SINGLE) -> torch.Tensor:
+    """:func:`moe_ep` or :func:`moe_tp`, as :func:`pick_strategy` picks."""
+    fn = moe_ep if pick_strategy(n_experts, axes.tp_size) == "ep" else moe_tp
+    return fn(p, x, n_experts=n_experts, top_k=top_k, axes=axes)

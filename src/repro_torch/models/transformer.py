@@ -1,5 +1,6 @@
 """Decoder-only LM, dense, MoE, hybrid and xLSTM families (port of
-``repro/models/transformer.py`` at tp = 1).
+``repro/models/transformer.py``), and tensor parallelism (TP) over a model
+axis for the attention families (dense, vlm, moe).
 
 Parameters are a flat dict of leaves, not ``nn.Module`` state, because the
 compressor works per leaf and the leaf set decides the integer images: each
@@ -33,22 +34,35 @@ each cell behind its RMSNorm (``m1``, ``m2``, ``s``). With
 ``tie_embeddings`` (any family) there is no ``lm_head`` leaf: the head is
 ``embed``'s transpose, and autograd sums ``embed``'s gradient over the
 lookup and the head.
+
+Tensor parallelism follows the JAX package: :func:`resolve_dims` gives
+each leaf's padded global (``n_shards=1``) or local (``n_shards=tp``)
+dims, :func:`param_shapes` the shapes, and ``launch/specs.py`` diffs the
+two to find each leaf's sharded dimension. :func:`init_lm_params` with
+``tp`` draws the global padded tree the JAX package draws
+(``init_lm_params(key, cfg, tp, n_shards=1)``), and each rank takes its
+slice (``models.common.TpShard``). :func:`lm_forward` and :func:`lm_loss`
+take the model axis (``models.common.Axes``). The hybrid and ssm
+families at tp > 1 wait for ROADMAP item 12.6b.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.scaling import AlphaState
 from repro_torch.models.attention import attention_train
-from repro_torch.models.common import cross_entropy, dense_init, rmsnorm
+from repro_torch.models.common import (
+    SINGLE, Axes, HeadLayout, TpShard, dense_init, embed_lookup, pad_to_multiple, plan_heads,
+    rmsnorm, tp_cross_entropy,
+)
 from repro_torch.models.mla import DH_ROPE, mla_train
 from repro_torch.models.mlp import swiglu_mlp
-from repro_torch.models.moe import moe_tp
+from repro_torch.models.moe import moe_block, pick_strategy
 from repro_torch.models.ssm import CONV_K, mamba2_train
 from repro_torch.models.xlstm import mlstm_train, slstm_train
 
@@ -65,6 +79,57 @@ CONSTANT_INIT = {"ln": 1.0, "ln1": 1.0, "ln2": 1.0, "ln_f": 1.0, "norm_w": 1.0,
 ZERO_INIT = ("attn/bk", "attn/bq", "attn/bv", "layers/s/cell/b")
 SSM_HEAD_DIM = 64  # the JAX package's ``Dims.ssm_head_dim``
 XLSTM_CELLS = ("m1", "m2", "s")  # one xLSTM block: (mLSTM, mLSTM, sLSTM)
+TP_FAMILIES = ("dense", "vlm", "moe")  # the families that run at tp > 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Dims:
+    """Every leaf dimension that depends on (tp, n_shards): padded global
+    counts with ``n_shards=1``, one rank's with ``n_shards=tp``."""
+
+    layout: HeadLayout
+    d_ff_loc: int
+    vocab_loc: int
+    # moe
+    e_loc: int = 0
+    ff_e_loc: int = 0
+    ff_shared_loc: int = 0
+
+
+def check_tp(cfg, tp: int) -> None:
+    """Refuse tp > 1 for the families it is not ported for."""
+    if tp > 1 and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} at tp = {tp} is not ported yet (tensor "
+            f"parallelism runs the {', '.join(TP_FAMILIES)} families; the hybrid, ssm and "
+            "encdec families at tp > 1 are ROADMAP item 12.6b)")
+
+
+def resolve_dims(cfg, tp: int = 1, n_shards: int = 1) -> Dims:
+    """The JAX package's ``resolve_dims`` for the attention families: heads
+    by :func:`~repro_torch.models.common.plan_heads`, d_ff and the
+    vocabulary padded to a multiple of tp, the experts split by
+    ``pick_strategy`` ("ep": E/tp experts of full d_ff; "tp": all E, d_ff
+    padded and split), the shared experts' d_ff padded and split."""
+    check_tp(cfg, tp)
+    head_dim = _head_dim(cfg)
+    g = plan_heads(cfg.n_heads, cfg.n_kv_heads, head_dim, tp)
+    layout = HeadLayout(g.n_q, g.n_kv, head_dim, g.n_q // n_shards, g.n_kv // n_shards)
+    kw = {}
+    if cfg.n_experts:
+        if pick_strategy(cfg.n_experts, tp) == "ep":
+            kw.update(e_loc=cfg.n_experts // n_shards, ff_e_loc=cfg.d_ff)
+        else:
+            kw.update(e_loc=cfg.n_experts, ff_e_loc=pad_to_multiple(cfg.d_ff, tp) // n_shards)
+        if cfg.n_shared_experts:
+            ff_sh = pad_to_multiple(cfg.d_ff * cfg.n_shared_experts, tp)
+            kw["ff_shared_loc"] = ff_sh // n_shards
+    return Dims(
+        layout=layout,
+        d_ff_loc=pad_to_multiple(max(cfg.d_ff, tp), tp) // n_shards,
+        vocab_loc=pad_to_multiple(cfg.vocab, tp) // n_shards,
+        **kw,
+    )
 
 
 def _check_ported(cfg) -> None:
@@ -96,30 +161,34 @@ def _head_dim(cfg) -> int:
     return cfg.head_dim or cfg.d_model // cfg.n_heads
 
 
-def _attn_shapes(cfg) -> Dict[str, tuple]:
-    """The attention's weight matrices of one layer: MLA's with a
-    ``kv_lora``, else GQA's."""
+def _attn_shapes(cfg, layout: Optional[HeadLayout] = None) -> Dict[str, tuple]:
+    """The attention's weight matrices of one layer (``layout``'s local
+    heads; the unpadded heads without one): MLA's with a ``kv_lora``, else
+    GQA's."""
     d, hd = cfg.d_model, _head_dim(cfg)
-    q = cfg.n_heads * hd
+    nq, nkv = (cfg.n_heads, cfg.n_kv_heads) if layout is None else (layout.q_local,
+                                                                  layout.kv_local)
+    q = nq * hd
     if cfg.kv_lora:
         return {"w_dkv": (d, cfg.kv_lora), "w_kr": (d, DH_ROPE),
-                "w_q": (d, cfg.n_heads * (hd + DH_ROPE)), "w_uk": (cfg.kv_lora, q),
+                "w_q": (d, nq * (hd + DH_ROPE)), "w_uk": (cfg.kv_lora, q),
                 "w_uv": (cfg.kv_lora, q), "wo": (q, d)}
-    kv = cfg.n_kv_heads * hd
+    kv = nkv * hd
     return {"wk": (d, kv), "wo": (q, d), "wq": (d, q), "wv": (d, kv)}
 
 
-def _ffn_shapes(cfg) -> Dict[str, tuple]:
+def _ffn_shapes(cfg, dims: Dims) -> Dict[str, tuple]:
     """The feed-forward leaves of one layer: the dense SwiGLU's, or the
     MoE block's (router, experts and shared experts)."""
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     if cfg.family != "moe":
+        f = dims.d_ff_loc
         return {"mlp/w_down": (f, d), "mlp/w_gate": (d, f), "mlp/w_up": (d, f)}
-    e = cfg.n_experts
-    shapes = {"moe/router": (d, e), "moe/w_down": (e, f, d), "moe/w_gate": (e, d, f),
-              "moe/w_up": (e, d, f)}
+    e, f = dims.e_loc, dims.ff_e_loc
+    shapes = {"moe/router": (d, cfg.n_experts), "moe/w_down": (e, f, d),
+              "moe/w_gate": (e, d, f), "moe/w_up": (e, d, f)}
     if cfg.n_shared_experts:
-        fs = f * cfg.n_shared_experts
+        fs = dims.ff_shared_loc
         shapes.update({"moe/shared/w_down": (fs, d), "moe/shared/w_gate": (d, fs),
                        "moe/shared/w_up": (d, fs)})
     return shapes
@@ -151,7 +220,7 @@ def _layer_axes(cfg) -> tuple:
     return (cfg.n_layers // cfg.attn_every, cfg.attn_every)
 
 
-def _layer_shapes(cfg) -> Dict[str, tuple]:
+def _layer_shapes(cfg, dims: Dims) -> Dict[str, tuple]:
     """One layer's leaves, without the leading layer axes: a Mamba2 layer
     in the hybrid family, an (m, m, s) block in the ssm family, else
     attention and the feed-forward."""
@@ -174,28 +243,33 @@ def _layer_shapes(cfg) -> Dict[str, tuple]:
         return {"ln": (d,), "m/a_log": (h,), "m/conv_w": (CONV_K, di), "m/d_skip": (h,),
                 "m/dt_bias": (h,), "m/norm_w": (di,), "m/w_bc": (d, 2 * n), "m/w_dt": (d, h),
                 "m/w_out": (di, d), "m/w_xz": (d, 2 * di)}
-    layer = {f"attn/{k}": s for k, s in _attn_shapes(cfg).items()}
-    layer.update({"ln1": (d,), "ln2": (d,), **_ffn_shapes(cfg)})
+    layer = {f"attn/{k}": s for k, s in _attn_shapes(cfg, dims.layout).items()}
+    layer.update({"ln1": (d,), "ln2": (d,), **_ffn_shapes(cfg, dims)})
     return layer
 
 
-def param_shapes(cfg) -> Dict[str, tuple]:
+def param_shapes(cfg, tp: int = 1, n_shards: int = 1) -> Dict[str, tuple]:
     """Leaf name -> shape; layer leaves carry the leading layer axes. The
-    dict's order is the order in which :func:`init_lm_params` draws."""
+    dict's order is the order in which :func:`init_lm_params` draws. With
+    ``tp`` the shapes are padded for it: global with ``n_shards=1``, one
+    rank's with ``n_shards=tp`` (the JAX package's ``param_shapes``)."""
     _check_ported(cfg)
+    dims = resolve_dims(cfg, tp, n_shards)
     L, d = cfg.n_layers, cfg.d_model
     lead = _layer_axes(cfg)
-    shapes = {"embed": (cfg.vocab, d)}
-    shapes.update({f"layers/{k}": (*lead, *s) for k, s in _layer_shapes(cfg).items()})
+    shapes = {"embed": (dims.vocab_loc, d)}
+    shapes.update({f"layers/{k}": (*lead, *s) for k, s in _layer_shapes(cfg, dims).items()})
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.vocab)
+        shapes["lm_head"] = (d, dims.vocab_loc)
     shapes["ln_f"] = (d,)
     if cfg.family == "hybrid":  # the shared attention block, once
-        shared = {f"attn/{k}": s for k, s in _attn_shapes(cfg).items()}
-        shared.update({"ln": (2 * d,), "ln2": (d,), "w_in": (2 * d, d), **_ffn_shapes(cfg)})
+        shared = {f"attn/{k}": s for k, s in _attn_shapes(cfg, dims.layout).items()}
+        shared.update({"ln": (2 * d,), "ln2": (d,), "w_in": (2 * d, d),
+                       **_ffn_shapes(cfg, dims)})
         shapes.update({f"shared_attn/{k}": s for k, s in shared.items()})
     if cfg.qkv_bias:
-        q, kv = cfg.n_heads * _head_dim(cfg), cfg.n_kv_heads * _head_dim(cfg)
+        hd = _head_dim(cfg)
+        q, kv = dims.layout.q_local * hd, dims.layout.kv_local * hd
         shapes.update({"layers/attn/bk": (L, kv), "layers/attn/bq": (L, q),
                        "layers/attn/bv": (L, kv)})
     if cfg.frontend == "vit":
@@ -204,7 +278,7 @@ def param_shapes(cfg) -> Dict[str, tuple]:
 
 
 def init_lm_params(cfg, *, generator: torch.Generator, device,
-                   dtype=torch.float32) -> Tree:
+                   dtype=torch.float32, tp: int = 1) -> Tree:
     """Random weights from ``generator`` (the JAX package's distributions:
     uniform ±1/√fan_in for matrices, fan_in their next-to-last axis; the
     ``CONSTANT_INIT`` leaves filled; zeros for the ``ZERO_INIT`` leaves;
@@ -214,8 +288,10 @@ def init_lm_params(cfg, *, generator: torch.Generator, device,
     JAX package draws an MoE layer's three expert matrices from one key,
     so its ``w_up`` equals its ``w_gate`` and its ``w_down`` holds the same
     uniforms at the bound 1/√d_ff: here too (``w_down`` is ``w_gate``'s
-    values in its shape, times √(d_model/d_ff))."""
-    shapes = param_shapes(cfg)
+    values in its shape, times √(d_model/d_ff)). With ``tp`` the tree is
+    the global one padded for it (the JAX package's ``n_shards=1``), the
+    fan-ins the padded counts; each rank takes its slice."""
+    shapes = param_shapes(cfg, tp)
     params = {}
     for name, shape in shapes.items():
         dt = torch.float32 if name in FLOAT32_LEAVES else dtype
@@ -238,9 +314,10 @@ def init_lm_params(cfg, *, generator: torch.Generator, device,
         gate = params["layers/moe/w_gate"]
         params["layers/moe/w_up"] = gate.clone()
         down = torch.empty(shapes["layers/moe/w_down"], dtype=dtype, device=device)
+        d_ff = down.shape[-2]  # padded for tp
         for i in range(down.shape[0]):  # a layer at a time: float32 copies of one layer
             down[i] = (gate[i].to(torch.float32).reshape(down.shape[1:])
-                       * math.sqrt(cfg.d_model / cfg.d_ff)).to(dtype)
+                       * math.sqrt(cfg.d_model / d_ff)).to(dtype)
         params["layers/moe/w_down"] = down
     return params
 
@@ -250,22 +327,25 @@ def _sub(lp, prefix: str):
     return {k[len(prefix):]: v for k, v in lp.items() if k.startswith(prefix)}
 
 
-def _layer(lp, x, positions, cfg):
+def _layer(lp, x, positions, cfg, dims: Dims, axes: Axes):
     """One decoder layer (the JAX package's ``_dense_layer`` or
-    ``_moe_layer``): attention, then the SwiGLU or the MoE block."""
+    ``_moe_layer``): attention, then the SwiGLU or the MoE block, on the
+    rank's local heads and columns."""
     attn, xn = _sub(lp, "attn/"), rmsnorm(x, lp["ln1"])
+    heads = dims.layout
     if cfg.kv_lora:
-        h = x + mla_train(attn, xn, positions, n_heads=cfg.n_heads, head_dim=_head_dim(cfg))
+        h = x + mla_train(attn, xn, positions, n_heads=heads.q_local, head_dim=heads.head_dim,
+                          axes=axes)
     else:
         h = x + attention_train(
             attn, xn, positions,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg),
-            rope_theta=cfg.rope_theta, window=cfg.window,
+            n_heads=heads.q_local, n_kv_heads=heads.kv_local, head_dim=heads.head_dim,
+            rope_theta=cfg.rope_theta, window=cfg.window, axes=axes,
         )
     if cfg.family == "moe":
-        return h + moe_tp(_sub(lp, "moe/"), rmsnorm(h, lp["ln2"]),
-                          n_experts=cfg.n_experts, top_k=cfg.top_k)
-    return h + swiglu_mlp(_sub(lp, "mlp/"), rmsnorm(h, lp["ln2"]))
+        return h + moe_block(_sub(lp, "moe/"), rmsnorm(h, lp["ln2"]),
+                             n_experts=cfg.n_experts, top_k=cfg.top_k, axes=axes)
+    return h + swiglu_mlp(_sub(lp, "mlp/"), rmsnorm(h, lp["ln2"]), axes)
 
 
 def _mamba_layer(lp, x, cfg):
@@ -298,25 +378,29 @@ def _shared_attn_block(p, h, emb, positions, cfg):
     return h + z
 
 
-def _embed_inputs(params: Tree, batch, cfg) -> torch.Tensor:
-    """Token embeddings (B, T, d) in the params' type; with the vit
-    frontend the projected patch embeddings come first (B, N + T, d),
-    projected in the embedding's type as the JAX package does."""
-    x = F.embedding(batch["tokens"], params["embed"])
+def _embed_inputs(params: Tree, batch, cfg, axes: Axes = SINGLE) -> torch.Tensor:
+    """Token embeddings (B, T, d) in the params' type (the vocab-sharded
+    lookup at tp > 1); with the vit frontend the projected patch
+    embeddings come first (B, N + T, d), projected in the embedding's type
+    as the JAX package does (``frontend_proj`` replicated)."""
+    x = embed_lookup(params["embed"], batch["tokens"], axes)
     if cfg.frontend == "vit":
         pe = batch["patch_embeds"].to(x.dtype) @ params["frontend_proj"].to(x.dtype)
         x = torch.cat([pe, x], dim=1)
     return x
 
 
-def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
+def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16,
+               axes: Axes = SINGLE) -> torch.Tensor:
     """Hidden states after the final norm: (B, T', d), T' counting the
     frontend's positions. In the hybrid family the shared attention block
     follows every ``attn_every`` Mamba2 layers, reading the embedded input
     in the activation type beside h; in the ssm family each step of the
-    loop is an (m, m, s) block."""
+    loop is an (m, m, s) block. ``params`` is the rank's shard of the
+    model axis ``axes`` (the whole model at tp = 1)."""
     _check_ported(cfg)
-    x = _embed_inputs(params, batch, cfg).to(dtype)
+    dims = resolve_dims(cfg, axes.tp_size, axes.tp_size)
+    x = _embed_inputs(params, batch, cfg, axes).to(dtype)
     b, t = x.shape[:2]
     positions = torch.arange(t, device=x.device).expand(b, t)
     lead = _layer_axes(cfg)
@@ -332,42 +416,50 @@ def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
             if (i + 1) % cfg.attn_every == 0:
                 x = _shared_attn_block(shared, x, emb0, positions, cfg)
         else:
-            x = _layer(lp, x, positions, cfg)
+            x = _layer(lp, x, positions, cfg, dims, axes)
     return rmsnorm(x, params["ln_f"])
 
 
 def lm_logits(params: Tree, h: torch.Tensor, cfg) -> torch.Tensor:
-    """The JAX package's ``lm_logits_local`` at tp = 1: h @ head in h's
-    type, then float32; the head is ``embed``'s transpose when tied."""
+    """The JAX package's ``lm_logits_local``: h @ head in h's type, then
+    float32 (the rank's vocab slice at tp > 1); the head is ``embed``'s
+    transpose when tied."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (h @ head.to(h.dtype)).to(torch.float32)
 
 
-def lm_loss(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
+def lm_loss(params: Tree, batch, cfg, dtype=torch.bfloat16,
+            axes: Axes = SINGLE) -> torch.Tensor:
     """Mean next-token cross entropy over labelled positions (float32); with
     the vit frontend only the text positions carry labels. With tied
-    embeddings the head is ``embed``'s transpose."""
-    h = lm_forward(params, batch, cfg, dtype)
+    embeddings the head is ``embed``'s transpose. At tp > 1 the parallel
+    cross entropy over the rank's vocab slice (a padded vocabulary's extra
+    logits enter its exp-sum, as in the JAX package)."""
+    h = lm_forward(params, batch, cfg, dtype, axes)
     if cfg.frontend == "vit":
         h = h[:, -batch["tokens"].shape[1]:]
     logits = lm_logits(params, h, cfg)
     labels = batch["labels"]
-    per_tok = cross_entropy(logits, labels)
+    per_tok = tp_cross_entropy(logits, labels, axes)
     mask = (labels >= 0).to(torch.float32)
     return torch.sum(per_tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def params_from_jax(tree_of_numpy, device, prefix: str = "") -> Tree:
-    """JAX ``init_lm_params`` output pulled to the host (tp = 1, nested dict
-    of numpy arrays, stacked layer axis kept) -> the port's leaf dict on
-    ``device``, names joined with "/"."""
+def params_from_jax(tree_of_numpy, device, prefix: str = "",
+                    shard: Optional[TpShard] = None, lead: int = 0) -> Tree:
+    """JAX ``init_lm_params`` output pulled to the host (nested dict of
+    numpy arrays, stacked layer axis kept; the global tree, ``n_shards=1``)
+    -> the port's leaf dict on ``device``, names joined with "/". With
+    ``shard`` each leaf is that rank's slice over the model axis, its
+    sharded dimension counted after ``lead`` leading axes."""
     out = {}
     for k, v in tree_of_numpy.items():
         name = f"{prefix}{k}"
         if isinstance(v, dict):
-            out.update(params_from_jax(v, device, name + "/"))
+            out.update(params_from_jax(v, device, name + "/", shard, lead))
         else:
-            out[name] = _tensor(v, device)
+            t = _tensor(v, device)
+            out[name] = t if shard is None else shard.take(name, t, lead)
     return out
 
 
@@ -378,12 +470,14 @@ def _tensor(v, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def opt_state_from_jax(state_of_numpy, device) -> Dict[str, object]:
+def opt_state_from_jax(state_of_numpy, device, shard: Optional[TpShard] = None
+                       ) -> Dict[str, object]:
     """JAX fused-route optimizer state (``{"mom": tree}`` for SGD,
     ``{"mu": tree, "nu": tree, "count": int32 scalar}`` for AdamW) -> the
-    port's: a leaf dict per tree, a tensor per scalar."""
+    port's: a leaf dict per tree (with ``shard``, the rank's slices), a
+    tensor per scalar."""
     return {
-        name: params_from_jax(t, device) if isinstance(t, dict)
+        name: params_from_jax(t, device, shard=shard) if isinstance(t, dict)
         else torch.from_numpy(np.array(t)).to(device)
         for name, t in state_of_numpy.items()
     }
@@ -397,7 +491,21 @@ def _rank_rows(tree: dict, rank) -> dict:
     return {k: v[rank:rank + 1].clone() for k, v in tree.items()}
 
 
-def zero1_state_from_jax(opt_state_of_numpy, comp_state_of_numpy, device, rank=None):
+def _row_columns(tree: dict, shard: Optional[TpShard]) -> dict:
+    """The JAX package's global ZeRO-1 rows are ``(n_dp, tp·per)``, the
+    model axis over dim 1 for every leaf (a replicated leaf's tp copies
+    side by side): the rank's ``per`` columns."""
+    if shard is None or shard.size == 1:
+        return tree
+    out = {}
+    for k, v in tree.items():
+        per = v.shape[1] // shard.size
+        out[k] = v.narrow(1, shard.index * per, per).clone()
+    return out
+
+
+def zero1_state_from_jax(opt_state_of_numpy, comp_state_of_numpy, device, rank=None,
+                         shard: Optional[TpShard] = None):
     """JAX ZeRO-1 state as ``build_init_state(fused=False)`` and the train
     step hold it globally — ``{"master": tree, "base": state}``, every
     tensor leaf in its ``(n_dp, ceil(k/n_dp))`` row layout with the leading
@@ -407,18 +515,24 @@ def zero1_state_from_jax(opt_state_of_numpy, comp_state_of_numpy, device, rank=N
     holds it (SGD: a leaf dict of momentum rows; AdamW: ``{"mu", "nu",
     "count"}``), the compressor state as :func:`comp_state_from_jax` gives
     it. With ``rank``: the state that rank of a process group holds — row
-    ``rank`` of the masters, the optimizer state and IntDIANA's h_local."""
+    ``rank`` of the masters, the optimizer state and IntDIANA's h_local
+    (``rank`` the dp index on a data × model grid). With ``shard``: the
+    rank's columns of every row and its slice of the compressor state over
+    the model axis."""
+    def rows(tree):
+        return _row_columns(_rank_rows(tree, rank), shard)
+
     base = opt_state_of_numpy["base"]
     if isinstance(base, dict) and "count" in base:
         base = opt_state_from_jax(base, device)
-        base = dict(base, mu=_rank_rows(base["mu"], rank), nu=_rank_rows(base["nu"], rank))
+        base = dict(base, mu=rows(base["mu"]), nu=rows(base["nu"]))
     elif isinstance(base, dict):
-        base = _rank_rows(params_from_jax(base, device), rank)
+        base = rows(params_from_jax(base, device))
     else:  # SGD without momentum keeps no state
         base = ()
-    master = _rank_rows(params_from_jax(opt_state_of_numpy["master"], device), rank)
+    master = rows(params_from_jax(opt_state_of_numpy["master"], device))
     opt_state = {"master": master, "base": base}
-    return opt_state, comp_state_from_jax(comp_state_of_numpy, device, rank)
+    return opt_state, comp_state_from_jax(comp_state_of_numpy, device, rank, shard)
 
 
 def _first(v, device) -> torch.Tensor:
@@ -447,7 +561,7 @@ def _drop_none(tree: dict) -> dict:
     return out
 
 
-def comp_state_from_jax(state_of_numpy, device, rank=None):
+def comp_state_from_jax(state_of_numpy, device, rank=None, shard: Optional[TpShard] = None):
     """JAX compressor state, stacked over the workers as the JAX step and
     ``vmap_workers`` hold it (every leaf with a leading worker axis) -> the
     port's. IntSGD's is a bare ``AlphaState(r, step)`` (r a per-leaf tree
@@ -460,27 +574,31 @@ def comp_state_from_jax(state_of_numpy, device, rank=None):
     the replicated Q from worker 0 (its matrix leaves only; JAX holds None
     for the others), the error feedback stacked. SignSGD's and TopK's state
     is the error-feedback tree itself, stacked. The float baselines' (and
-    Heuristic IntSGD's, QSGD's, NatSGD's) is empty."""
+    Heuristic IntSGD's, QSGD's, NatSGD's) is empty. With ``shard``, every
+    per-leaf tensor is the rank's slice over the model axis (α's state is
+    replicated)."""
     if isinstance(state_of_numpy, tuple) and not state_of_numpy:
         return ()
     if not isinstance(state_of_numpy, dict):
         return _alpha_state_from_jax(state_of_numpy, device)
+    def stacked(tree):  # (n, *leaf) per leaf: the rank's rows, its slice
+        return _rank_rows(params_from_jax(tree, device, shard=shard, lead=1), rank)
+
+    def first(tree):
+        return {k: v[0].clone() for k, v in params_from_jax(tree, device, shard=shard,
+                                                              lead=1).items()}
+
     if set(state_of_numpy) == {"alpha", "ef"}:
         return {"alpha": _alpha_state_from_jax(state_of_numpy["alpha"], device),
-                "ef": _rank_rows(params_from_jax(state_of_numpy["ef"], device), rank)}
+                "ef": stacked(state_of_numpy["ef"])}
     if set(state_of_numpy) == {"q", "err"}:
-        q = {k: v[0].clone()
-             for k, v in params_from_jax(_drop_none(state_of_numpy["q"]), device).items()}
         err = state_of_numpy["err"]
-        return {"q": q, "err": None if err is None
-                else _rank_rows(params_from_jax(err, device), rank)}
+        return {"q": first(_drop_none(state_of_numpy["q"])),
+                "err": None if err is None else stacked(err)}
     if "alpha" not in state_of_numpy:  # an error-feedback tree
-        return _rank_rows(params_from_jax(state_of_numpy, device), rank)
+        return stacked(state_of_numpy)
     return {
         "alpha": _alpha_state_from_jax(state_of_numpy["alpha"], device),
-        "h_local": _rank_rows(params_from_jax(state_of_numpy["h_local"], device), rank),
-        "h_global": {
-            k: v[0].clone()
-            for k, v in params_from_jax(state_of_numpy["h_global"], device).items()
-        },
+        "h_local": stacked(state_of_numpy["h_local"]),
+        "h_global": first(state_of_numpy["h_global"]),
     }

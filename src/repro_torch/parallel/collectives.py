@@ -14,6 +14,13 @@ Every ``torch.distributed`` call of the port lives in this module (the
 JAX package's collectives-shim rule), so the call sites read the same on
 both backends.
 
+The model axis (tensor parallelism) has no local backend: its primitives
+(:func:`psum_tp`, :func:`pmax_tp`, :func:`all_to_all_tp`) take the model
+group of a data × model grid of ranks (``launch/mesh.py``) and raise
+without one. :func:`psum_tp` is the JAX package's ``psum`` inside its
+step's ``shard_map`` (``check_vma=False``), whose transpose is again a
+``psum``: its backward sums the cotangents over the group too.
+
 The integer-only guard carries over: gradient payloads summed here must be
 integer transport words — the paper's floatless wire is structural. On a
 group they are summed in their own type (int32 packed words, int8 or int32
@@ -326,3 +333,129 @@ def all_gather_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
     dist.all_gather(list(out.unbind(0)), rows.reshape(rows.shape[1:]).contiguous(),
                     group=group)
     return out.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# the model axis (tensor parallelism)
+# ---------------------------------------------------------------------------
+# calls of the model-axis primitives since the last reset: "psum_tp" and
+# "psum_tp_backward" (one all-reduce each), "all_to_all_tp" and
+# "all_to_all_tp_backward", "pmax_tp"
+_TP_COUNTS: Dict[str, int] = {}
+
+
+def tp_counts() -> Dict[str, int]:
+    return dict(_TP_COUNTS)
+
+
+def reset_tp_counts() -> None:
+    _TP_COUNTS.clear()
+
+
+def _count(name: str) -> None:
+    _TP_COUNTS[name] = _TP_COUNTS.get(name, 0) + 1
+
+
+def new_group(ranks: Sequence[int]):
+    """A process group of ``ranks`` (global ranks). Every rank of the world
+    calls it, in the same order, for every group, its own or not."""
+    return dist.new_group(list(ranks))
+
+
+def world_rank() -> int:
+    return dist.get_rank()
+
+
+def world_size() -> int:
+    return dist.get_world_size()
+
+
+def _need_group(group, what: str) -> None:
+    if group is None:
+        raise ValueError(
+            f"{what} over the model axis needs the model group of a data × model grid "
+            "of ranks (launch.mesh.make_debug_mesh); the local backend simulates "
+            "data-parallel workers only and holds no model shards")
+
+
+class _PsumTp(torch.autograd.Function):
+    """all_reduce(SUM) over the model group in the forward pass and again
+    in the backward pass (the JAX package's transpose of ``psum`` under
+    ``check_vma=False``): every rank's cotangent is summed, so each
+    gradient upstream of it comes out tp times the single-device one, as
+    the JAX package's do."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        _count("psum_tp")
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("psum_tp_backward")
+        out = g.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+def psum_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The model group's sum of ``x``, differentiable (see :class:`_PsumTp`)."""
+    _need_group(group, "psum_tp")
+    return _PsumTp.apply(x, group)
+
+
+def pmax_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The model group's elementwise max of ``x``, outside autograd (the JAX
+    package stops the gradient there: a stabilizer only)."""
+    _need_group(group, "pmax_tp")
+    _count("pmax_tp")
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def psum_tp_tree(tree: Tree, group) -> Tree:
+    """Each leaf summed over the model group, outside autograd: the
+    replicated leaves' gradients (each rank holds a partial one) and the
+    sharded leaves' squared norms. One async all-reduce per leaf."""
+    _need_group(group, "psum_tp_tree")
+    return _all_reduce_copies(tree, group).wait()
+
+
+def exchange_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The model group's all-to-all along dim 0: ``x`` is (tp, ...), row j
+    goes to rank j, and row j of the result came from rank j. Its own
+    inverse."""
+    x = x.contiguous()
+    out = torch.empty_like(x)  # contiguous too: the library writes row-major
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAllTp(torch.autograd.Function):
+    """:func:`exchange_tp` whose backward is the inverse exchange (the JAX
+    package's transpose of ``all_to_all``: no factor)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        _count("all_to_all_tp")
+        return exchange_tp(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("all_to_all_tp_backward")
+        return exchange_tp(g, ctx.group), None
+
+
+def all_to_all_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable all-to-all over the model group along dim 0 (``x`` is
+    (tp, ...): row j is sent to rank j)."""
+    _need_group(group, "all_to_all_tp")
+    if x.shape[0] != dist.get_world_size(group):
+        raise ValueError(f"all_to_all_tp: dim 0 is {x.shape[0]}, the group has "
+                         f"{dist.get_world_size(group)} ranks")
+    return _AllToAllTp.apply(x, group)

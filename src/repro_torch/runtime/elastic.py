@@ -16,7 +16,9 @@ Protocol (one coordinator):
   3. restore the latest checkpoint at the new worker count
      (``launch.train.train_loop(resume=True, n_workers=n')``: every leaf
      of a fused-route IntSGD state is replicated, so it loads at any n; a
-     leaf held one row per worker is refused, naming it and both counts);
+     leaf held one row per worker is refused, naming it and both counts;
+     at tp > 1 the restore is refused whole, by
+     ``checkpoint.store.refuse_model_shards``: ROADMAP item 12.6c);
   4. rebuild the step for the new count (its clip limit and α take n');
      rescale the per-worker batch or accept the smaller global batch
      (configurable policy);

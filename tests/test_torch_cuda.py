@@ -1243,3 +1243,46 @@ def test_straggler_sum_launch_counts_on_the_card(dev):
     for k in shapes:
         want = sum(im[k] for im, a in zip(images, alive) if a)
         assert torch.equal(s[k], want) and torch.equal(d[k], want), k
+
+
+# ---------------------------------------------------------------------------
+# the model axis: psum_tp and all_to_all_tp on gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+def _tp_primitives(group, rank, device):
+    """psum_tp's forward and backward (each an all-reduce over the group)
+    and all_to_all_tp's exchange and inverse, in float32 and bf16, on
+    ``device``; everything returned on the CPU."""
+    from repro_torch.parallel import collectives as coll
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(100 + rank)
+        x = torch.randn(2, 3, 5, generator=g).to(device, dtype).requires_grad_(True)
+        w = torch.randn(2, 3, 5, generator=g).to(device, dtype)
+        y = coll.psum_tp(x, group)
+        (gx,) = torch.autograd.grad(torch.sum(y * w), x)
+        a = torch.randn(2, 4, 3, generator=g).to(device, dtype).requires_grad_(True)
+        b = coll.all_to_all_tp(a, group)
+        (ga,) = torch.autograd.grad(torch.sum(b * w[:, :1, :3]), a)
+        out[str(dtype)] = [t.detach().cpu() for t in (y, gx, b, ga)]
+    out["counts"] = coll.tp_counts()
+    return out
+
+
+def test_tp_primitives_on_two_gloo_ranks_sharing_the_card_match_the_cpu(dev):
+    """psum_tp (its backward an all-reduce too) and all_to_all_tp (its
+    backward the inverse exchange) on two gloo ranks with CUDA tensors,
+    bit-equal to the same two ranks on the CPU (a sum of two addends is
+    exact in either order), in float32 and bf16."""
+    from repro_torch.parallel.spawn import run_ranks
+
+    card = run_ranks(_tp_primitives, 2, args=("cuda:0",))
+    cpu = run_ranks(_tp_primitives, 2, args=("cpu",))
+    for c, h in zip(card, cpu):
+        for dtype in ("torch.float32", "torch.bfloat16"):
+            for got, want in zip(c[dtype], h[dtype]):
+                assert got.dtype == want.dtype and torch.equal(got, want), dtype
+        assert c["counts"] == h["counts"] == {"psum_tp": 2, "psum_tp_backward": 2,
+                                              "all_to_all_tp": 2, "all_to_all_tp_backward": 2}
+    # the sum is the same on both ranks
+    assert torch.equal(cpu[0]["torch.float32"][0], cpu[1]["torch.float32"][0])

@@ -38,6 +38,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.data.logreg" in mods
     assert "repro_torch.checkpoint.store" in mods and "repro_torch.launch.inputs" in mods
     assert "repro_torch.configs.qwen2_5_32b" in mods
+    assert "repro_torch.launch.mesh" in mods and "repro_torch.launch.specs" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -100,7 +101,9 @@ def test_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys, tmp_path):
     assert "step     0" in out and "step     1" in out
     base = ["--arch", "granite-8b", "--smoke", "--device", "cpu", "--fused",
             "--compressor", "intsgd8_packed"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # ported since: --model > 1 runs under torchrun on a data x model grid,
+    # and refuses to run without one
+    with pytest.raises(ValueError, match="torchrun.*data x model"):
         train.main(base + ["--model", "2"])
     # ported since: --ckpt-dir and --resume (a save every 20 steps, as JAX's)
     ckpt = ["--ckpt-dir", str(tmp_path), "--workers", "2", "--batch", "2", "--seq", "8"]
