@@ -25,12 +25,11 @@ Specs = Dict[str, Optional[int]]
 
 def param_shapes(cfg, tp: int = 1, n_shards: int = 1) -> Shapes:
     """Leaf name -> shape: global and padded for ``tp`` with ``n_shards=1``,
-    one rank's with ``n_shards=tp``. The encoder-decoder runs at tp = 1
-    only (ROADMAP item 12.6b)."""
-    if cfg.family == "encdec":
-        transformer.check_tp(cfg, tp)
-        return encdec.param_shapes(cfg)
-    return transformer.param_shapes(cfg, tp, n_shards)
+    one rank's with ``n_shards=tp``; the encoder-decoder's from
+    ``models/encdec.py``, every other family's from
+    ``models/transformer.py``."""
+    fn = encdec.param_shapes if cfg.family == "encdec" else transformer.param_shapes
+    return fn(cfg, tp, n_shards)
 
 
 def infer_param_specs(cfg, tp: int) -> Tuple[Shapes, Shapes, Specs]:

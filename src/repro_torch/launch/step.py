@@ -41,7 +41,7 @@ step makes no host sync. ``overlap="ring"`` sends the integer wire in
 buckets (:mod:`repro_torch.wire.bucketing`).
 
 Tensor parallelism (``grid=``, a data × model grid of ranks from
-``launch/mesh.py``; the attention families): each rank holds its shard of
+``launch/mesh.py``; every family): each rank holds its shard of
 the params over the model axis (``launch/specs.py``) and runs the step on
 it; the data group carries the integer wire, the ZeRO-1 rows and the
 loss's mean, exactly as on a plain group of n_dp ranks. The gradient
@@ -75,7 +75,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import specs as specs_mod
 from repro_torch.models import encdec
 from repro_torch.models.common import SINGLE, Axes
-from repro_torch.models.transformer import check_tp, lm_loss
+from repro_torch.models.transformer import lm_loss
 from repro_torch.optim import base as optb
 from repro_torch.optim.base import Optimizer
 from repro_torch.optim.zero1 import zero1_init, zero1_update
@@ -533,7 +533,6 @@ def build_train_step(
             raise ValueError("pass the grid or a group, not both: the grid's data group "
                              "carries the workers")
         group = grid.data_group
-        check_tp(cfg, tp)
         _check_tp_compressor(compressor, tp)
     if group is None:
         ctx = CommCtx(n_workers=n_workers, overlap=overlap, bucket_words=bucket_words)

@@ -57,7 +57,8 @@ synthetic token data does not carry: drive it with
 20 steps (``checkpoint.CheckpointStore``, the JAX package's layout);
 ``--resume`` starts from its latest step.
 
-``--model M`` (tensor parallelism, the attention families) runs under
+``--model M`` (tensor parallelism; every family the synthetic token data
+drives, so zamba2 and xlstm too, not seamless) runs under
 ``torchrun`` on a ``--data`` × ``--model`` grid of ranks
 (``launch.mesh.make_debug_mesh``): the world size is data · model, each
 rank holds its shard of the model axis, and ``--data`` (or ``--workers``)

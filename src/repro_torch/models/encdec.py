@@ -1,5 +1,5 @@
-"""Encoder-decoder transformer (port of ``repro/models/encdec.py`` at
-tp = 1: the seamless-m4t backbone), train and decode.
+"""Encoder-decoder transformer (port of ``repro/models/encdec.py``: the
+seamless-m4t backbone), train at any tp and decode at tp = 1.
 
 Encoder: the audio frontend is a stub, as in the JAX package: the batch
 carries precomputed frame embeddings (B, T_src, frontend_dim), cast to
@@ -19,6 +19,19 @@ Parameters are a flat dict of leaves named by their JAX pytree paths
 one leaf with a leading layer axis, as in ``models/transformer.py``. The
 JAX package wraps each layer in ``jax.checkpoint``; that changes memory,
 not values, and the port keeps the activations instead.
+
+Tensor parallelism, as in the JAX package: :func:`param_shapes` and
+:func:`init_encdec_params` take ``tp`` (the global tree padded for it, or
+one rank's shard with ``n_shards=tp``), and the train path takes the
+model axis (``models.common.Axes``): the embedding and ``lm_head``
+vocab-sharded (``embed_lookup``, ``tp_cross_entropy``), every attention
+on the rank's heads (the cross attention's K and V projected on its local
+KV heads) with its out projection row-parallel, the GELU MLP column- and
+row-parallel (``b_out`` added once, after the sum), and ``frontend_proj``
+and every LayerNorm replicated. Unlike the hybrid and ssm families, this
+family computes the same function at every tp from the same global
+params (up to the padding of a vocabulary or head count that tp does not
+divide).
 
 Decode (:func:`init_encdec_cache`, :func:`encdec_prefill`,
 :func:`encdec_decode_step`): the prefill runs the encoder and projects
@@ -43,9 +56,11 @@ import torch.nn.functional as F
 from repro_torch.models.attention import (
     attention_decode, attention_train, f32_scale, gqa_attend, init_cache,
 )
-from repro_torch.models.common import cross_entropy, dense_init, layernorm, rope
+from repro_torch.models.common import (
+    SINGLE, Axes, HeadLayout, dense_init, embed_lookup, layernorm, rope, tp_cross_entropy,
+)
 from repro_torch.models.mlp import gelu_mlp
-from repro_torch.models.transformer import _attn_shapes, _head_dim, _sub
+from repro_torch.models.transformer import Dims, _attn_shapes, _head_dim, _sub, resolve_dims
 
 Tree = Dict[str, torch.Tensor]
 
@@ -54,33 +69,37 @@ def _ln_shapes(name: str, d: int) -> Dict[str, tuple]:
     return {f"{name}/b": (d,), f"{name}/w": (d,)}
 
 
-def _layer_shapes(cfg, attn_names) -> Dict[str, tuple]:
+def _layer_shapes(cfg, attn_names, dims: Dims) -> Dict[str, tuple]:
     """One layer's leaves without the leading layer axis: a LayerNorm
     before each attention of ``attn_names`` (ln1, then ln_x) and before the
-    GELU MLP (ln2)."""
-    d, f = cfg.d_model, cfg.d_ff
+    GELU MLP (ln2); ``dims``' heads and d_ff columns."""
+    d, f = cfg.d_model, dims.d_ff_loc
     shapes = {}
     for attn, ln in zip(attn_names, ("ln1", "ln_x")):
         shapes.update(_ln_shapes(ln, d))
-        shapes.update({f"{attn}/{k}": s for k, s in _attn_shapes(cfg).items()})
+        shapes.update({f"{attn}/{k}": s for k, s in _attn_shapes(cfg, dims.layout).items()})
     shapes.update(_ln_shapes("ln2", d))
     shapes.update({"mlp/b_in": (f,), "mlp/b_out": (d,), "mlp/w_in": (d, f),
                    "mlp/w_out": (f, d)})
     return shapes
 
 
-def param_shapes(cfg) -> Dict[str, tuple]:
+def param_shapes(cfg, tp: int = 1, n_shards: int = 1) -> Dict[str, tuple]:
     """Leaf name -> shape of the encoder-decoder (37 leaves); the layer
-    leaves carry the leading axis ``enc_layers`` or ``dec_layers``."""
+    leaves carry the leading axis ``enc_layers`` or ``dec_layers``. With
+    ``tp`` the shapes are padded for it: global with ``n_shards=1``, one
+    rank's with ``n_shards=tp`` (the JAX package's ``init_encdec_params``
+    shapes)."""
     if cfg.family != "encdec":
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not the encoder-decoder")
-    d = cfg.d_model
-    shapes = {"frontend_proj": (cfg.frontend_dim, d), "embed": (cfg.vocab, d)}
+    d, dims = cfg.d_model, resolve_dims(cfg, tp, n_shards)
+    shapes = {"frontend_proj": (cfg.frontend_dim, d), "embed": (dims.vocab_loc, d)}
     for stack, n, attn in (("enc_layers", cfg.enc_layers, ("attn",)),
                            ("dec_layers", cfg.dec_layers, ("self_attn", "cross_attn"))):
-        shapes.update({f"{stack}/{k}": (n, *s) for k, s in _layer_shapes(cfg, attn).items()})
+        shapes.update({f"{stack}/{k}": (n, *s)
+                       for k, s in _layer_shapes(cfg, attn, dims).items()})
     shapes.update({**_ln_shapes("ln_enc", d), **_ln_shapes("ln_dec", d),
-                   "lm_head": (d, cfg.vocab)})
+                   "lm_head": (d, dims.vocab_loc)})
     return shapes
 
 
@@ -97,13 +116,15 @@ def _constant(name: str):
 
 
 def init_encdec_params(cfg, *, generator: torch.Generator, device,
-                       dtype=torch.float32) -> Tree:
+                       dtype=torch.float32, tp: int = 1) -> Tree:
     """Random weights from ``generator`` (the JAX package's distributions:
     every matrix uniform ±1/√fan_in, fan_in its next-to-last axis, the
     embedding's d_model; the :func:`_constant` leaves filled), on
-    ``device``, in ``dtype``."""
+    ``device``, in ``dtype``. With ``tp`` the tree is the global one padded
+    for it (the JAX package's ``n_shards=1``); each rank takes its slice
+    (``models.common.TpShard``)."""
     params = {}
-    for name, shape in param_shapes(cfg).items():
+    for name, shape in param_shapes(cfg, tp).items():
         const = _constant(name)
         if const is not None:
             params[name] = torch.full(shape, const, dtype=dtype, device=device)
@@ -129,29 +150,40 @@ def _heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
     return t.reshape(*t.shape[:2], n, dh)
 
 
-def _project_enc_kv(p, enc_out: torch.Tensor, cfg):
-    """Cross attention's K and V from the encoder states (B, Ts, Hkv, dh),
-    no RoPE."""
-    hkv, dh = cfg.n_kv_heads, _head_dim(cfg)
+def _layout(cfg, axes: Axes) -> HeadLayout:
+    """The rank's heads over ``axes``' model group (all of them at tp = 1)."""
+    return resolve_dims(cfg, axes.tp_size, axes.tp_size).layout
+
+
+def _project_enc_kv(p, enc_out: torch.Tensor, cfg, axes: Axes = SINGLE):
+    """Cross attention's K and V from the encoder states (B, Ts, Hkv, dh)
+    on the rank's KV heads, no RoPE."""
+    heads = _layout(cfg, axes)
     k = enc_out @ p["wk"].to(enc_out.dtype)
     v = enc_out @ p["wv"].to(enc_out.dtype)
-    return _heads(k, hkv, dh), _heads(v, hkv, dh)
+    return (_heads(k, heads.kv_local, heads.head_dim),
+            _heads(v, heads.kv_local, heads.head_dim))
 
 
-def _cross_attention(p, x: torch.Tensor, enc_kv, cfg) -> torch.Tensor:
+def _cross_attention(p, x: torch.Tensor, enc_kv, cfg, axes: Axes = SINGLE) -> torch.Tensor:
     """x: (B, Tq, d) attends every encoder position (no mask, no RoPE);
-    ``enc_kv``: (k, v), each (B, Ts, Hkv, dh)."""
-    q = _heads(x @ p["wq"].to(x.dtype), cfg.n_heads, _head_dim(cfg))
-    return gqa_attend(q, *enc_kv, causal=False) @ p["wo"].to(x.dtype)
+    ``enc_kv``: (k, v), each (B, Ts, Hkv, dh). The out projection is
+    row-parallel over ``axes``."""
+    heads = _layout(cfg, axes)
+    q = _heads(x @ p["wq"].to(x.dtype), heads.q_local, heads.head_dim)
+    return axes.psum_tp(gqa_attend(q, *enc_kv, causal=False) @ p["wo"].to(x.dtype))
 
 
-def _encoder_attention(p, z: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
-    """Bidirectional self-attention: RoPE (θ 10,000) on q and k."""
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, _head_dim(cfg)
+def _encoder_attention(p, z: torch.Tensor, positions: torch.Tensor, cfg,
+                       axes: Axes = SINGLE) -> torch.Tensor:
+    """Bidirectional self-attention on the rank's heads: RoPE (θ 10,000) on
+    q and k, the out projection row-parallel over ``axes``."""
+    heads = _layout(cfg, axes)
+    hq, hkv, dh = heads.q_local, heads.kv_local, heads.head_dim
     q = rope(_heads(z @ p["wq"].to(z.dtype), hq, dh), positions)
     k = rope(_heads(z @ p["wk"].to(z.dtype), hkv, dh), positions)
     v = _heads(z @ p["wv"].to(z.dtype), hkv, dh)
-    return gqa_attend(q, k, v, causal=False) @ p["wo"].to(z.dtype)
+    return axes.psum_tp(gqa_attend(q, k, v, causal=False) @ p["wo"].to(z.dtype))
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -159,55 +191,61 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(t, device=x.device).expand(b, t)
 
 
-def encoder_layer(lp, x: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+def encoder_layer(lp, x: torch.Tensor, positions: torch.Tensor, cfg,
+                  axes: Axes = SINGLE) -> torch.Tensor:
     """One encoder layer: LayerNorm, bidirectional attention and the
     residual; LayerNorm, the GELU MLP and the residual."""
-    x = x + _encoder_attention(_sub(lp, "attn/"), _ln(x, lp, "ln1"), positions, cfg)
-    return x + gelu_mlp(_sub(lp, "mlp/"), _ln(x, lp, "ln2"))
+    x = x + _encoder_attention(_sub(lp, "attn/"), _ln(x, lp, "ln1"), positions, cfg, axes)
+    return x + gelu_mlp(_sub(lp, "mlp/"), _ln(x, lp, "ln2"), axes)
 
 
 def decoder_layer(lp, x: torch.Tensor, enc_out: torch.Tensor, positions: torch.Tensor,
-                  cfg) -> torch.Tensor:
+                  cfg, axes: Axes = SINGLE) -> torch.Tensor:
     """One decoder layer: causal self-attention, cross attention to
     ``enc_out`` (K and V projected here) and the GELU MLP, each behind its
     LayerNorm and added to the residual."""
-    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg))
+    heads = _layout(cfg, axes)
+    kw = dict(n_heads=heads.q_local, n_kv_heads=heads.kv_local, head_dim=heads.head_dim,
+              axes=axes)
     x = x + attention_train(_sub(lp, "self_attn/"), _ln(x, lp, "ln1"), positions, **kw)
     cross = _sub(lp, "cross_attn/")
-    kv = _project_enc_kv(cross, enc_out, cfg)
-    x = x + _cross_attention(cross, _ln(x, lp, "ln_x"), kv, cfg)
-    return x + gelu_mlp(_sub(lp, "mlp/"), _ln(x, lp, "ln2"))
+    kv = _project_enc_kv(cross, enc_out, cfg, axes)
+    x = x + _cross_attention(cross, _ln(x, lp, "ln_x"), kv, cfg, axes)
+    return x + gelu_mlp(_sub(lp, "mlp/"), _ln(x, lp, "ln2"), axes)
 
 
-def encode(params: Tree, frames: torch.Tensor, cfg, dtype=torch.bfloat16) -> torch.Tensor:
+def encode(params: Tree, frames: torch.Tensor, cfg, dtype=torch.bfloat16,
+           axes: Axes = SINGLE) -> torch.Tensor:
     """frames: (B, Ts, frontend_dim) -> encoder states (B, Ts, d) in
     ``dtype``."""
     x = frames.to(dtype) @ params["frontend_proj"].to(dtype)
     positions = _positions(x)
     for lp in _layers(params, "enc_layers"):
-        x = encoder_layer(lp, x, positions, cfg)
+        x = encoder_layer(lp, x, positions, cfg, axes)
     return _ln(x, params, "ln_enc")
 
 
 def decode_states(params: Tree, enc_out: torch.Tensor, tokens: torch.Tensor, cfg,
-                  dtype=torch.bfloat16) -> torch.Tensor:
+                  dtype=torch.bfloat16, axes: Axes = SINGLE) -> torch.Tensor:
     """The decoder's hidden states after ``ln_dec``, (B, Tt, d), teacher
     forced on ``tokens`` over the encoder states ``enc_out``."""
-    x = F.embedding(tokens, params["embed"]).to(dtype)
+    x = embed_lookup(params["embed"], tokens, axes).to(dtype)
     positions = _positions(x)
     for lp in _layers(params, "dec_layers"):
-        x = decoder_layer(lp, x, enc_out, positions, cfg)
+        x = decoder_layer(lp, x, enc_out, positions, cfg, axes)
     return _ln(x, params, "ln_dec")
 
 
-def encdec_loss(params: Tree, batch, cfg, dtype=torch.bfloat16) -> torch.Tensor:
+def encdec_loss(params: Tree, batch, cfg, dtype=torch.bfloat16,
+                axes: Axes = SINGLE) -> torch.Tensor:
     """batch: frames (B, Ts, fd), tokens (B, Tt), labels (B, Tt). The mean
-    cross entropy over labelled positions (float32 logits)."""
-    enc_out = encode(params, batch["frames"], cfg, dtype)
-    h = decode_states(params, enc_out, batch["tokens"], cfg, dtype)
+    cross entropy over labelled positions (float32 logits; at tp > 1 the
+    parallel cross entropy over the rank's vocab slice)."""
+    enc_out = encode(params, batch["frames"], cfg, dtype, axes)
+    h = decode_states(params, enc_out, batch["tokens"], cfg, dtype, axes)
     logits = (h @ params["lm_head"].to(h.dtype)).to(torch.float32)
     labels = batch["labels"]
-    per_tok = cross_entropy(logits, labels)
+    per_tok = tp_cross_entropy(logits, labels, axes)
     mask = (labels >= 0).to(torch.float32)
     return torch.sum(per_tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
 

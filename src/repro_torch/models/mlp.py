@@ -1,5 +1,5 @@
-"""SwiGLU and GELU MLP blocks (port of ``repro/models/mlp.py``; the
-SwiGLU column-parallel in and row-parallel out over the model axis)."""
+"""SwiGLU and GELU MLP blocks (port of ``repro/models/mlp.py``; both
+column-parallel in and row-parallel out over the model axis)."""
 from __future__ import annotations
 
 import torch
@@ -17,12 +17,14 @@ def swiglu_mlp(p, x: torch.Tensor, axes: Axes = SINGLE) -> torch.Tensor:
     return axes.psum_tp(swiglu(g, u) @ p["w_down"].to(x.dtype))
 
 
-def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """p: {"w_in": (d, f), "b_in": (f,), "w_out": (f, d), "b_out": (d,)}; x:
-    (B, T, d). ``b_in`` is added in the activation type before the GELU,
-    ``b_out`` after ``w_out``. The GELU is the tanh approximation, the
-    default of ``jax.nn.gelu`` (the exact erf form differs by ~1e-3)."""
+def gelu_mlp(p, x: torch.Tensor, axes: Axes = SINGLE) -> torch.Tensor:
+    """p: {"w_in": (d, f), "b_in": (f,), "w_out": (f, d), "b_out": (d,)}, f
+    the rank's d_ff/tp columns (``b_out`` replicated); x: (B, T, d).
+    ``b_in`` is added in the activation type before the GELU; ``w_out``'s
+    partial sums are summed over ``axes``' model group and then ``b_out``
+    is added, once. The GELU is the tanh approximation, the default of
+    ``jax.nn.gelu`` (the exact erf form differs by ~1e-3)."""
     h = x @ p["w_in"].to(x.dtype)
     h = F.gelu(h + p["b_in"].to(h.dtype), approximate="tanh")
-    out = h @ p["w_out"].to(x.dtype)
+    out = axes.psum_tp(h @ p["w_out"].to(x.dtype))
     return out + p["b_out"].to(out.dtype)

@@ -1,7 +1,15 @@
-"""Mamba2 (SSD) block (port of ``repro/models/ssm.py`` at tp = 1): the
-train path (``_causal_conv``, ``_ssd_chunk``, ``mamba2_train``) and the
-one-token decode with its O(1) state (``init_mamba2_cache``,
-``mamba2_decode``).
+"""Mamba2 (SSD) block (port of ``repro/models/ssm.py``): the train path
+(``_causal_conv``, ``_ssd_chunk``, ``mamba2_train``), at tp > 1 on the
+rank's heads of a model axis, and the one-token decode with its O(1)
+state (``init_mamba2_cache``, ``mamba2_decode``) at tp = 1.
+
+Tensor parallelism, as in the JAX package: the heads (d_inner) are
+sharded over the model axis, ``w_bc`` is replicated, and the out
+projection is row-parallel (``axes.psum_tp``). Each rank's ``w_xz`` is its
+contiguous slice of the global ``[x | z]`` columns, split in half again
+locally, and the gate's RMSNorm takes the mean over the rank's own
+``d_inner/tp``; both are the reference's behaviour, which the port keeps
+(at tp = 2 rank 0's local x and z are both global x columns).
 
 State space:  h_t = exp(A·dt_t) h_{t-1} + dt_t · (B_t ⊗ x_t),   y_t = C_t · h_t
 with scalar A<0 per head, shared B/C projections (ngroups=1), per-head dt.
@@ -37,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import SINGLE, Axes, rmsnorm
 
 CONV_K = 4
 
@@ -127,7 +135,8 @@ def _ssd_chunk(h_in, xs):
 
 def gate_norm(p, y, xh, z):
     """y (B, T, H, P) float32 gains d_skip·xh, is cast to z's type, gated by
-    silu(z) (float32, cast back) and RMS-normed: (B, T, H·P)."""
+    silu(z) (float32, cast back) and RMS-normed over its H·P (the rank's
+    local heads): (B, T, H·P)."""
     b, t, h, pd = y.shape
     y = y + p["d_skip"].to(torch.float32)[None, None, :, None] * xh
     y = y.reshape(b, t, h * pd).to(z.dtype)
@@ -136,8 +145,10 @@ def gate_norm(p, y, xh, z):
 
 
 def mamba2_train(p, x: torch.Tensor, *, n_heads: int, head_dim: int, d_state: int,
-                 chunk: int = 256) -> torch.Tensor:
-    """x: (B, T, d) -> (B, T, d). T must be a multiple of min(chunk, T)."""
+                 chunk: int = 256, axes: Axes = SINGLE) -> torch.Tensor:
+    """x: (B, T, d) -> (B, T, d). T must be a multiple of min(chunk, T).
+    ``n_heads`` are the rank's local heads; the out projection's partial
+    sums are summed over ``axes``' model group."""
     b, t, _ = x.shape
     xin, z, bc, dt = in_proj(p, x)
     xin = _causal_conv(xin, p["conv_w"].to(x.dtype))
@@ -151,7 +162,7 @@ def mamba2_train(p, x: torch.Tensor, *, n_heads: int, head_dim: int, d_state: in
         bc.reshape(b, nch, q, 2 * d_state), a, use_reentrant=False,
     )
     y = gate_norm(p, y.reshape(b, t, n_heads, head_dim), xh, z)
-    return y @ p["w_out"].to(x.dtype)
+    return axes.psum_tp(y @ p["w_out"].to(x.dtype))
 
 
 def init_mamba2_cache(batch: int, *, n_heads: int, head_dim: int, d_state: int, device,

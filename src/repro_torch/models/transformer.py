@@ -1,6 +1,6 @@
 """Decoder-only LM, dense, MoE, hybrid and xLSTM families (port of
 ``repro/models/transformer.py``), and tensor parallelism (TP) over a model
-axis for the attention families (dense, vlm, moe).
+axis for every family.
 
 Parameters are a flat dict of leaves, not ``nn.Module`` state, because the
 compressor works per leaf and the leaf set decides the integer images: each
@@ -42,8 +42,22 @@ two to find each leaf's sharded dimension. :func:`init_lm_params` with
 ``tp`` draws the global padded tree the JAX package draws
 (``init_lm_params(key, cfg, tp, n_shards=1)``), and each rank takes its
 slice (``models.common.TpShard``). :func:`lm_forward` and :func:`lm_loss`
-take the model axis (``models.common.Axes``). The hybrid and ssm
-families at tp > 1 wait for ROADMAP item 12.6b.
+take the model axis (``models.common.Axes``), every family: the Mamba2
+and xLSTM heads are sharded like attention heads (``Dims.ssm_heads_loc``,
+``Dims.xl_heads_loc``), each cell's out projection row-parallel, Mamba2's
+``w_bc`` replicated, and the hybrid's shared block runs the dense
+family's column- and row-parallel attention and SwiGLU behind its
+replicated ``ln`` and ``w_in``. Two reference behaviours follow from the
+JAX package's contiguous split of each global leaf, and the port keeps
+both (ROADMAP's reference behaviours): a packed leaf is split down the
+middle, so at tp = 2 rank 0 holds all of Mamba2's ``x`` columns of
+``w_xz`` and rank 1 all of its ``z`` columns (the mLSTM's ``w_if`` and
+``if_bias``: rank 0 the input gates, rank 1 the forget gates), and each
+rank splits its own columns in half again; and the gated RMSNorms
+(Mamba2's, the mLSTM's and the sLSTM's ``norm_w``) take the mean over the
+rank's own ``d_inner/tp`` or ``H_loc·dh``. So at tp > 1 the hybrid and
+ssm families compute another function of the same global params than at
+tp = 1.
 """
 from __future__ import annotations
 
@@ -79,7 +93,6 @@ CONSTANT_INIT = {"ln": 1.0, "ln1": 1.0, "ln2": 1.0, "ln_f": 1.0, "norm_w": 1.0,
 ZERO_INIT = ("attn/bk", "attn/bq", "attn/bv", "layers/s/cell/b")
 SSM_HEAD_DIM = 64  # the JAX package's ``Dims.ssm_head_dim``
 XLSTM_CELLS = ("m1", "m2", "s")  # one xLSTM block: (mLSTM, mLSTM, sLSTM)
-TP_FAMILIES = ("dense", "vlm", "moe")  # the families that run at tp > 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,24 +107,20 @@ class Dims:
     e_loc: int = 0
     ff_e_loc: int = 0
     ff_shared_loc: int = 0
-
-
-def check_tp(cfg, tp: int) -> None:
-    """Refuse tp > 1 for the families it is not ported for."""
-    if tp > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} at tp = {tp} is not ported yet (tensor "
-            f"parallelism runs the {', '.join(TP_FAMILIES)} families; the hybrid, ssm and "
-            "encdec families at tp > 1 are ROADMAP item 12.6b)")
+    # the hybrid family's Mamba2 heads, the ssm family's xLSTM heads
+    ssm_heads_loc: int = 0
+    ssm_head_dim: int = SSM_HEAD_DIM
+    xl_heads_loc: int = 0
+    xl_head_dim: int = 0
 
 
 def resolve_dims(cfg, tp: int = 1, n_shards: int = 1) -> Dims:
-    """The JAX package's ``resolve_dims`` for the attention families: heads
-    by :func:`~repro_torch.models.common.plan_heads`, d_ff and the
-    vocabulary padded to a multiple of tp, the experts split by
-    ``pick_strategy`` ("ep": E/tp experts of full d_ff; "tp": all E, d_ff
-    padded and split), the shared experts' d_ff padded and split."""
-    check_tp(cfg, tp)
+    """The JAX package's ``resolve_dims``: attention heads by
+    :func:`~repro_torch.models.common.plan_heads`, d_ff and the vocabulary
+    padded to a multiple of tp, the experts split by ``pick_strategy``
+    ("ep": E/tp experts of full d_ff; "tp": all E, d_ff padded and split),
+    the shared experts' d_ff padded and split, the Mamba2 heads (of
+    ``SSM_HEAD_DIM``) and the xLSTM heads padded to a multiple of tp."""
     head_dim = _head_dim(cfg)
     g = plan_heads(cfg.n_heads, cfg.n_kv_heads, head_dim, tp)
     layout = HeadLayout(g.n_q, g.n_kv, head_dim, g.n_q // n_shards, g.n_kv // n_shards)
@@ -124,6 +133,10 @@ def resolve_dims(cfg, tp: int = 1, n_shards: int = 1) -> Dims:
         if cfg.n_shared_experts:
             ff_sh = pad_to_multiple(cfg.d_ff * cfg.n_shared_experts, tp)
             kw["ff_shared_loc"] = ff_sh // n_shards
+    if cfg.ssm_state:
+        kw["ssm_heads_loc"] = pad_to_multiple(_ssm_heads(cfg), tp) // n_shards
+    if cfg.family == "ssm":
+        kw.update(xl_heads_loc=pad_to_multiple(cfg.n_heads, tp) // n_shards, xl_head_dim=head_dim)
     return Dims(
         layout=layout,
         d_ff_loc=pad_to_multiple(max(cfg.d_ff, tp), tp) // n_shards,
@@ -226,7 +239,7 @@ def _layer_shapes(cfg, dims: Dims) -> Dict[str, tuple]:
     attention and the feed-forward."""
     d = cfg.d_model
     if cfg.family == "ssm":
-        h, dh = cfg.n_heads, _head_dim(cfg)
+        h, dh = dims.xl_heads_loc, dims.xl_head_dim
         dk = h * dh
         mlstm = {"if_bias": (2 * h,), "norm_w": (dk,), "w_if": (d, 2 * h), "w_k": (d, dk),
                  "w_out": (dk, d), "w_q": (d, dk), "w_v": (d, dk)}
@@ -238,8 +251,8 @@ def _layer_shapes(cfg, dims: Dims) -> Dict[str, tuple]:
             shapes.update({f"{cell}/cell/{k}": s for k, s in leaves.items()})
         return shapes
     if cfg.family == "hybrid":
-        n, h = cfg.ssm_state, _ssm_heads(cfg)
-        di = h * SSM_HEAD_DIM
+        n, h = cfg.ssm_state, dims.ssm_heads_loc
+        di = h * dims.ssm_head_dim
         return {"ln": (d,), "m/a_log": (h,), "m/conv_w": (CONV_K, di), "m/d_skip": (h,),
                 "m/dt_bias": (h,), "m/norm_w": (di,), "m/w_bc": (d, 2 * n), "m/w_dt": (d, h),
                 "m/w_out": (di, d), "m/w_xz": (d, 2 * di)}
@@ -348,33 +361,36 @@ def _layer(lp, x, positions, cfg, dims: Dims, axes: Axes):
     return h + swiglu_mlp(_sub(lp, "mlp/"), rmsnorm(h, lp["ln2"]), axes)
 
 
-def _mamba_layer(lp, x, cfg):
-    """One Mamba2 layer of the hybrid family, behind its RMSNorm."""
-    return x + mamba2_train(_sub(lp, "m/"), rmsnorm(x, lp["ln"]), n_heads=_ssm_heads(cfg),
-                            head_dim=SSM_HEAD_DIM, d_state=cfg.ssm_state)
+def _mamba_layer(lp, x, dims: Dims, cfg, axes: Axes):
+    """One Mamba2 layer of the hybrid family, behind its RMSNorm, on the
+    rank's local heads."""
+    return x + mamba2_train(_sub(lp, "m/"), rmsnorm(x, lp["ln"]), n_heads=dims.ssm_heads_loc,
+                            head_dim=dims.ssm_head_dim, d_state=cfg.ssm_state, axes=axes)
 
 
-def _xlstm_block(bp, x, cfg):
+def _xlstm_block(bp, x, dims: Dims, axes: Axes):
     """One (mLSTM, mLSTM, sLSTM) block of the ssm family, each cell behind
-    its RMSNorm and added to the residual."""
-    kw = dict(n_heads=cfg.n_heads, head_dim=_head_dim(cfg))
+    its RMSNorm and added to the residual, on the rank's local heads."""
+    kw = dict(n_heads=dims.xl_heads_loc, head_dim=dims.xl_head_dim, axes=axes)
     for name, cell in zip(XLSTM_CELLS, (mlstm_train, mlstm_train, slstm_train)):
         lp = _sub(bp, f"{name}/")
         x = x + cell(_sub(lp, "cell/"), rmsnorm(x, lp["ln"]), **kw)
     return x
 
 
-def _shared_attn_block(p, h, emb, positions, cfg):
+def _shared_attn_block(p, h, emb, positions, cfg, dims: Dims, axes: Axes):
     """The hybrid family's shared block: RMSNorm of concat[h, emb] over
-    2·d_model, ``w_in`` back to d_model, attention (no window) and the
-    SwiGLU, each residual; added to h."""
+    2·d_model, ``w_in`` back to d_model (both replicated), attention (no
+    window) and the SwiGLU on the rank's heads and columns, each residual;
+    added to h."""
     z = rmsnorm(torch.cat([h, emb], dim=-1), p["ln"])
     z = z @ p["w_in"].to(z.dtype)
+    heads = dims.layout
     z = z + attention_train(
-        _sub(p, "attn/"), z, positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=_head_dim(cfg), rope_theta=cfg.rope_theta,
+        _sub(p, "attn/"), z, positions, n_heads=heads.q_local, n_kv_heads=heads.kv_local,
+        head_dim=heads.head_dim, rope_theta=cfg.rope_theta, axes=axes,
     )
-    z = z + swiglu_mlp(_sub(p, "mlp/"), rmsnorm(z, p["ln2"]))
+    z = z + swiglu_mlp(_sub(p, "mlp/"), rmsnorm(z, p["ln2"]), axes)
     return h + z
 
 
@@ -410,11 +426,11 @@ def lm_forward(params: Tree, batch, cfg, dtype=torch.bfloat16,
     for i in range(math.prod(lead)):
         lp = {k: v[i] for k, v in layers.items()}
         if cfg.family == "ssm":
-            x = _xlstm_block(lp, x, cfg)
+            x = _xlstm_block(lp, x, dims, axes)
         elif cfg.family == "hybrid":
-            x = _mamba_layer(lp, x, cfg)
+            x = _mamba_layer(lp, x, dims, cfg, axes)
             if (i + 1) % cfg.attn_every == 0:
-                x = _shared_attn_block(shared, x, emb0, positions, cfg)
+                x = _shared_attn_block(shared, x, emb0, positions, cfg, dims, axes)
         else:
             x = _layer(lp, x, positions, cfg, dims, axes)
     return rmsnorm(x, params["ln_f"])

@@ -1,7 +1,18 @@
-"""xLSTM blocks (port of ``repro/models/xlstm.py`` at tp = 1): the train
-path (``_mlstm_chunk``, ``mlstm_train``, ``_slstm_cell``, ``slstm_train``)
-and the one-token decode with its O(1) state (``init_mlstm_cache``,
-``mlstm_decode``, ``init_slstm_cache``, ``slstm_decode``).
+"""xLSTM blocks (port of ``repro/models/xlstm.py``): the train path
+(``_mlstm_chunk``, ``mlstm_train``, ``_slstm_cell``, ``slstm_train``), at
+tp > 1 on the rank's heads of a model axis, and the one-token decode with
+its O(1) state (``init_mlstm_cache``, ``mlstm_decode``,
+``init_slstm_cache``, ``slstm_decode``) at tp = 1.
+
+Tensor parallelism, as in the JAX package: the heads are sharded over the
+model axis and each cell's out projection is row-parallel
+(``axes.psum_tp``); every cell's recurrence is head-local, so the sLSTM's
+hand-written backward needs no collective. The mLSTM's ``w_if`` and
+``if_bias`` are laid out ``[i | f]`` globally, and each rank's slice is
+split at its own head count: at tp = 2 rank 0's local gates are all
+global input gates (bias -2) and rank 1's all forget gates (bias 3). The
+``norm_w`` RMSNorm takes the mean over the rank's own H_loc·dh. Both are
+the reference's behaviour, which the port keeps.
 
 mLSTM (matrix memory, per head; f = sigmoid(f̃), i = exp(min(ĩ, 0))):
     C_t = f_t C_{t-1} + i_t (k_t ⊗ v_t),   n_t = f_t n_{t-1} + i_t k_t,
@@ -41,7 +52,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import SINGLE, Axes, rmsnorm
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -50,11 +61,12 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return -torch.logaddexp(-x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def out_proj(p, y: torch.Tensor, dtype) -> torch.Tensor:
-    """y (B, T, H·dh) float32 cast to ``dtype``, RMS-normed by ``norm_w``,
-    then ``w_out``."""
+def out_proj(p, y: torch.Tensor, dtype, axes: Axes = SINGLE) -> torch.Tensor:
+    """y (B, T, H·dh) float32 cast to ``dtype``, RMS-normed by ``norm_w``
+    over its H·dh (the rank's local heads), then ``w_out``, the partial
+    sums summed over ``axes``' model group."""
     y = rmsnorm(y.to(dtype), p["norm_w"])
-    return y @ p["w_out"].to(dtype)
+    return axes.psum_tp(y @ p["w_out"].to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -121,8 +133,9 @@ def mlstm_inter(q, s, y_intra, n_intra, c_in, n_in):
 
 
 def mlstm_train(p, x: torch.Tensor, *, n_heads: int, head_dim: int,
-                chunk: int = 256) -> torch.Tensor:
-    """x: (B, T, d) -> (B, T, d). T must be a multiple of min(chunk, T)."""
+                chunk: int = 256, axes: Axes = SINGLE) -> torch.Tensor:
+    """x: (B, T, d) -> (B, T, d). T must be a multiple of min(chunk, T).
+    ``n_heads`` are the rank's local heads."""
     b, t, _ = x.shape
     q, k, v, logi, logf = mlstm_proj(p, x, n_heads, head_dim)
     qc = min(chunk, t)
@@ -134,7 +147,7 @@ def mlstm_train(p, x: torch.Tensor, *, n_heads: int, head_dim: int,
     n0 = torch.zeros(b, n_heads, head_dim, dtype=torch.float32, device=x.device)
     c_in, n_in = mlstm_states(k, v, logi, s, c0, n0)
     y = mlstm_inter(q, s, y_intra, n_intra, c_in, n_in)
-    return out_proj(p, y.reshape(b, t, n_heads * head_dim), x.dtype)
+    return out_proj(p, y.reshape(b, t, n_heads * head_dim), x.dtype, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -269,10 +282,11 @@ def slstm_scan_reference(zx: torch.Tensor, r_h: torch.Tensor, n_heads: int,
     return torch.stack(hs, dim=1).reshape(b, t, n_heads * head_dim)
 
 
-def slstm_train(p, x: torch.Tensor, *, n_heads: int, head_dim: int) -> torch.Tensor:
-    """x: (B, T, d) -> (B, T, d)."""
+def slstm_train(p, x: torch.Tensor, *, n_heads: int, head_dim: int,
+                axes: Axes = SINGLE) -> torch.Tensor:
+    """x: (B, T, d) -> (B, T, d); ``n_heads`` are the rank's local heads."""
     hs = slstm_scan(slstm_proj(p, x), p["r_h"], n_heads, head_dim)
-    return out_proj(p, hs, x.dtype)
+    return out_proj(p, hs, x.dtype, axes)
 
 
 # ---------------------------------------------------------------------------

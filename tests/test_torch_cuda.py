@@ -1286,3 +1286,74 @@ def test_tp_primitives_on_two_gloo_ranks_sharing_the_card_match_the_cpu(dev):
                                               "all_to_all_tp": 2, "all_to_all_tp_backward": 2}
     # the sum is the same on both ranks
     assert torch.equal(cpu[0]["torch.float32"][0], cpu[1]["torch.float32"][0])
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism for the hybrid and ssm families on a 2 x 2 grid
+# ---------------------------------------------------------------------------
+# (arch, param type, fused, optimizer, lr, tolerance of the card-CPU loss gap)
+TP_SMOKE = (("zamba2-2.7b", torch.bfloat16, True, "sgd", 0.3, 1e-2),
+            ("xlstm-125m", torch.float32, False, "adamw", 3e-4, 1e-3))
+
+
+def _tp_smoke_exact_step(group, rank, device):
+    """This rank's exact-step loss of each ``TP_SMOKE`` smoke config on a
+    2 x 2 grid, on the card and on the CPU (the same gloo groups), from
+    the same params (the global draw on the CPU, the rank's shard), batch
+    and seeds."""
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
+    from repro_torch.core.compressor import leaf_seeds, make_compressor
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.step import build_init_state, build_train_step
+    from repro_torch.launch.train import OPTIMIZERS
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.optim.schedules import constant, warmup_wrap
+
+    torch.cuda.set_device(device)
+    grid = make_debug_mesh(2, 2)
+    out = {}
+    for arch, dtype, fused, opt, lr, _ in TP_SMOKE:
+        cfg = smoke_config(get_arch(arch))
+        shape = ShapeConfig("tp-smoke", 64, 2 * grid.n_dp, "train")
+        params0 = specs.tp_shard(cfg, grid.tp, grid.tp_index).tree(init_lm_params(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu", dtype=dtype,
+            tp=grid.tp))
+        batch0 = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=0).batch(0, 0)
+        losses = []
+        for d in (torch.device(device), torch.device("cpu")):
+            comp, base_opt = make_compressor("intsgd8_packed"), OPTIMIZERS[opt]()
+            art = build_train_step(
+                cfg, shape, n_workers=grid.n_dp, compressor=comp, base_opt=base_opt,
+                lr_schedule=warmup_wrap(constant(lr), 5), param_dtype=dtype, fused=fused,
+                clip_norm=1.0, device=d, grid=grid)
+            params = {k: v.to(d) for k, v in params0.items()}
+            opt_state, comp_state = build_init_state(params, n_workers=grid.n_dp,
+                                                     compressor=comp, base_opt=base_opt,
+                                                     fused=fused, grid=grid)
+            seeds = leaf_seeds(torch.Generator().manual_seed(0), grid.n_dp,
+                               len(art.layout.names), d, 1)
+            losses.append(float(art.steps["exact"](
+                params, opt_state, comp_state, 0, {k: v.to(d) for k, v in batch0.items()},
+                seeds)[3]))
+        out[arch] = losses
+    return out
+
+
+def test_tp_hybrid_and_ssm_smoke_grids_card_against_cpu(dev):
+    """zamba2's (bf16 params, fused SGD) and xlstm's (float32, ZeRO-1 AdamW)
+    smoke configs on a 2 x 2 grid of gloo ranks: the exact step's loss on
+    the card within 1e-2 (bf16) and 1e-3 (float32) of the same ranks' on
+    the CPU. Tier-1 holds the CPU grid to JAX's TP step
+    (``tests/test_torch_slice_tp_recurrent.py``)."""
+    from repro_torch.parallel.spawn import run_ranks
+
+    ranks = run_ranks(_tp_smoke_exact_step, 4, args=("cuda:0",))
+    for arch, _, _, _, _, tol in TP_SMOKE:
+        for r in ranks:
+            card, cpu = r[arch]
+            assert np.isfinite(card) and abs(card - cpu) / abs(cpu) < tol, (arch, card, cpu)
+        # the dp replicas see their own halves of the batch: one model group's
+        # members agree on the loss
+        assert ranks[0][arch] == ranks[1][arch] and ranks[2][arch] == ranks[3][arch]

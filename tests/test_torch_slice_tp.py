@@ -438,9 +438,11 @@ def test_baselines_refuse_tp():
                         ("intsgd", {"bits": 8, "wire": "topk8:16"})):
         with pytest.raises(NotImplementedError, match="12.6d"):
             build_train_step(cfg, shape, compressor=make_compressor(name, **extra), **kw)
-    with pytest.raises(NotImplementedError, match="12.6b"):
-        build_train_step(_cfg("zamba2-2.7b", 4, {}), shape,
-                         compressor=make_compressor("intsgd8_packed"), **kw)
+    # the hybrid family builds at tp = 2 (its leaves sharded by head)
+    art = build_train_step(_cfg("zamba2-2.7b", 4, {}), shape,
+                           compressor=make_compressor("intsgd8_packed"), **kw)
+    assert art.layout.tp == 2 and "layers/m/w_xz" not in art.layout.rep
+    assert {"layers/m/w_bc", "shared_attn/w_in"} <= art.layout.rep
 
 
 def test_checkpoint_refuses_tp(tmp_path):
