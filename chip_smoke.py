@@ -350,6 +350,42 @@ Phases, each of which must pass for the exit code to be 0:
                1e-2 (bf16) and 1e-3 (float32). Prints each rank's ms a step
                and peak GiB, the all-to-all's ms and the psum_tp calls a
                step.
+ 24. checkpoints and TP serving on the grid — four gloo ranks on the 2 × 2
+               grid again (one spawn). Checkpoints in the JAX package's
+               global layout (CheckpointStore(grid=, specs=)), with
+               PyTorch's deterministic algorithms on: granite-8b at 2
+               layers, bf16, fused SGD packed8, and deepseek-v2-lite-16b at
+               1 layer, float32, ZeRO-1 AdamW packed8, seq 2048, each an
+               uninterrupted 3-step train_loop that saves after its second
+               step, then a fresh grid (new process groups) resuming it
+               for the third: that step's loss and every rank's params'
+               checksums equal the uninterrupted run's, both runs' kernel
+               launches exact; s to host, to disk and to restore and the
+               bytes printed. Then the elastic resume 2 × 2 -> 1 × 2 of
+               granite's checkpoint (rank 3 lost: runtime.elastic's plan,
+               make_debug_mesh over the two survivors): finite, equal
+               losses. TP decode through launch.step.build_serve_step at
+               published width, bf16: granite-8b at 12 layers (its 36 cut
+               for time) and deepseek-v2-lite-16b at 4 layers (MLA on 8 of 16 heads,
+               moe_ep at decode) with the serve CLI's traffic (4 sequences,
+               2 a data replica, max_seq 128, prompts of 4–7 tokens fed
+               token by token, then 16 greedy tokens); granite at 4 layers
+               sequence-sharded (global batch 1, max_seq 64 split 32 a
+               data replica, 48 tokens, so both shards are written). Each
+               against the tp = 1 decode of the same global params in this
+               process (every rank's shard its slice, by checksums): the
+               step-0 logits on the served bf16 cache with float32
+               activations within 2e-2 of the largest |logit| (bf16's
+               printed); tp = 1's token stream decoded again on the grid
+               and at tp = 1 with float32 activations and cache, every
+               rank's vocab-local logits at every step within 1e-4 of the
+               row's largest |logit| (the sequence-sharded run's steps 32+
+               on the second data replica's slots printed apart); the two
+               TP members' tokens equal, each sequence's greedy tokens
+               equal to tp = 1's up to its first step whose tp = 1 top-2
+               gap is under 2e-2 of the largest |logit|. Prints ms a decode step a rank, one step's
+               host over card time, the model and data groups' calls a
+               step and the peak GiB a rank.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -3797,9 +3833,10 @@ def tp_cfg(arch: str, layers: int):
 
 
 def tp_train(torch, cfg, shape, *, n_workers, comp, wire, steps, lr, fused, opt, dtype, device,
-             grid=None, on_step=None):
+             grid=None, on_step=None, **ckpt):
     """One TP path's ``(params, history)`` through the user entry point:
-    ``train_loop``, or for a frontend config :func:`vlm_loop`."""
+    ``train_loop`` (``ckpt`` its ``ckpt``, ``ckpt_every`` and ``resume``),
+    or for a frontend config :func:`vlm_loop`."""
     from repro_torch.launch.train import train_loop
 
     kw = dict(n_workers=n_workers, compressor=compressor_name(comp, wire), wire=wire,
@@ -3808,7 +3845,7 @@ def tp_train(torch, cfg, shape, *, n_workers, comp, wire, steps, lr, fused, opt,
               on_step=on_step or (lambda i, p: None))
     if cfg.frontend is not None:
         return vlm_loop(torch, cfg, shape, microbatches=1, group=None, overlap="off", **kw)
-    return train_loop(cfg, shape, **kw)
+    return train_loop(cfg, shape, **kw, **ckpt)
 
 
 def tp_smoke_card_cpu(torch, grid, device) -> dict:
@@ -4032,6 +4069,510 @@ def tp_phase(torch, ops, checks, device) -> collections.Counter:
     return launches
 
 
+# phase 24: checkpoints and the elastic resume on the 2 x 2 grid, and TP serving:
+# (label, arch, layers, optimizer, lr, fused, param type), IntSGD on packed8
+CKPT_PATHS = (
+    ("tp-ckpt granite-fused-sgd-bf16", "granite-8b", 2, "sgd", 0.3, True, "bfloat16"),
+    ("tp-ckpt deepseek-zero1-adamw", "deepseek-v2-lite-16b", 1, "adamw", 3e-4, False,
+     "float32"),
+)
+CKPT_STEPS = 3  # the uninterrupted run; the checkpoint after its second step
+ELASTIC_FAILED = (3,)  # the lost rank: data replica 1 retires whole
+# (arch, layers): granite's 36 layers cut to 12 to keep the script's phases
+# near 780 s (at 36 they took 324-332 ms a decode step a rank, 74 psum_tp a
+# step, on an NVIDIA H100 80GB HBM3 at 700 W; this phase 148.6 s and all
+# phases 928.4 s there, on a slow host)
+SERVE_TP = (("granite-8b", 12), ("deepseek-v2-lite-16b", 4))
+SERVE_TP_BATCH, SERVE_TP_MAX_SEQ, SERVE_TP_NEW = 4, 128, 16
+SP_LAYERS, SP_MAX_SEQ, SP_STEPS, SP_PROMPT = 4, 64, 48, 5
+TP_LOGIT_TOL = 2e-2  # of the largest |logit|: step 0's bound and the near-tie bound
+# step 0's activations on the served bf16 cache: float32 (held to TP_LOGIT_TOL),
+# then bf16 as served (printed: the model axis sums bf16 partial products, tp = 1
+# one float32 product)
+STEP0_DTYPES = ("float32", "bfloat16")
+# every step of the teacher-forced stream (tp = 1's fed tokens), float32
+# activations and cache: the grid and tp = 1 differ only in the order of
+# float32 sums. A bf16 cache rounds k and v, and a sum order that moves a value
+# across a bf16 rounding boundary moves it a whole bf16 step, which later layers
+# carry to the logits (~1e-3 of the largest past a few layers)
+F32_LOGIT_TOL = 1e-4  # of the row's largest |logit| at that step
+
+
+def tp_serve_params(torch, cfg, tp: int, tp_index, device) -> dict:
+    """Random bf16 serve params of ``cfg``, global and padded for ``tp``
+    (the MoE router float32), drawn a layer at a time from generators seeded
+    by the leaf's name and layer: uniform ±1/√fan_in, the ``CONSTANT_INIT``
+    leaves filled, the ``ZERO_INIT`` ones zero. With ``tp_index`` only that
+    rank's slice of each layer is kept, so no rank holds a whole leaf; with
+    None the whole tree, of which the ranks' shards are the slices."""
+    import zlib
+
+    from repro_torch.launch import specs
+    from repro_torch.models.common import dense_init
+    from repro_torch.models.transformer import CONSTANT_INIT, FLOAT32_LEAVES, ZERO_INIT
+
+    g, lo, spec = specs.infer_param_specs(cfg, tp)
+    out = {}
+    for name, shape in g.items():
+        dt = torch.float32 if name in FLOAT32_LEAVES else torch.bfloat16
+        lead = 1 if name.startswith("layers/") else 0
+        dim = None if tp_index is None or spec[name] is None else spec[name] - lead
+        leaf = torch.empty(shape if tp_index is None else lo[name], dtype=dt, device=device)
+        for i in range(shape[0] if lead else 1):
+            sub = shape[lead:]
+            const = CONSTANT_INIT.get(name.rsplit("/", 1)[-1])
+            if const is not None or name.endswith(ZERO_INIT):
+                t = torch.full(sub, const or 0.0, dtype=dt, device=device)
+            else:
+                gen = torch.Generator(device=device).manual_seed(
+                    zlib.crc32(f"{name}/{i}".encode()))
+                t = dense_init(sub, cfg.d_model if name == "embed" else sub[-2], generator=gen,
+                               device=device, dtype=dt)
+            if dim is not None:
+                n = t.shape[dim] // tp
+                t = t.narrow(dim, tp_index * n, n)
+            if lead:
+                leaf[i] = t
+            else:
+                leaf = t.clone() if dim is not None else t
+            del t
+        out[name] = leaf
+    return out
+
+
+def tp_prompts(cfg, n: int) -> list:
+    """The serve CLI's prompts (4 to 7 tokens) for ``n`` sequences."""
+    from repro_torch.launch.serve import prompts
+
+    return prompts(n, cfg.vocab)
+
+
+def tp_stream(torch, step, params, cache, prompts, n_new, rows, device):
+    """Every sequence's prompt fed token by token, then ``n_new`` greedy
+    tokens, all sequences stepped together at positions 0, 1, ...; the rank
+    decodes ``rows`` (``step`` returns their next tokens). Returns (each
+    row's greedy tokens, each step's ms, host clock around the step and a
+    sync, the cache, the tokens fed at each step)."""
+    lens = [len(p) for p in prompts]
+    outs = {b: [] for b in range(rows.start, rows.stop)}
+    tok = [p[0] for p in prompts]
+    times, fed = [], []
+    for i in range(max(lens) + n_new - 1):
+        fed.append(list(tok))
+        t = torch.tensor(tok, dtype=torch.int64, device=device)
+        pos = torch.full((len(prompts),), i, dtype=torch.int64, device=device)
+        t0 = time.perf_counter()
+        nxt, cache = step(params, cache, t, pos)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        for b, n in zip(outs, nxt.tolist()):
+            if i >= lens[b] - 1 and len(outs[b]) < n_new:
+                outs[b].append(n)
+            if i + 1 < lens[b]:
+                tok[b] = prompts[b][i + 1]
+            elif outs[b]:
+                tok[b] = outs[b][-1]
+    return outs, times, cache, fed
+
+
+def tp_forced_logits(torch, params, fed, cfg, cache, axes, rows, device):
+    """The decode of ``fed`` (a step's tokens of every sequence, as
+    :func:`tp_stream` returns them) at float32 activations on ``cache``:
+    each step's logits of ``rows`` (vocab-local on a grid), stacked
+    (steps, rows, V) on the host."""
+    from repro_torch.models.decode import lm_decode_step
+
+    out = []
+    with torch.no_grad():
+        for i, tok in enumerate(fed):
+            t = torch.tensor(tok, dtype=torch.int64, device=device)[rows]
+            lg, cache = lm_decode_step(params, cache, t, torch.full_like(t, i), cfg,
+                                       torch.float32, axes=axes)
+            out.append(lg.float().cpu())
+    return torch.stack(out)
+
+
+def tp_serve_rank(torch, grid, device, arch, layers, batch, max_seq, prompts, n_new,
+                  fed) -> dict:
+    """One rank's TP decode of ``arch`` through ``build_serve_step``: its
+    shard's checksums, the step-0 vocab-local logits, the greedy streams of
+    its rows, ms a step, one step's host over card time, the model and data
+    groups' calls a step and the peak; then the float32 decode of tp = 1's
+    stream ``fed`` on a float32 cache of the same local shape, every step's
+    vocab-local logits."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.step import build_serve_step
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step
+    from repro_torch.parallel import collectives as coll
+
+    cfg = tp_cfg(arch, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    art = build_serve_step(cfg, grid, ShapeConfig("chip-smoke-serve", max_seq, batch, "decode"),
+                           device=device)
+    params = tp_serve_params(torch, cfg, grid.tp, grid.tp_index, device)
+    first = torch.tensor([p[0] for p in prompts], device=device)[art.rows]
+    with torch.no_grad():  # step 0 with float32 activations, and as served (bf16)
+        logits0 = [lm_decode_step(params, art.init_cache(), first, torch.zeros_like(first), cfg,
+                                  getattr(torch, dt), axes=art.axes)[0].cpu()
+                   for dt in STEP0_DTYPES]
+    coll.reset_tp_counts()
+    outs, times, cache, _ = tp_stream(torch, art.steps["decode"], params, art.init_cache(),
+                                      prompts, n_new, art.rows, device)
+    calls = {k: v / len(times) for k, v in coll.tp_counts().items()}
+    kv_pos = cache.get("layers/kv_pos")
+    kv_pos = None if kv_pos is None else kv_pos[0].clone().cpu()  # before the timed step
+    t = torch.tensor([p[0] for p in prompts], device=device)
+    host, card = host_card_ms(torch, lambda: art.steps["decode"](
+        params, cache, t, torch.full_like(t, max_seq - 1)), reps=3)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    del cache
+    f32_cache = init_lm_cache(cfg, art.rows.stop - art.rows.start, art.s_local, device=device,
+                              dtype=torch.float32, tp=grid.tp, n_shards=grid.tp)
+    forced = tp_forced_logits(torch, params, fed, cfg, f32_cache, art.axes, art.rows, device)
+    out = dict(outs=outs, logits0=logits0, times=times, calls=calls, host=host, card=card,
+               sums=params_checksums(torch, params), seq_sharded=art.seq_sharded,
+               s_local=art.s_local, rows=(art.rows.start, art.rows.stop), kv_pos=kv_pos,
+               peak=peak, forced=forced)
+    del params, f32_cache
+    return out
+
+
+def tp_ckpt_rank(torch, ops, grid, device, tmp) -> list:
+    """Each ``CKPT_PATHS`` path on this rank (:func:`tp_ckpt_path`), with
+    PyTorch's deterministic algorithms on."""
+    out = []
+    # a resumed step can equal the uninterrupted one only if the step is
+    # deterministic: the memory-efficient SDPA backward otherwise splits the
+    # keys and sums dQ with atomics (granite's bf16 params differed run to run
+    # on an H100; warn_only keeps the split). Uninitialized memory is
+    # left unfilled: every buffer here is written before it is read
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for path in CKPT_PATHS:
+            out.append(tp_ckpt_path(torch, ops, grid, device, tmp, *path))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    return out
+
+
+def tp_ckpt_path(torch, ops, grid, device, tmp, label, arch, layers, opt, lr, fused, dtype):
+    """One ``CKPT_PATHS`` path on this rank: the uninterrupted run of
+    ``CKPT_STEPS`` steps saving after its second, then a fresh grid (new
+    process groups) resuming that checkpoint for the last step; for the
+    fused path, after it, the elastic resume onto the survivors' 1 x 2
+    grid. The losses, the params' checksums after every step, the launches
+    of both runs and the store's seconds and bytes."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime.elastic import plan_after_failures
+
+    cfg = tp_cfg(arch, layers)
+    spec = specs.infer_param_specs(cfg, grid.tp)[2]
+    shape = ShapeConfig("chip-smoke", TP_SEQ, 2 * grid.n_dp, "train")
+    d = os.path.join(tmp, arch)
+    res = dict(label=label)
+    kw = dict(comp="intsgd", wire="packed8", steps=CKPT_STEPS, lr=lr, fused=fused, opt=opt,
+              dtype=dtype, device=device, ckpt_every=CKPT_STEPS - 1)
+    for run, g in (("straight", grid), ("resumed", make_debug_mesh(*TP_GRID))):
+        sums = []
+
+        def on_step(i, p):
+            sums.append(params_checksums(torch, p))
+            torch.cuda.empty_cache()  # four ranks share the card
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        store = CheckpointStore(d, grid=g, specs=spec)
+        ops.reset_launch_counts()
+        params, hist = tp_train(torch, cfg, shape, n_workers=g.n_dp, grid=g,
+                                on_step=on_step, ckpt=store, resume=run == "resumed", **kw)
+        store.close()
+        res[run] = dict(history=hist, sums=sums, launches=ops.launch_counts(),
+                        bf16=ops.bf16_launch_counts(), stats=dict(store.stats),
+                        n_leaves=len(params))
+        del params
+    if fused:  # the elastic resume 2 x 2 -> 1 x 2 of this checkpoint
+        plan = plan_after_failures(dp=grid.n_dp, tp=grid.tp, failed_devices=ELASTIC_FAILED,
+                                   global_batch=shape.global_batch, wire="packed8")
+        alive = [r for r in range(grid.n_dp * grid.tp)
+                 if r // grid.tp not in plan.retired_replicas]
+        small = make_debug_mesh(plan.n_dp, plan.tp, ranks=alive)
+        res["plan"] = (plan.n_dp, plan.tp, plan.retired_replicas, plan.note)
+        if small is not None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            store = CheckpointStore(d, grid=small, specs=spec)
+            params, hist = tp_train(torch, cfg, dataclasses.replace(
+                shape, global_batch=plan.global_batch), n_workers=small.n_dp, grid=small,
+                ckpt=store, resume=True, **kw)
+            store.close()
+            res["elastic"] = dict(history=hist, stats=dict(store.stats))
+            del params
+    return res
+
+
+def tp_ckpt_serve_rank(group, rank, device, tmp, fed):
+    """One rank of phase 24 on the 2 x 2 grid: the checkpoint paths, then
+    the TP decode of each ``SERVE_TP`` config and the sequence-sharded
+    decode (``fed``: each one's tp = 1 token stream, by key)."""
+    # cuBLAS's deterministic workspace (the checkpoint runs' deterministic
+    # algorithms), read when the process first makes a cuBLAS handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    grid = make_debug_mesh(*TP_GRID)
+    out = dict(grid=(grid.dp_index, grid.tp_index), ckpt=tp_ckpt_rank(torch, ops, grid, device,
+                                                                       tmp))
+    for arch, layers in SERVE_TP:
+        out[arch] = tp_serve_rank(torch, grid, device, arch, layers, SERVE_TP_BATCH,
+                                  SERVE_TP_MAX_SEQ, tp_prompts(get_arch(arch), SERVE_TP_BATCH),
+                                  SERVE_TP_NEW, fed[arch])
+    sp_prompt = tp_prompts(get_arch("granite-8b"), 2)[1]  # 5 tokens
+    out["sp"] = tp_serve_rank(torch, grid, device, "granite-8b", SP_LAYERS, 1, SP_MAX_SEQ,
+                              [sp_prompt], SP_STEPS - len(sp_prompt) + 1, fed["sp"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp1_reference(torch, device, arch, layers, prompts, n_new, max_seq) -> dict:
+    """The tp = 1 decode of the same global params in this process: each
+    sequence's greedy tokens and, at each of its greedy steps, its top-2
+    gap over the step's largest |logit|; the step-0 logits; the checksums
+    of each model index's slice of the params; the tokens fed at each step
+    and their float32 decode on a float32 cache (every step's logits)."""
+    from repro_torch.launch import specs
+    from repro_torch.models.common import SINGLE, TpShard
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step, tp_greedy
+
+    cfg = tp_cfg(arch, layers)
+    params = tp_serve_params(torch, cfg, 2, None, device)
+    first = torch.tensor([p[0] for p in prompts], device=device)
+    with torch.no_grad():
+        logits0 = [lm_decode_step(params, init_lm_cache(cfg, len(prompts), max_seq,
+                                                        device=device),
+                                  first, torch.zeros_like(first), cfg,
+                                  getattr(torch, dt))[0].cpu() for dt in STEP0_DTYPES]
+    cache = init_lm_cache(cfg, len(prompts), max_seq, device=device)
+    gaps = {b: [] for b in range(len(prompts))}
+
+    def step(p, c, t, pos):
+        with torch.no_grad():
+            lg, c = lm_decode_step(p, c, t, pos, cfg)
+        lg = lg[:, :cfg.vocab]
+        top = torch.topk(lg, 2, dim=-1).values
+        gap = ((top[:, 0] - top[:, 1]) / lg.abs().amax(dim=-1)).tolist()
+        for b in gaps:
+            gaps[b].append(gap[b])
+        return tp_greedy(lg), c
+
+    outs, _, _, fed = tp_stream(torch, step, params, cache, prompts, n_new,
+                                slice(0, len(prompts)), device)
+    del cache
+    forced = tp_forced_logits(torch, params, fed, cfg, init_lm_cache(
+        cfg, len(prompts), max_seq, device=device, dtype=torch.float32), SINGLE,
+        slice(0, len(prompts)), device)
+    # each rank's shard as a slice of this tree (TpShard, whose inverse is
+    # gather_shards), leaf by leaf: its checksums
+    spec = specs.infer_param_specs(cfg, 2)[2]
+    sums = [[c for k in sorted(params) for c in params_checksums(
+        torch, {k: TpShard(specs=spec, index=i, size=2).take(k, params[k])})]
+        for i in range(2)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lens = [len(p) for p in prompts]
+    # the gap at each greedy token: the steps from the prompt's last on
+    return dict(outs=outs, gaps={b: g[lens[b] - 1:lens[b] - 1 + n_new] for b, g in gaps.items()},
+                logits0=logits0, sums=sums, fed=fed, forced=forced)
+
+
+def tp_serve_checks(torch, checks, label, ranks, key, tp1, n_new, shard_slots=None) -> None:
+    """Phase 24's serve checks of one config against its tp = 1 decode
+    ``tp1`` (:func:`tp1_reference`); with ``shard_slots`` (the
+    sequence-sharded decode) the forced stream's error is also printed for
+    the steps past the first data replica's slots."""
+    ref, gaps, ref0, ref_sums = tp1["outs"], tp1["gaps"], tp1["logits0"], tp1["sums"]
+    res = [r[key] for r in ranks]
+    tp = TP_GRID[1]
+    checks.true(f"{label}: every rank's shard is its slice of the tp = 1 params (checksums)",
+                all(r["sums"] == ref_sums[i % tp] for i, r in enumerate(res)))
+    for d in range(TP_GRID[0]):
+        members = res[d * tp:(d + 1) * tp]
+        checks.true(f"{label}: data replica {d}'s {tp} TP members' tokens equal",
+                    all(m["outs"] == members[0]["outs"] for m in members))
+    v = ref0[0].shape[-1] // tp
+    for j, dt in enumerate(STEP0_DTYPES):
+        scale = ref0[j].abs().max().item()
+        errs = []
+        for i, r in enumerate(res):
+            want = ref0[j][slice(*r["rows"]), (i % tp) * v:(i % tp + 1) * v]
+            errs.append((r["logits0"][j] - want).abs().max().item())
+        what = (f"{label}: step-0 logits ({dt} activations, the served bf16 cache) of every "
+                f"rank against the tp = 1 decode's, max abs err {max(errs):.4g} of the largest "
+                f"|logit| {scale:.4g} ({max(errs) / scale:.3g})")
+        if j == 0:
+            checks.true(f"{what} <= {TP_LOGIT_TOL:g}", max(errs) <= TP_LOGIT_TOL * scale)
+        else:
+            print(f"  {what}: printed, not held", flush=True)
+    # every step of tp = 1's stream, float32 activations and cache: each rank's
+    # vocab-local logits of its rows against tp = 1's, over the row's largest
+    want = tp1["forced"]
+    rel = []
+    for i, r in enumerate(res):
+        rows, cols = slice(*r["rows"]), slice((i % tp) * v, (i % tp + 1) * v)
+        scale = want[:, rows].abs().amax(-1, keepdim=True)
+        rel.append(((r["forced"] - want[:, rows, cols]).abs() / scale).amax(-1).amax(-1))
+    rel = torch.stack(rel).amax(0)  # (steps,): the largest over ranks and rows
+    late = ("" if shard_slots is None else
+            f"; steps {shard_slots}+ (positions on data replica 1's slots) "
+            f"{rel[shard_slots:].max().item():.3g}")
+    checks.true(f"{label}: all {len(rel)} steps of tp = 1's stream, float32 activations and "
+                f"cache: every rank's logits against tp = 1's, largest error "
+                f"{rel.max().item():.3g} of the row's largest |logit| (step 0 "
+                f"{rel[0].item():.3g}{late}) <= {F32_LOGIT_TOL:g}",
+                res[0]["forced"].shape[0] == len(rel) == len(tp1["fed"])
+                and rel.max().item() <= F32_LOGIT_TOL)
+    agreed = []
+    for r in res[::tp]:
+        for b, toks in r["outs"].items():
+            n = next((j for j, g in enumerate(gaps[b]) if g < TP_LOGIT_TOL), n_new)
+            agreed.append(n)
+            checks.true(f"{label}: sequence {b}'s {len(toks)} greedy tokens equal the tp = 1 "
+                        f"stream up to its first near tie (step {n} of {n_new})",
+                        toks[:n] == ref[b][:n] and len(toks) == n_new)
+    calls = res[0]["calls"]
+    print(f"  {label}: tokens agree with tp = 1 for {agreed} greedy steps a sequence (up to "
+          f"each one's first top-2 gap under {TP_LOGIT_TOL:g} of its largest |logit|)",
+          flush=True)
+    for i, r in enumerate(res):
+        print(f"  {label}: rank {divmod(i, tp)}: {len(r['times'])} decode steps, median "
+              f"{statistics.median(r['times']):.2f} ms (min {min(r['times']):.2f}, max "
+              f"{max(r['times']):.2f}; each synchronized); one step host {r['host']:.2f} ms, "
+              f"card {r['card']:.2f} ms, host over card {r['host'] / r['card']:.2f}; peak "
+              f"{r['peak']:.2f} GiB", flush=True)
+    print(f"  {label}: a step: " + ", ".join(f"{k} {v:g}" for k, v in sorted(calls.items()))
+          + " (4 processes time-sharing one card, gloo staging through the host)", flush=True)
+
+
+def tp_ckpt_serve_phase(torch, ops, checks, device) -> collections.Counter:
+    """Phase 24: the checkpoint paths, the elastic resume and the TP decode
+    on four gloo ranks of a 2 x 2 grid (one spawn), then the tp = 1
+    references in this process. Returns every rank's launch counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.parallel.spawn import run_ranks
+
+    launches = collections.Counter()
+    n_dp, tp = TP_GRID
+    # the tp = 1 references first: the ranks decode their float32 streams
+    t0 = time.perf_counter()
+    sp_prompt = tp_prompts(get_arch("granite-8b"), 2)[1]  # 5 tokens
+    serve = [(f"tp-serve {arch} ({layers} L)", arch, arch, layers,
+              tp_prompts(get_arch(arch), SERVE_TP_BATCH), SERVE_TP_NEW, SERVE_TP_MAX_SEQ)
+             for arch, layers in SERVE_TP]
+    serve.append((f"tp-serve-sp granite-8b ({SP_LAYERS} L)", "sp", "granite-8b", SP_LAYERS,
+                  [sp_prompt], SP_STEPS - len(sp_prompt) + 1, SP_MAX_SEQ))
+    tp1 = {key: tp1_reference(torch, device, arch, layers, prompts, n_new, max_seq)
+           for _, key, arch, layers, prompts, n_new, max_seq in serve}
+    print(f"tp-serve: the tp = 1 references {time.perf_counter() - t0:.1f}s", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_", dir=ROOT / "build")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(tp_ckpt_serve_rank, n_dp * tp, args=(
+            str(device), tmp, {k: v["fed"] for k, v in tp1.items()}), backend="gloo",
+            timeout_s=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tp-ckpt-serve: {n_dp} x {tp} grid of gloo ranks on one card in "
+          f"{time.perf_counter() - t0:.1f}s (spawn included)", flush=True)
+    checks.true(f"tp-ckpt-serve: ranks on grid places {[r['grid'] for r in ranks]}",
+                [r["grid"] for r in ranks] == [divmod(i, tp) for i in range(n_dp * tp)])
+    for pi, (label, arch, layers, opt, lr, fused, dtype) in enumerate(CKPT_PATHS):
+        res = [r["ckpt"][pi] for r in ranks]
+        n_leaves = res[0]["straight"]["n_leaves"]
+        want3, _, want3_bf16 = expected_launches(
+            ops, n_leaves, CKPT_STEPS, opt, "intsgd", "packed8", fused=fused, microbatches=1,
+            n_local=1, param_dtype=dtype, n_workers=n_dp)
+        want1, want1_bf16 = (
+            {k: a[k] - b[k] for k in a} for a, b in zip(
+                expected_launches(ops, n_leaves, 2, opt, "intsgd", "packed8", fused=fused,
+                                  microbatches=1, n_local=1, param_dtype=dtype,
+                                  n_workers=n_dp)[::2],
+                expected_launches(ops, n_leaves, 1, opt, "intsgd", "packed8", fused=fused,
+                                  microbatches=1, n_local=1, param_dtype=dtype,
+                                  n_workers=n_dp)[::2]))
+        for r, (dp_i, tp_i) in zip(res, (divmod(i, tp) for i in range(n_dp * tp))):
+            s, q = r["straight"], r["resumed"]
+            last = s["history"][-1]
+            checks.true(f"{label}: rank ({dp_i}, {tp_i}) resumed step {CKPT_STEPS - 1}: loss "
+                        f"{q['history'][-1]['loss']!r} == uninterrupted {last['loss']!r}, max_int "
+                        f"{q['history'][-1]['max_int']:g} == {last['max_int']:g}",
+                        len(q["history"]) == 1 and q["history"][0]["step"] == CKPT_STEPS - 1
+                        and q["history"][0]["loss"] == last["loss"]
+                        and q["history"][0]["max_int"] == last["max_int"])
+            checks.true(f"{label}: rank ({dp_i}, {tp_i}) params after the resumed step "
+                        f"bit-identical to the uninterrupted run's ({len(s['sums'][-1])} "
+                        f"checksums)", q["sums"][-1] == s["sums"][-1])
+            for run, want, want_b in (("straight", want3, want3_bf16),
+                                      ("resumed", want1, want1_bf16)):
+                ok = all(r[run]["launches"][k] == want[k] and r[run]["bf16"][k] == want_b[k]
+                         for k in want)
+                checks.true(f"{label}: rank ({dp_i}, {tp_i}) {run} launches "
+                            f"{r[run]['launches']} (expected {want})", ok)
+                launches.update(r[run]["launches"])
+        st, rs = res[0]["straight"]["stats"], [r["resumed"]["stats"] for r in res]
+        checks.true(f"{label}: the writer's {st.get('bytes', 0):.0f} bytes saved and every "
+                    f"rank restored", st.get("bytes", 0) > 0 and all("restore_s" in s for s in rs))
+        print(f"  {label}: checkpoint of {st['bytes']:.0f} bytes (the global layout): "
+              f"{st['host_s']:.2f} s to host (the model and row gathers included), "
+              f"{st['disk_s']:.2f} s to disk (written in the background), restore "
+              f"{max(s['restore_s'] for s in rs):.2f} s (the slowest rank); losses "
+              f"{[h['loss'] for h in res[0]['straight']['history']]!r}; step ms "
+              f"{[round(h['ms'], 1) for h in res[0]['straight']['history']]}", flush=True)
+        if "plan" in res[0]:
+            n_dp2, tp2, retired, note = res[0]["plan"]
+            print(f"  {label}: elastic re-plan after losing rank {ELASTIC_FAILED}: "
+                  f"{n_dp2} x {tp2} grid, retired data replicas {retired}; {note}", flush=True)
+            el = [r.get("elastic") for r in res]
+            alive = [e for e in el if e is not None]
+            checks.true(f"{label}: elastic resume {n_dp} x {tp} -> {n_dp2} x {tp2} on "
+                        f"{len(alive)} survivors: step {CKPT_STEPS - 1} losses "
+                        f"{[e['history'][-1]['loss'] for e in alive]!r} finite and equal",
+                        n_dp2 == 1 and tp2 == tp and len(alive) == tp
+                        and all(math.isfinite(e["history"][-1]["loss"]) for e in alive)
+                        and len({e["history"][-1]["loss"] for e in alive}) == 1)
+            print(f"  {label}: elastic restore {max(e['stats']['restore_s'] for e in alive):.2f}"
+                  f" s", flush=True)
+    for label, key, _, _, _, n_new, max_seq in serve:
+        tp_serve_checks(torch, checks, label, ranks, key, tp1[key], n_new,
+                        shard_slots=max_seq // n_dp if key == "sp" else None)
+    for i, r in enumerate(ranks):
+        sp = r["sp"]
+        shard = i // tp
+        want = list(range(shard * SP_MAX_SEQ // n_dp,
+                          min(SP_STEPS, (shard + 1) * SP_MAX_SEQ // n_dp)))
+        got = sorted(p for p in sp["kv_pos"][0].tolist() if p < 2**30)
+        checks.true(f"tp-serve-sp: rank {divmod(i, tp)} sequence-sharded, {sp['s_local']} slots, "
+                    f"holds positions {got[0] if got else None}..{got[-1] if got else None}",
+                    sp["seq_sharded"] and sp["s_local"] == SP_MAX_SEQ // n_dp and got == want)
+    return launches
+
+
 def main() -> None:
     # segments that grow in place keep the cache from fragmenting, here and
     # in phase 11's ranks (which inherit it), as four processes share 80 GB
@@ -4158,7 +4699,7 @@ def main() -> None:
               f"peak {hyb_peaks[label]:.1f} GiB", flush=True)
     print(f"hybrid family phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 19. the xLSTM family at published width and full depth
+    # 19. the xLSTM family at published width
     t0 = time.perf_counter()
     counts, b16, xl_hist, xl_peaks = xlstm_family_phase(torch, ops, checks, device)
     for name, c in counts.items():
@@ -4197,6 +4738,12 @@ def main() -> None:
     for name, c in tp_phase(torch, ops, checks, device).items():
         launches[name] += c
     print(f"tensor parallelism phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 24. checkpoints and the elastic resume on the grid, and TP serving
+    t0 = time.perf_counter()
+    for name, c in tp_ckpt_serve_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"tp checkpoint and serve phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

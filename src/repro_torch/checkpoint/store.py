@@ -30,10 +30,29 @@ optimizer rows, IntDIANA's ``h_local``, the error-feedback residuals:
 rank takes its own row. So a checkpoint written by n ranks resumes on the
 local n-worker backend, and the other way round.
 
-At tp > 1 (a data × model grid) each rank holds only its shard of the
-model axis: a store that wrote one rank's shard as if it were the global
-leaf would be a silent fault, so ``save`` and ``restore`` of a store made
-with ``tp > 1`` raise (:func:`refuse_model_shards`; ROADMAP item 12.6c).
+On a data × model grid (``grid=``, ``launch.mesh.Grid``) the store
+writes the JAX package's global train state, as its ``np.asarray(leaf)``
+holds it under ``build_train_step(...).arg_structs[1:3]`` at the same
+(dp, tp):
+
+  * each leaf's model shards are gathered over the model group along its
+    spec (``specs``: ``launch.specs.infer_param_specs``'s, by param name;
+    the inverse of ``TpShard``): the params, the fused route's optimizer
+    state and the param-shaped compressor entries;
+  * a ZeRO-1 row (the f32 master and the optimizer rows) is a rank's row
+    of its local shard, and the global leaf is (n_dp, tp · per): the
+    members' rows side by side, whatever the param's spec (the JAX
+    package's ``zero1_state_specs``);
+  * every compressor entry carries a leading data axis of n_dp: the
+    per-worker entries their rows, the replicated ones (α's state,
+    IntDIANA's global shift) each data replica's copy.
+
+Rank (0, 0) writes. ``restore`` reads the global array and keeps this
+rank's model slice and its own rows; a replicated compressor entry is read
+from its replica's copy (the first at another data count), so an elastic
+resume onto a grid of fewer data replicas loads a state whose leaves are
+all replicated over dp. ``stats`` holds the last save's and restore's
+seconds and bytes.
 """
 from __future__ import annotations
 
@@ -44,6 +63,7 @@ import os
 import queue
 import shutil
 import threading
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -102,17 +122,6 @@ def unflatten_like(tree_like: Any, arrays: Arrays, prefix: str = "") -> Any:
 _REPLICATED_COMP = (".r", ".step", "alpha", "h_global", "q")
 
 
-def refuse_model_shards(tp: int) -> None:
-    """Raise at tp > 1: the global layout needs every leaf whole, and the
-    model shards' gather is not ported (ROADMAP item 12.6c). The train loop
-    and an elastic resume at tp > 1 refuse through this check too."""
-    if tp > 1:
-        raise ValueError(
-            f"a checkpoint at tp = {tp}: each rank holds its shard of the model axis, and "
-            "saving or restoring the global layout from model shards is ROADMAP item "
-            "12.6c (not ported yet); checkpoint at tp = 1")
-
-
 def rank_rows(key: str) -> bool:
     """Whether the leaf ``key`` of a ``{"params", "opt", "comp"}`` train
     state is held one row per rank on a process group (its leading axis is
@@ -125,9 +134,27 @@ def rank_rows(key: str) -> bool:
     return parts[0] == "comp" and len(parts) > 1 and parts[1] not in _REPLICATED_COMP
 
 
-def _to_numpy(t: torch.Tensor):
-    """A host copy of ``t`` and its manifest dtype."""
-    t = t.detach().to("cpu", copy=True)
+def model_dim(key: str, ndim: int, specs: Dict[str, Optional[int]]) -> Optional[int]:
+    """The dimension of the train-state leaf ``key`` (of ``ndim`` dims)
+    that the model axis shards in the global layout: 1 for a ZeRO-1 row
+    (its columns), else its param's spec (``key`` ends in the param's
+    name) after the rows' axis if it has one; None for a replicated leaf
+    or a scalar (AdamW's count, α's state, blockwise α's per-leaf r)."""
+    parts = key.split("/")
+    if parts[0] == "opt" and rank_rows(key):
+        return 1
+    name = next((n for n in ("/".join(parts[i:]) for i in range(1, len(parts)))
+                 if n in specs), None)
+    if name is None or specs[name] is None:
+        return None
+    dim = specs[name] + (1 if rank_rows(key) else 0)
+    return dim if dim < ndim else None
+
+
+def _to_numpy(t: torch.Tensor, copy: bool = True):
+    """A host copy of ``t`` (or, without ``copy``, ``t`` itself if it is on
+    the host already) and its manifest dtype."""
+    t = t.detach().to("cpu", copy=copy)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
@@ -150,22 +177,36 @@ def _tree_checksum(shapes: Dict[str, tuple]) -> str:
 
 class CheckpointStore:
     """Checkpoints of state trees under ``directory``. With a process
-    ``group`` every rank calls ``save`` and ``restore`` on a train state
-    (see the module docstring)."""
+    ``group``, or on a data × model ``grid`` (with each param leaf's model
+    ``specs``, needed at tp > 1), every rank calls ``save`` and ``restore``
+    on a train state (see the module docstring)."""
 
     def __init__(self, directory: str, keep_last: int = 3, async_writes: bool = True,
-                 group=None, tp: int = 1):
+                 group=None, grid=None, specs: Optional[Dict[str, Optional[int]]] = None):
+        if grid is not None:
+            if group is not None:
+                raise ValueError("pass the grid or a group, not both: the grid's data group "
+                                 "holds the rows")
+            if grid.tp > 1 and specs is None:
+                raise ValueError(
+                    f"a checkpoint at tp = {grid.tp} gathers each leaf's model shards along "
+                    "its spec: pass specs=launch.specs.infer_param_specs(cfg, tp)[2]")
+            group = grid.data_group
         self.dir = directory
-        self.tp = tp
+        self.grid = grid
+        self.specs = specs or {}
         self.keep_last = keep_last
         self.group = group
         self.rank = 0 if group is None else coll.group_rank(group)
+        # the rank that writes: rank 0 of the group, model index 0 on a grid
+        self.writer = self.rank == 0 and (grid is None or grid.tp_index == 0)
+        self.stats: Dict[str, float] = {}
         os.makedirs(directory, exist_ok=True)
         self._q: "queue.Queue" = queue.Queue()
         self._async = async_writes
         self._err: Optional[BaseException] = None
         self._thread = None
-        if async_writes and self.rank == 0:
+        if async_writes and self.writer:
             self._thread = threading.Thread(target=self._writer_loop, daemon=True)
             self._thread.start()
 
@@ -173,14 +214,21 @@ class CheckpointStore:
     def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> None:
         """Snapshot ``tree`` to host memory now; write it in the background
         (or now, without async writes)."""
-        refuse_model_shards(self.tp)
-        tensors = flatten_state(tree)
-        if self.group is not None:
-            tensors = {k: self._gather(t) if rank_rows(k) else t for k, t in tensors.items()}
-            if self.rank != 0:
-                return
-        arrays = {k: _to_numpy(t) for k, t in tensors.items()}
-        del tensors
+        t0 = time.perf_counter()
+        arrays = {}
+        for k, t in flatten_state(tree).items():
+            g = t
+            if self.grid is not None:
+                g = self._global(k, t)
+            elif self.group is not None and rank_rows(k):
+                g = self._gather(t)
+            if self.writer:  # a gathered leaf is a fresh tensor: no copy of it
+                arrays[k] = _to_numpy(g, copy=g is t)
+            del g
+        if not self.writer:
+            return
+        self.stats.update(host_s=time.perf_counter() - t0,
+                          bytes=float(sum(a.nbytes for a, _ in arrays.values())))
         if self._async:
             self._q.put((step, arrays, extra or {}))
         else:
@@ -191,13 +239,34 @@ class CheckpointStore:
         flat = coll.all_gather_rows(rows, self.group)
         return flat.reshape(-1, *rows.shape[1:])
 
+    def _global(self, key: str, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """The grid rank's leaf ``key`` -> its global layout (the module
+        docstring) on the ranks of model index 0, None on the others: the
+        model shards gathered over the model group, then the rows gathered
+        over the data group, or a replicated compressor entry stacked n_dp
+        times."""
+        g = self.grid
+        dim = model_dim(key, t.dim(), self.specs) if g.tp > 1 else None
+        if dim is not None:
+            t = coll.all_gather_cat(t, g.model_group, dim)
+        if g.tp_index != 0:  # the writer's data group holds model index 0
+            return None
+        if rank_rows(key):
+            return self._gather(t)
+        if key.startswith("comp/"):
+            return t[None].expand(g.n_dp, *t.shape)
+        return t
+
     def wait(self) -> None:
         """Block until every queued write is on disk (and, on a group, until
-        rank 0's are); raise a write's error."""
+        rank 0's are; on a grid the writer's: its data group's barrier, then
+        each model group's); raise a write's error."""
         if self._async:
             self._q.join()
         if self.group is not None:
             coll.barrier(self.group)
+        if self.grid is not None and self.grid.tp > 1:
+            coll.barrier(self.grid.model_group)
         if self._err is not None:
             raise self._err
 
@@ -223,6 +292,7 @@ class CheckpointStore:
                 self._q.task_done()
 
     def _write(self, step: int, arrays: dict, extra: dict):
+        t0 = time.perf_counter()
         tmp = os.path.join(self.dir, f"step_{step:010d}.tmp")
         final = os.path.join(self.dir, f"step_{step:010d}")
         os.makedirs(tmp, exist_ok=True)
@@ -240,6 +310,7 @@ class CheckpointStore:
             shutil.rmtree(final)
         os.rename(tmp, final)  # atomic publish
         self._gc()
+        self.stats["disk_s"] = time.perf_counter() - t0
 
     def _gc(self):
         steps = self.all_steps()
@@ -261,8 +332,9 @@ class CheckpointStore:
     def restore(self, tree_like: Any, step: Optional[int] = None):
         """``(tree, extra, step)``: the checkpoint of ``step`` (the latest by
         default) in ``tree_like``'s structure, each tensor in the type and
-        on the device of ``tree_like``'s; on a group each rank's own rows."""
-        refuse_model_shards(self.tp)
+        on the device of ``tree_like``'s; on a group each rank's own rows,
+        on a grid its model slice of them too."""
+        t0 = time.perf_counter()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -280,9 +352,11 @@ class CheckpointStore:
             raise ValueError(f"tree mismatch: missing={missing} extra={extra}")
         out = {}
         n_now = None if self.group is None else coll.group_size(self.group)
+        tp = 1 if self.grid is None else self.grid.tp
         for key, like in want.items():
             meta = metas[key]
             a = np.load(os.path.join(d, meta["file"]), mmap_mode="r")
+            dim = model_dim(key, like.dim(), self.specs) if tp > 1 else None
             if rank_rows(key):
                 n_saved, n = a.shape[0], like.shape[0] if n_now is None else n_now
                 if n_saved != n:  # never sliced or padded to the new count
@@ -293,7 +367,19 @@ class CheckpointStore:
                         "IntSGD)")
                 if self.group is not None:
                     a = a[self.rank:self.rank + 1]
+            elif key.startswith("comp/") and a.ndim == like.dim() + 1:
+                # each data replica's copy of a replicated entry (the global layout)
+                a = a[self.rank if a.shape[0] == (n_now or 1) else 0]
+            if dim is not None:
+                n_loc = like.shape[dim]
+                if a.shape[dim] != n_loc * tp:
+                    raise ValueError(f"{key}: {a.shape[dim]} along its model dimension "
+                                     f"{dim}, expected {n_loc} x tp = {n_loc * tp}")
+                idx = [slice(None)] * a.ndim
+                idx[dim] = slice(self.grid.tp_index * n_loc, (self.grid.tp_index + 1) * n_loc)
+                a = a[tuple(idx)]
             if tuple(a.shape) != tuple(like.shape):
                 raise ValueError(f"{key}: shape {tuple(a.shape)} != expected {tuple(like.shape)}")
             out[key] = _from_numpy(np.array(a), meta["dtype"]).to(like.device, like.dtype)
+        self.stats["restore_s"] = time.perf_counter() - t0
         return unflatten_like(tree_like, out), manifest["extra"], step

@@ -19,7 +19,7 @@ tp_index``. Each rank gets two groups:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 from repro_torch.parallel import collectives as coll
 
@@ -36,25 +36,32 @@ class Grid:
     model_group: Any
 
 
-def make_debug_mesh(n_data: int = 2, n_model: int = 2) -> Grid:
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, ranks=None) -> Optional[Grid]:
     """The grid of the default process group, which must hold ``n_data ·
-    n_model`` ranks. Every rank calls it; it makes every data and model
-    group on every rank, in the same order, as ``new_group`` requires."""
+    n_model`` ranks, or of the world ranks ``ranks`` (that many; the
+    survivors an elastic re-plan keeps, in dp-major order), on which a rank
+    outside them gets None. Every rank of the world calls it; it makes every
+    data and model group on every rank, in the same order, as
+    ``new_group`` requires."""
     size = coll.world_size()
-    if n_data < 1 or n_model < 1 or n_data * n_model != size:
+    ranks = list(range(size)) if ranks is None else list(ranks)
+    if n_data < 1 or n_model < 1 or n_data * n_model != len(ranks):
         raise ValueError(
             f"a {n_data} × {n_model} (data × model) grid needs {n_data * n_model} ranks; "
-            f"the process group has {size}")
-    rank = coll.world_rank()
-    dp_index, tp_index = divmod(rank, n_model)
+            f"the process group has {len(ranks)}")
+    me = coll.world_rank()
+    pos = ranks.index(me) if me in ranks else None
+    dp_index, tp_index = divmod(pos if pos is not None else 0, n_model)
     data_group = model_group = None
     for t in range(n_model):
-        g = coll.new_group([d * n_model + t for d in range(n_data)])
+        g = coll.new_group([ranks[d * n_model + t] for d in range(n_data)])
         if t == tp_index:
             data_group = g
     for d in range(n_data):
-        g = coll.new_group([d * n_model + t for t in range(n_model)])
+        g = coll.new_group([ranks[d * n_model + t] for t in range(n_model)])
         if d == dp_index:
             model_group = g
+    if pos is None:
+        return None
     return Grid(n_dp=n_data, tp=n_model, dp_index=dp_index, tp_index=tp_index,
                 data_group=data_group, model_group=model_group)

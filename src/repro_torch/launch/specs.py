@@ -1,22 +1,26 @@
-"""Which dimension of each parameter leaf the model axis shards (port of
-``repro/launch/specs.py``'s ``param_shapes``, ``infer_param_specs`` and
-``global_tree_dims``).
+"""Which dimension of each parameter leaf the model axis shards, and of
+each decode-cache and batch leaf the data and model axes shard (port of
+``repro/launch/specs.py``).
 
 As in the JAX package the specs are derived, not written down: the leaf
 shapes with ``n_shards=1`` (global, padded for tp) and with
 ``n_shards=tp`` (one rank's) are diffed, and the one dimension that
 differs by exactly ×tp is the sharded one; a leaf whose shapes agree is
 replicated. So the table cannot drift from the model code. A spec here is
-that dimension's index, or None. The cache specs wait for TP serving
-(ROADMAP item 12.6c), the dry-run parts for item 12.8.
+that dimension's index, or None. The cache specs follow fixed rules by
+leaf name (the JAX package's ``_CACHE_BASE``), with the leading stacked
+layer axes skipped: a :class:`CacheSpec` names the dimension the data axis
+shards (the batch, or with ``seq_sharded`` the sequence) and the one the
+model axis shards. The dry-run parts wait for ROADMAP item 12.8.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.core.stats import TreeDims
 from repro_torch.models import encdec, transformer
+from repro_torch.models.decode import init_lm_cache
 from repro_torch.models.common import TpShard
 
 Shapes = Dict[str, tuple]
@@ -62,3 +66,80 @@ def tp_shard(cfg, tp: int, tp_index: int) -> TpShard:
     """Rank ``tp_index``'s slice of a global tree over ``tp`` (the specs of
     :func:`infer_param_specs`)."""
     return TpShard(specs=infer_param_specs(cfg, tp)[2], index=tp_index, size=tp)
+
+
+# cache leaf name -> (dims without the stacked axes, batch dim, seq dim, model
+# dim), the JAX package's ``_CACHE_BASE``; "h" is the Mamba2 state (B, H, N, P)
+# under "mamba/" and the sLSTM state (B, H, dh) under "blocks/" (the JAX
+# table leaves its rank open and counts a stacked Mamba2 state's layer axes
+# as its own, which 12.6e's hybrid decode will settle)
+_CACHE_BASE = {
+    "k": (4, 0, 1, 2),
+    "v": (4, 0, 1, 2),
+    "kv_pos": (2, 0, 1, None),
+    "pos": (2, 0, 1, None),
+    "c_kv": (3, 0, 1, None),
+    "k_r": (3, 0, 1, None),
+    "conv": (3, 0, None, 2),
+    "h": (None, 0, None, 1),
+    "C": (4, 0, None, 1),
+    "n": (3, 0, None, 1),
+    "c": (3, 0, None, 1),
+}
+
+
+class CacheSpec(NamedTuple):
+    """The dimension of a cache leaf that the data axis shards (the batch,
+    or the sequence when the cache is sequence-sharded; None: replicated
+    over the data group) and the one the model axis shards (None:
+    replicated over the model group)."""
+
+    data: Optional[int]
+    model: Optional[int]
+
+
+def cache_shapes(cfg, tp: int, n_shards: int, b: int, s: int, s_src: Optional[int] = None
+                 ) -> Shapes:
+    """Leaf name -> shape of the decode cache of ``b`` sequences of ``s``
+    slots: global over the model axis with ``n_shards=1``, one rank's with
+    ``n_shards=tp`` (the encoder-decoder's cross cache of ``s_src``
+    positions, ``s`` by default). Built on the meta device: no memory."""
+    if cfg.family == "encdec":
+        if tp > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the encdec family's decode at tp = {tp} is ROADMAP item 12.6e "
+                "(not ported yet)")
+        cache = encdec.init_encdec_cache(cfg, b, s, s_src or s, device="meta")
+    else:
+        cache = init_lm_cache(cfg, b, s, device="meta", tp=tp, n_shards=n_shards)
+    return {k: tuple(v.shape) for k, v in cache.items()}
+
+
+def cache_pspecs(shapes: Shapes, *, seq_sharded: bool) -> Dict[str, CacheSpec]:
+    """Each cache leaf's :class:`CacheSpec`, by its last name with the
+    stacked layer axes skipped: the batch dimension carries the data axis,
+    or with ``seq_sharded`` (a batch smaller than the data replicas) the
+    sequence dimension does and the batch is replicated (a recurrent state,
+    which has no sequence, is then replicated over the data group); the KV
+    heads, the Mamba2 and xLSTM heads carry the model axis."""
+    out = {}
+    for name, shape in shapes.items():
+        last = name.rsplit("/", 1)[-1]
+        if last not in _CACHE_BASE:
+            raise ValueError(f"no cache rule for leaf {name}")
+        nd, b_dim, s_dim, m_dim = _CACHE_BASE[last]
+        if nd is None:
+            nd = 4 if name.startswith("mamba/") else 3
+        extra = len(shape) - nd
+        if seq_sharded:
+            data = None if s_dim is None else extra + s_dim
+        else:
+            data = extra + b_dim
+        out[name] = CacheSpec(data, None if m_dim is None else extra + m_dim)
+    return out
+
+
+def batch_pspecs(shapes: Shapes, *, seq_sharded: bool = False) -> Specs:
+    """Each batch leaf's data-sharded dimension: the batch (0), or None
+    (replicated) for a sequence-sharded decode's tokens."""
+    return {k: None if seq_sharded else 0 for k in shapes}

@@ -1,4 +1,5 @@
-"""Train step construction (port of ``repro/launch/step.py``): the fused
+"""Train and serve step construction (port of ``repro/launch/step.py``;
+the serve step, :func:`build_serve_step`, at the end): the fused
 route and the ZeRO-1 route, with microbatch wire pipelining on the latter,
 on the local n-worker backend (one process runs the n workers in turn) or
 on a ``torch.distributed`` process group (one process per worker; every
@@ -75,7 +76,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import specs as specs_mod
 from repro_torch.models import encdec
 from repro_torch.models.common import SINGLE, Axes
-from repro_torch.models.transformer import lm_loss
+from repro_torch.models.decode import init_lm_cache, lm_decode_step, tp_greedy
+from repro_torch.models.transformer import lm_forward, lm_logits, lm_loss
 from repro_torch.optim import base as optb
 from repro_torch.optim.base import Optimizer
 from repro_torch.optim.zero1 import zero1_init, zero1_update
@@ -635,3 +637,114 @@ def build_init_state(params: Tree, *, n_workers: int, compressor: Compressor,
     else:
         opt_state = zero1_init(base_opt, params, n_workers, rank=rank)
     return opt_state, compressor.init(params, n_workers if rank is None else 1)
+
+
+# ---------------------------------------------------------------------------
+# serve steps (prefill / decode)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ServeArtifacts:
+    """A serve step of one rank of a data × model grid (the JAX package's
+    ``build_serve_step`` artifacts, per rank): ``steps`` holds "prefill" or
+    "decode"; ``rows`` is the rank's slice of the global batch (all of it
+    when ``seq_sharded``); ``cache_shapes`` and ``cache_specs`` are the
+    rank's local decode cache of ``s_local`` slots and its leaves'
+    :class:`~repro_torch.launch.specs.CacheSpec` (where each sits in the
+    global cache)."""
+
+    steps: Dict[str, Callable]
+    axes: Axes
+    rows: slice
+    s_local: int
+    seq_sharded: bool
+    cache_shapes: Dict[str, tuple]
+    cache_specs: Dict[str, specs_mod.CacheSpec]
+    init_cache: Optional[Callable[[], Tree]] = None
+
+
+def build_serve_step(cfg: ModelConfig, grid, shape: ShapeConfig, *,
+                     dtype=torch.bfloat16, device=None) -> ServeArtifacts:
+    """The prefill (``shape.kind == "prefill"``) or decode step of ``cfg``
+    on this rank of ``grid`` (a ``launch.mesh.Grid``; None: one process,
+    a 1 × 1 grid), on the rank's shard of the params (``specs.tp_shard``),
+    the activations in ``dtype``.
+
+    - prefill ``(params, batch) -> logits``: ``batch["tokens"]`` the global
+      (B, T) prompts (the vlm family's ``patch_embeds`` too; the
+      encoder-decoder's ``frames``); the rank's rows run the forward and the
+      last position's vocab-local logits (b_local, V/tp) come out float32;
+    - decode ``(params, cache, tokens, pos) -> (next_tok, cache)``:
+      ``tokens`` and ``pos`` the global (B,) step, the rank's rows decoded
+      against its local cache (``init_cache()``: ``cache_shapes(cfg, tp,
+      tp, b_local, s_local)``, written in place) and its rows' greedy
+      tokens picked by ``tp_greedy`` over the vocab shards.
+
+    A decode whose global batch is smaller than the data replicas is
+    sequence-sharded, as in the JAX package: every rank takes the whole
+    batch, its cache holds ``seq_len // n_dp`` of the slots, and attention
+    combines its softmax over the data group (``Axes.sp``); MLA refuses it
+    (``mla.refuse_sequence_shards``). At tp > 1 the hybrid, ssm and encdec
+    families raise, naming ROADMAP item 12.6e."""
+    device = resolve_device(device)
+    n_dp, tp = (1, 1) if grid is None else (grid.n_dp, grid.tp)
+    dp_index = 0 if grid is None else grid.dp_index
+    if tp > 1 and cfg.family in ("hybrid", "ssm", "encdec"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's serve step at tp = {tp} is ROADMAP item "
+            "12.6e (not ported yet); serve it at tp = 1")
+    seq_sharded = shape.kind == "decode" and shape.global_batch < n_dp
+    model = {} if tp == 1 else dict(group=grid.model_group, tp_size=tp,
+                                    tp_index=grid.tp_index)
+    if seq_sharded:
+        if cfg.kv_lora:
+            from repro_torch.models.mla import refuse_sequence_shards
+
+            refuse_sequence_shards(Axes(sp=grid.data_group))
+        if shape.seq_len % n_dp:
+            raise ValueError(f"seq_len {shape.seq_len} does not split over {n_dp} sequence "
+                             "shards")
+        axes = Axes(**model, sp=grid.data_group, sp_size=n_dp, sp_index=dp_index)
+        b_local, s_local = shape.global_batch, shape.seq_len // n_dp
+        rows = slice(0, shape.global_batch)
+    else:
+        if shape.global_batch % n_dp:
+            raise ValueError(f"global batch {shape.global_batch} does not split over {n_dp} "
+                             "data replicas")
+        axes = Axes(**model)
+        b_local, s_local = max(1, shape.global_batch // n_dp), shape.seq_len
+        rows = slice(dp_index * b_local, (dp_index + 1) * b_local)
+    s_src = min(shape.seq_len, 32768)
+    c_shapes = specs_mod.cache_shapes(cfg, tp, tp, b_local, s_local, s_src=s_src)
+    c_specs = specs_mod.cache_pspecs(c_shapes, seq_sharded=seq_sharded)
+    art = dict(axes=axes, rows=rows, s_local=s_local, seq_sharded=seq_sharded,
+               cache_shapes=c_shapes, cache_specs=c_specs)
+
+    if shape.kind == "prefill":
+        @torch.no_grad()
+        def prefill(params, batch):
+            local = {k: v[rows] for k, v in batch.items()}
+            if cfg.family == "encdec":
+                h = encdec.encode(params, local["frames"], cfg, dtype)[:, -1:]
+                logits = (h @ params["lm_head"].to(h.dtype)).to(torch.float32)
+            else:
+                h = lm_forward(params, local, cfg, dtype, axes)
+                logits = lm_logits(params, h[:, -1:], cfg)
+            return logits[:, 0]
+
+        return ServeArtifacts(steps={"prefill": prefill}, **art)
+
+    def init_cache():
+        if cfg.family == "encdec":
+            return encdec.init_encdec_cache(cfg, b_local, s_local, s_src, device=device)
+        return init_lm_cache(cfg, b_local, s_local, device=device, tp=tp, n_shards=tp)
+
+    @torch.no_grad()
+    def decode(params, cache, tokens, pos):
+        tokens, pos = tokens[rows], pos[rows]
+        if cfg.family == "encdec":
+            logits, cache = encdec.encdec_decode_step(params, cache, tokens, pos, cfg, dtype)
+        else:
+            logits, cache = lm_decode_step(params, cache, tokens, pos, cfg, dtype, axes)
+        return tp_greedy(logits, axes), cache
+
+    return ServeArtifacts(steps={"decode": decode}, init_cache=init_cache, **art)

@@ -62,9 +62,17 @@ drives, so zamba2 and xlstm too, not seamless) runs under
 ``torchrun`` on a ``--data`` × ``--model`` grid of ranks
 (``launch.mesh.make_debug_mesh``): the world size is data · model, each
 rank holds its shard of the model axis, and ``--data`` (or ``--workers``)
-defaults to world // model. Without ``torchrun`` it raises. A checkpoint
-at tp > 1 is refused (``checkpoint.store.refuse_model_shards``; ROADMAP
-item 12.6c).
+defaults to world // model. Without ``torchrun`` it raises. On the grid
+``--ckpt-dir`` and ``--resume`` write and read the JAX package's global
+layout (``CheckpointStore(grid=..., specs=...)``); ``--resume`` on a grid
+of fewer data replicas (``--data``) is the elastic resume
+(``runtime.elastic``), from a state whose leaves are all replicated over
+dp::
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch granite-8b --smoke --data 2 --model 2 --steps 40 --batch 4 \
+      --seq 32 --device cpu --fused --compressor intsgd8_packed --wire packed8 \
+      --ckpt-dir /path/to/ckpt [--resume]
 """
 from __future__ import annotations
 
@@ -76,7 +84,6 @@ import time
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
-from repro_torch.checkpoint.store import refuse_model_shards
 from repro_torch.configs.base import ShapeConfig, get_arch, ported_archs, smoke_config
 from repro_torch.core.compressor import (
     compressor_names, leaf_seeds, make_compressor, with_wire,
@@ -161,8 +168,10 @@ def train_loop(
     runs this rank's part of a data × model grid: ``n_workers`` is the
     number of dp replicas, every rank draws the global weights padded for
     the grid's tp and keeps its shard, and the TP members of a replica take
-    the replica's share of each batch. A checkpoint (and so an elastic
-    resume) at tp > 1 is refused (ROADMAP item 12.6c)."""
+    the replica's share of each batch. ``ckpt`` must then be a store made
+    on the same grid (``CheckpointStore(grid=grid, specs=...)``): it
+    writes the global layout, and ``resume`` on a grid of another data
+    count is the elastic resume above, with tp kept."""
     if cfg.frontend is not None:  # the JAX CLI's init_lm_params refuses encdec too
         raise ValueError(
             f"{cfg.name}: the {cfg.frontend!r} frontend takes "
@@ -171,8 +180,9 @@ def train_loop(
             "launch.step.build_train_step and launch.inputs.materialize_batch")
     device = resolve_device(device)
     tp = 1 if grid is None else grid.tp
-    if ckpt is not None:
-        refuse_model_shards(tp)
+    if ckpt is not None and grid is not None and ckpt.grid is not grid:
+        raise ValueError("a checkpoint on a grid: make the store with the same grid, "
+                         "CheckpointStore(directory, grid=grid, specs=...)")
     if grid is not None:
         if group is not None:
             raise ValueError("pass the grid or a group, not both")
@@ -348,8 +358,9 @@ def main(argv=None):
     try:
         if args.model > 1:
             grid = make_debug_mesh(world // args.model, args.model)
-            ckpt = CheckpointStore(args.ckpt_dir, group=grid.data_group,
-                                   tp=args.model) if args.ckpt_dir else None
+            ckpt = CheckpointStore(
+                args.ckpt_dir, grid=grid, specs=specs.infer_param_specs(cfg, args.model)[2],
+            ) if args.ckpt_dir else None
             train_loop(cfg, shape, n_workers=grid.n_dp, device=device, grid=grid, ckpt=ckpt,
                        resume=args.resume, **kw)
             return

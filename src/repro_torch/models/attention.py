@@ -21,13 +21,15 @@ the (B, H, T, T) scores: a fallback to the math backend would raise rather
 than run slowly (8.6 GB a layer of scores for h2o-danube at T = 8192).
 
 The decode path (:func:`attention_decode`, port of the JAX package's
-``attention_decode`` at tp = 1) steps one token per sequence against a KV
+``attention_decode``) steps one token per sequence against a KV
 cache (:func:`init_cache`): float32 logits over the whole cache under the
 causal ``kv_pos <= pos`` mask (and the window), and the JAX package's
 explicit softmax — max, ``exp``, sum, then a division by max(sum, 1e-30) —
-in plain PyTorch, as the JAX package's is plain XLA. Its sequence-sharded
-cache (``axes.sp``, a softmax combined across shards) waits for tensor and
-sequence parallelism.
+in plain PyTorch, as the JAX package's is plain XLA. At tp > 1 it runs the
+rank's local heads and sums the out projection over the model group; with
+``axes.sp`` (a batch smaller than the data replicas) the cache's sequence
+is sharded over the data group and the softmax is combined across the
+shards (``pmax_sp``, ``psum_sp``).
 """
 from __future__ import annotations
 
@@ -129,28 +131,50 @@ def init_cache(batch: int, seq: int, *, n_kv_heads: int, head_dim: int, device,
             "kv_pos": torch.full((batch, seq), EMPTY_POS, dtype=torch.int32, device=device)}
 
 
-def write_slots(cache, pos: torch.Tensor, new) -> None:
+def write_slots(cache, pos: torch.Tensor, new, *, slot: torch.Tensor | None = None,
+                ok: torch.Tensor | None = None) -> None:
     """Write ``new[name]`` (B, ...) into ``cache[name]`` at row b, slot
-    clip(pos[b], 0, S - 1), and ``pos`` into ``kv_pos``; in place."""
+    clip(pos[b], 0, S - 1), and ``pos`` into ``kv_pos``; in place. A
+    sequence-sharded cache passes its local ``slot`` (pos minus the
+    shard's offset) and ``ok`` (B,) bool, True on the shard that owns the
+    position: a row whose ``ok`` is False keeps its slot as it was."""
     s_len = cache["kv_pos"].shape[1]
     bidx = torch.arange(pos.shape[0], device=pos.device)
-    slot = torch.clamp(pos, 0, s_len - 1).long()
+    slot = torch.clamp(pos if slot is None else slot, 0, s_len - 1).long()
     for name, v in new.items():
-        cache[name][bidx, slot] = v.to(cache[name].dtype)
-    cache["kv_pos"][bidx, slot] = pos.to(torch.int32)
+        v = v.to(cache[name].dtype)
+        if ok is not None:
+            v = torch.where(ok.reshape(-1, *([1] * (v.dim() - 1))), v, cache[name][bidx, slot])
+        cache[name][bidx, slot] = v
+    kv = pos.to(torch.int32)
+    if ok is not None:
+        kv = torch.where(ok, kv, cache["kv_pos"][bidx, slot])
+    cache["kv_pos"][bidx, slot] = kv
 
 
 def attention_decode(p, x: torch.Tensor, pos: torch.Tensor, cache, *, n_heads: int,
                      n_kv_heads: int, head_dim: int, rope_theta: float = 10000.0,
-                     window: int | None = None):
+                     window: int | None = None, axes: Axes = SINGLE):
     """One token per sequence. x: (B, 1, d); pos: (B,) integer positions;
     cache: :func:`init_cache`'s, written at ``pos`` in place. Returns
-    ``(out (B, 1, d), cache)``. Query head h reads KV head h // group."""
+    ``(out (B, 1, d), cache)``. Query head h reads KV head h // group;
+    ``n_heads`` and ``n_kv_heads`` are the rank's local heads, and the out
+    projection's partial sums are summed over ``axes``' model group. With
+    ``axes.sp`` the cache holds this rank's slice of the sequence (slots
+    [i·S_loc, (i+1)·S_loc) on sequence shard i): the new KV is written
+    only on the shard that owns ``pos``, and the softmax's max, sum and
+    weighted values are combined over the data group."""
     b = x.shape[0]
     q, k, v = _qkv(p, x)
     q = rope(q.reshape(b, 1, n_heads, head_dim), pos[:, None], rope_theta)
     k = rope(k.reshape(b, 1, n_kv_heads, head_dim), pos[:, None], rope_theta)
-    write_slots(cache, pos, {"k": k[:, 0], "v": v.reshape(b, n_kv_heads, head_dim)})
+    new = {"k": k[:, 0], "v": v.reshape(b, n_kv_heads, head_dim)}
+    if axes.sp is None:
+        write_slots(cache, pos, new)
+    else:
+        slot = pos - axes.sp_index * cache["kv_pos"].shape[1]
+        write_slots(cache, pos, new, slot=slot,
+                    ok=(slot >= 0) & (slot < cache["kv_pos"].shape[1]))
     qh = q.reshape(b, n_kv_heads, n_heads // n_kv_heads, head_dim).to(torch.float32)
     logits = torch.einsum("bhgd,bshd->bhgs", qh, cache["k"].to(torch.float32))
     logits = logits * f32_scale(head_dim)
@@ -160,9 +184,9 @@ def attention_decode(p, x: torch.Tensor, pos: torch.Tensor, cache, *, n_heads: i
     if window is not None:
         mask &= kv_pos > now - window
     logits = torch.where(mask, logits, NEG_INF)
-    m = torch.amax(logits, dim=-1, keepdim=True)
+    m = axes.pmax_sp(torch.amax(logits, dim=-1, keepdim=True))
     e = torch.exp(logits - m)
-    s = torch.sum(e, dim=-1, keepdim=True)
-    acc = torch.einsum("bhgs,bshd->bhgd", e, cache["v"].to(torch.float32))
+    s = axes.psum_sp(torch.sum(e, dim=-1, keepdim=True))
+    acc = axes.psum_sp(torch.einsum("bhgs,bshd->bhgd", e, cache["v"].to(torch.float32)))
     out = (acc / torch.clamp(s, min=1e-30)).reshape(b, 1, n_heads * head_dim)
-    return out.to(x.dtype) @ p["wo"].to(x.dtype), cache
+    return axes.psum_tp(out.to(x.dtype) @ p["wo"].to(x.dtype)), cache

@@ -10,9 +10,9 @@ small leaves replicated. Head padding: Q heads pad to a multiple of tp,
 and KV heads pad up to one per rank (or to a multiple of tp) as
 independent heads, so every leaf is either sharded whole or replicated.
 
-:class:`Axes` carries the model group. At tp = 1 (``SINGLE``) every
-primitive is the single-device computation, bit for bit: no collective
-and no padding.
+:class:`Axes` carries the model group (and, for a sequence-sharded
+decode, the data group). At tp = 1 (``SINGLE``) every primitive is the
+single-device computation, bit for bit: no collective and no padding.
 """
 from __future__ import annotations
 
@@ -29,11 +29,17 @@ from repro_torch.parallel import collectives as coll
 @dataclasses.dataclass(frozen=True)
 class Axes:
     """The model axis as the model code sees it: the model group (None at
-    tp = 1), its size and this rank's index in it."""
+    tp = 1), its size and this rank's index in it; and, for the
+    sequence-sharded decode (the JAX package's ``Axes.sp``), the data group
+    whose ranks each hold one slice of the KV cache's sequence (``sp``,
+    None otherwise), its size and this rank's index in it."""
 
     group: Any = None
     tp_size: int = 1
     tp_index: int = 0
+    sp: Any = None
+    sp_size: int = 1
+    sp_index: int = 0
 
     def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the model group (forward and backward; see
@@ -42,6 +48,14 @@ class Axes:
 
     def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.tp_size == 1 else coll.pmax_tp(x, self.group)
+
+    def psum_sp(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the sequence shards (the data group); x itself without
+        ``sp``."""
+        return x if self.sp is None else coll.psum_sp(x, self.sp)
+
+    def pmax_sp(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.sp is None else coll.pmax_sp(x, self.sp)
 
 
 SINGLE = Axes()

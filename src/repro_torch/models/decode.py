@@ -1,5 +1,6 @@
 """Single-token decode (the serve path) of the decoder-only families, with
-their caches (port of ``repro/models/decode.py`` at tp = 1).
+their caches (port of ``repro/models/decode.py``; at tp > 1 for the
+attention families).
 
 The cache is a flat dict of stacked leaves, as the params are, each with
 the layer leaves' leading axes::
@@ -34,25 +35,35 @@ no TPU kernel stands behind it.
 
 The encoder-decoder family has no decoder-only cache: :func:`init_lm_cache`
 raises ``ValueError`` for it, as the JAX package's does; its decode is
-``models/encdec.py``'s. At tp = 1 the JAX package's vocab-sharded greedy
-pick is the argmax (:func:`tp_greedy`).
+``models/encdec.py``'s.
+
+Tensor parallelism (``axes``, the model group of a data × model grid):
+the dense, vlm and moe families decode on the rank's shard of the params
+as the JAX package's ``lm_decode_step`` does inside its ``shard_map``: the
+vocab-sharded embedding lookup, the rank's local heads (a GQA cache of
+``kv_local`` heads; MLA's latent cache whole on every rank), the MoE block
+by ``pick_strategy`` (``moe_ep`` when tp divides the experts) and the
+rank's vocab slice of the logits; :func:`tp_greedy` picks the token
+without gathering them. With ``axes.sp`` the GQA cache's sequence is
+sharded over the data group (``attention_decode``). The hybrid and ssm
+families decode at tp = 1 only: at tp > 1 they raise, naming ROADMAP item
+12.6e.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.attention import attention_decode, init_cache
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import SINGLE, Axes, embed_lookup, rmsnorm
 from repro_torch.models.mla import init_mla_cache, mla_decode
 from repro_torch.models.mlp import swiglu_mlp
-from repro_torch.models.moe import moe_tp
+from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import init_mamba2_cache, mamba2_decode
 from repro_torch.models.transformer import (
     SSM_HEAD_DIM, XLSTM_CELLS, _check_ported, _head_dim, _layer_axes, _ssm_heads, _sub,
-    lm_logits, params_from_jax,
+    lm_logits, params_from_jax, resolve_dims,
 )
 from repro_torch.models.xlstm import (
     init_mlstm_cache, init_slstm_cache, mlstm_decode, slstm_decode,
@@ -72,19 +83,34 @@ def _check_decode(cfg) -> None:
     _check_ported(cfg)
 
 
+def refuse_recurrent_tp(cfg, tp: int) -> None:
+    """The hybrid and ssm families decode at tp = 1 only (ROADMAP item
+    12.6e)."""
+    if tp > 1 and cfg.family in ("hybrid", "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's decode at tp = {tp} is ROADMAP item "
+            "12.6e (not ported yet); decode it at tp = 1")
+
+
 def _stacked(base: Tree, lead: tuple, prefix: str) -> Tree:
     return {f"{prefix}{k}": v.expand(*lead, *v.shape).clone() for k, v in base.items()}
 
 
-def init_lm_cache(cfg, batch: int, seq: int, *, device, dtype=torch.bfloat16) -> Tree:
+def init_lm_cache(cfg, batch: int, seq: int, *, device, dtype=torch.bfloat16, tp: int = 1,
+                  n_shards: int = 1) -> Tree:
     """An empty cache of ``batch`` sequences of up to ``seq`` tokens for
     every layer (the module docstring's layout): MLA's latent cache where
     the config has a ``kv_lora``, else the GQA KV cache (in ``dtype``); the
     hybrid family's Mamba2 states and the shared block's KV cache; the ssm
-    family's mLSTM and sLSTM states."""
+    family's mLSTM and sLSTM states. The JAX package's ``init_lm_cache(cfg,
+    tp, n_shards, b_local, s_local)``: with ``n_shards=tp`` the GQA cache
+    holds one rank's ``kv_local`` heads of the heads padded for ``tp``
+    (``batch`` and ``seq`` the rank's rows and slots)."""
     _check_decode(cfg)
+    refuse_recurrent_tp(cfg, tp)
     lead = _layer_axes(cfg)
-    kv = dict(n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg), device=device, dtype=dtype)
+    layout = resolve_dims(cfg, tp, n_shards).layout
+    kv = dict(n_kv_heads=layout.kv_local, head_dim=layout.head_dim, device=device, dtype=dtype)
     if cfg.family == "hybrid":
         m = init_mamba2_cache(batch, n_heads=_ssm_heads(cfg), head_dim=SSM_HEAD_DIM,
                               d_state=cfg.ssm_state, device=device)
@@ -111,12 +137,14 @@ def cache_from_jax(tree_of_numpy, device) -> Tree:
     return params_from_jax(tree_of_numpy, device)
 
 
-def _attn_decode_any(lp, h, pos, lc, cfg):
+def _attn_decode_any(lp, h, pos, lc, cfg, axes: Axes = SINGLE):
+    layout = resolve_dims(cfg, axes.tp_size, axes.tp_size).layout
     if cfg.kv_lora:
-        return mla_decode(lp, h, pos, lc, n_heads=cfg.n_heads, head_dim=_head_dim(cfg))
-    return attention_decode(lp, h, pos, lc, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                            head_dim=_head_dim(cfg), rope_theta=cfg.rope_theta,
-                            window=cfg.window)
+        return mla_decode(lp, h, pos, lc, n_heads=layout.q_local, head_dim=layout.head_dim,
+                          axes=axes)
+    return attention_decode(lp, h, pos, lc, n_heads=layout.q_local,
+                            n_kv_heads=layout.kv_local, head_dim=layout.head_dim,
+                            rope_theta=cfg.rope_theta, window=cfg.window, axes=axes)
 
 
 def _index(tree: Tree, *idx) -> Tree:
@@ -162,41 +190,54 @@ def _ssm_layers(params, cache, x, cfg):
     return x
 
 
-def _attn_layers(params, cache, x, pos, cfg):
+def _attn_layers(params, cache, x, pos, cfg, axes: Axes):
     """The attention families' layers: attention (GQA or MLA), then the
     SwiGLU or the MoE block."""
     layers, caches = _sub(params, "layers/"), _sub(cache, "layers/")
     for i in range(cfg.n_layers):
         lp = _index(layers, i)
         a, _ = _attn_decode_any(_sub(lp, "attn/"), rmsnorm(x, lp["ln1"]), pos,
-                                _index(caches, i), cfg)
+                                _index(caches, i), cfg, axes)
         x = x + a
         z = rmsnorm(x, lp["ln2"])
         if cfg.family == "moe":
-            x = x + moe_tp(_sub(lp, "moe/"), z, n_experts=cfg.n_experts, top_k=cfg.top_k)
+            x = x + moe_block(_sub(lp, "moe/"), z, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                              axes=axes)
         else:
-            x = x + swiglu_mlp(_sub(lp, "mlp/"), z)
+            x = x + swiglu_mlp(_sub(lp, "mlp/"), z, axes)
     return x
 
 
 def lm_decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, pos: torch.Tensor, cfg,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, axes: Axes = SINGLE):
     """tokens: (B,) ids of this step; pos: (B,) their positions. Writes
     each layer's cache (at ``pos``, or the recurrent state) in place.
-    Returns ``(logits (B, V) float32, cache)``."""
+    Returns ``(logits (B, V/tp) float32, cache)``: at tp > 1 (``axes``)
+    the rank's vocab slice, from its shard of the params."""
     _check_decode(cfg)
-    x = F.embedding(tokens[:, None], params["embed"]).to(dtype)
+    refuse_recurrent_tp(cfg, axes.tp_size)
+    x = embed_lookup(params["embed"], tokens[:, None], axes).to(dtype)
     if cfg.family == "hybrid":
         x = _hybrid_layers(params, cache, x, pos, cfg)
     elif cfg.family == "ssm":
         x = _ssm_layers(params, cache, x, cfg)
     else:
-        x = _attn_layers(params, cache, x, pos, cfg)
+        x = _attn_layers(params, cache, x, pos, cfg, axes)
     h = rmsnorm(x, params["ln_f"])
     return lm_logits(params, h, cfg)[:, 0], cache
 
 
-def tp_greedy(logits: torch.Tensor) -> torch.Tensor:
-    """The greedy token per row: the argmax, ties to the first index (the
-    JAX package's ``tp_greedy`` on one vocab shard)."""
-    return torch.argmax(logits, dim=-1)
+def tp_greedy(logits: torch.Tensor, axes: Axes = SINGLE) -> torch.Tensor:
+    """The greedy token per row from vocab-sharded ``logits`` (B, V/tp),
+    without gathering them (the JAX package's ``tp_greedy``): each rank's
+    argmax (ties to the first index), its global id, and the max over the
+    model group; every rank whose best equals that max contributes its id,
+    the others 0, and the ids are summed. So on a tie across vocab shards
+    the token is the sum of the tied ids (ROADMAP's reference behaviours);
+    at tp = 1 it is the argmax."""
+    v_local = logits.shape[-1]
+    best = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, best[:, None])[:, 0]
+    gid = best + axes.tp_index * v_local
+    winner = torch.where(val >= axes.pmax_tp(val), gid, torch.zeros_like(gid))
+    return axes.psum_tp(winner)

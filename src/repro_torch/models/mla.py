@@ -16,14 +16,16 @@ with zeros to head_dim + 64 for its shared chunked kernel and slices the
 output; here V keeps its head_dim (the backend takes Ev ≠ E), which gives
 the same values.
 
-Decode (:func:`mla_decode`, the JAX package's at tp = 1) keeps the latent
-cache (:func:`init_mla_cache`): ``c_kv`` (kv_lora) and the rotary key
+Decode (:func:`mla_decode`, the JAX package's; at tp > 1 on the rank's
+local heads, the latent cache replicated over the model axis) keeps the
+latent cache (:func:`init_mla_cache`): ``c_kv`` (kv_lora) and the rotary key
 ``k_r`` (64) per token in place of 2·H·head_dim, the paper's KV-cache
 compression, and decompresses the whole cache through ``w_uk`` and
 ``w_uv`` at every step. As in the JAX package its RoPE takes the default
 theta (10,000, not the config's ``rope_theta``) and its softmax is the
 library's (``torch.softmax`` for ``jax.nn.softmax``), not attention's
-explicit form.
+explicit form. A sequence-sharded latent cache is refused
+(:func:`refuse_sequence_shards`).
 """
 from __future__ import annotations
 
@@ -61,10 +63,30 @@ def init_mla_cache(batch: int, seq: int, *, kv_lora: int, device, dtype=torch.bf
             "kv_pos": torch.full((batch, seq), EMPTY_POS, dtype=torch.int32, device=device)}
 
 
+def refuse_sequence_shards(axes: Axes) -> None:
+    """Raise on a sequence-sharded latent cache: the JAX package's
+    ``mla_decode`` has no ``axes.sp`` branch, so under its
+    ``build_serve_step`` at a batch smaller than the data replicas every
+    shard writes position p at local slot clip(p, 0, S_loc - 1) and attends
+    its own slots alone. Past S_loc tokens each new token overwrites the
+    last slot and the history there is lost, silently (ROADMAP's reference
+    behaviours)."""
+    if axes.sp is not None:
+        raise NotImplementedError(
+            "MLA decode on a sequence-sharded cache (a batch smaller than the data "
+            "replicas): the reference's mla_decode has no sequence-parallel branch and "
+            "overwrites its last local slot past S / n_dp tokens; serve MLA with a "
+            "global batch of at least the data replicas")
+
+
 def mla_decode(p, x: torch.Tensor, pos: torch.Tensor, cache, *, n_heads: int,
-               head_dim: int):
+               head_dim: int, axes: Axes = SINGLE):
     """One token per sequence against the latent cache, written at ``pos``
-    in place. x: (B, 1, d); pos: (B,). Returns ``(out (B, 1, d), cache)``."""
+    in place. x: (B, 1, d); pos: (B,). ``n_heads`` the rank's local heads
+    (``w_q``, ``w_uk``, ``w_uv`` its columns, ``wo`` its rows, summed over
+    ``axes``' model group); the latent cache is the same on every rank of
+    the group. Returns ``(out (B, 1, d), cache)``."""
+    refuse_sequence_shards(axes)
     b = x.shape[0]
     c_new = (x @ p["w_dkv"].to(x.dtype))[:, 0]
     k_r_new = rope((x @ p["w_kr"].to(x.dtype)).reshape(b, 1, 1, DH_ROPE), pos[:, None])
@@ -84,4 +106,4 @@ def mla_decode(p, x: torch.Tensor, pos: torch.Tensor, cache, *, n_heads: int,
     w = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
     out = torch.einsum("bhs,bshd->bhd", w, v.to(torch.float32))
     out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
-    return out @ p["wo"].to(x.dtype), cache
+    return axes.psum_tp(out @ p["wo"].to(x.dtype)), cache

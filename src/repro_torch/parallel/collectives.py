@@ -340,7 +340,8 @@ def all_gather_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # calls of the model-axis primitives since the last reset: "psum_tp" and
 # "psum_tp_backward" (one all-reduce each), "all_to_all_tp" and
-# "all_to_all_tp_backward", "pmax_tp"
+# "all_to_all_tp_backward", "pmax_tp"; and of the sequence-sharded decode's
+# data-group reductions, "psum_sp" and "pmax_sp"
 _TP_COUNTS: Dict[str, int] = {}
 
 
@@ -415,6 +416,42 @@ def pmax_tp(x: torch.Tensor, group) -> torch.Tensor:
     out = x.detach().contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+def psum_sp(x: torch.Tensor, group) -> torch.Tensor:
+    """The data group's sum of ``x``, outside autograd: the
+    sequence-sharded decode's softmax sums over the KV shards (the JAX
+    package's ``psum`` over ``axes.sp``)."""
+    _need_group(group, "psum_sp")
+    _count("psum_sp")
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def pmax_sp(x: torch.Tensor, group) -> torch.Tensor:
+    """The data group's elementwise max of ``x``, outside autograd (the
+    sequence-sharded decode's softmax max)."""
+    _need_group(group, "pmax_sp")
+    _count("pmax_sp")
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order, on
+    every rank (a checkpoint's model shards made whole for its writer)."""
+    return torch.cat(_gather_leaf(x, dist.get_world_size(group), group), dim=dim)
+
+
+def all_agree(x: torch.Tensor, group) -> bool:
+    """Whether every rank of ``group`` holds the same integer tensor ``x``
+    (its elementwise max and min over the group both equal it)."""
+    hi, lo = x.clone(), x.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    return bool(torch.equal(hi, x) and torch.equal(lo, x))
 
 
 def psum_tp_tree(tree: Tree, group) -> Tree:

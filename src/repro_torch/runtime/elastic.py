@@ -14,11 +14,12 @@ Protocol (one coordinator):
      at most dp_step replicas — TP groups are rebuilt whole: a TP group with
      any dead member is retired entirely;
   3. restore the latest checkpoint at the new worker count
-     (``launch.train.train_loop(resume=True, n_workers=n')``: every leaf
-     of a fused-route IntSGD state is replicated, so it loads at any n; a
-     leaf held one row per worker is refused, naming it and both counts;
-     at tp > 1 the restore is refused whole, by
-     ``checkpoint.store.refuse_model_shards``: ROADMAP item 12.6c);
+     (``launch.train.train_loop(resume=True, n_workers=n')``, at tp > 1
+     on the new (n', tp) grid, ``grid=make_debug_mesh(n', tp)`` and a store
+     on it): the store's global layout is mesh-agnostic, and every leaf of
+     a fused-route IntSGD state is replicated over dp, so it loads at any
+     n'; a leaf held one row per worker is refused, naming it and both
+     counts;
   4. rebuild the step for the new count (its clip limit and α take n');
      rescale the per-worker batch or accept the smaller global batch
      (configurable policy);

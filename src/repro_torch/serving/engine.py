@@ -19,10 +19,17 @@
 
 The slots' positions and current tokens are kept on the host and sent with
 each step; each step's next tokens come back to the host once per engine
-iteration (one ``tolist``), not once per slot. The JAX package's ``mesh=``
-route (a replicated 1×1 ``shard_map`` of the same step) waits for tensor
-parallelism; the port takes the ``device`` in its place: the card unless
-the caller asks for the CPU.
+iteration (one ``tolist``), not once per slot. The engine runs on
+``device``: the card unless the caller asks for the CPU.
+
+The JAX package's ``mesh=`` route runs the step through a replicated
+``shard_map``: every device steps the same batch with the whole params.
+Here ``mesh=`` is a ``torch.distributed`` process group: every rank holds
+the whole params, steps the same batch at ``Axes()`` (no model axis), and
+each step's next tokens are checked to agree across the ranks (two
+integer all-reduces, max and min); a rank that disagrees raises. It adds
+no sharded engine, which the JAX package lacks too: a sharded decode is
+``launch.step.build_serve_step``'s.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.models.decode import init_lm_cache, lm_decode_step, tp_greedy
+from repro_torch.parallel import collectives as coll
 from repro_torch.utils.device import resolve_device
 
 
@@ -50,8 +58,9 @@ class ServeEngine:
     families' states float32), params in their own type."""
 
     def __init__(self, cfg, params: Dict[str, torch.Tensor], *, slots: int = 4,
-                 max_seq: int = 256, device=None):
+                 max_seq: int = 256, device=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.slots = slots
@@ -69,7 +78,10 @@ class ServeEngine:
         pos = torch.tensor(self.pos, dtype=torch.int64, device=self.device)
         with torch.no_grad():
             logits, self.cache = lm_decode_step(self.params, self.cache, tokens, pos, self.cfg)
-        return tp_greedy(logits)
+        nxt = tp_greedy(logits)
+        if self.mesh is not None and not coll.all_agree(nxt, self.mesh):
+            raise RuntimeError("the replicated engine's ranks picked different tokens")
+        return nxt
 
     def apply_wire_delta(self, words, alphas, wf, *, n_summed: int = 1) -> None:
         """Train→serve weight refresh over the integer wire.

@@ -1357,3 +1357,120 @@ def test_tp_hybrid_and_ssm_smoke_grids_card_against_cpu(dev):
         # the dp replicas see their own halves of the batch: one model group's
         # members agree on the loss
         assert ranks[0][arch] == ranks[1][arch] and ranks[2][arch] == ranks[3][arch]
+
+
+def _tp_decode_card_cpu(group, rank, device):
+    """One rank of a 2 x 2 grid: 6 teacher-forced decode steps of the
+    granite and deepseek smoke configs at tp = 2 (float32 activations and
+    cache) on the card and on the CPU, from the same shard of the same
+    global params: {arch: (card logits, CPU logits, card tokens, CPU
+    tokens)}."""
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.common import Axes
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step, tp_greedy
+    from repro_torch.models.transformer import init_lm_params
+
+    torch.cuda.set_device(device)
+    grid = make_debug_mesh(2, 2)
+    axes = Axes(group=grid.model_group, tp_size=2, tp_index=grid.tp_index)
+    tokens = torch.randint(0, 256, (6, 4), generator=torch.Generator().manual_seed(2))
+    rows = slice(2 * grid.dp_index, 2 * grid.dp_index + 2)
+    out = {}
+    for arch in ("granite-8b", "deepseek-v2-lite-16b"):
+        cfg = smoke_config(get_arch(arch))
+        shard = specs.tp_shard(cfg, 2, grid.tp_index).tree(init_lm_params(
+            cfg, generator=torch.Generator().manual_seed(4), device="cpu", tp=2))
+        res = []
+        for d in (torch.device(device), torch.device("cpu")):
+            params = {k: v.to(d) for k, v in shard.items()}
+            cache = init_lm_cache(cfg, 2, 8, device=d, dtype=torch.float32, tp=2, n_shards=2)
+            logits, toks = [], []
+            for i in range(tokens.shape[0]):
+                with torch.no_grad():
+                    lg, cache = lm_decode_step(params, cache, tokens[i, rows].to(d),
+                                               torch.full((2,), i, device=d), cfg,
+                                               torch.float32, axes)
+                logits.append(lg.cpu())
+                toks.append(tp_greedy(lg, axes).cpu())
+            res += [torch.stack(logits), torch.stack(toks)]
+        out[arch] = (res[0], res[2], res[1], res[3])
+    return out
+
+
+def test_tp_decode_step_card_against_cpu(dev):
+    """lm_decode_step at tp = 2 on a 2 x 2 grid of gloo ranks sharing the
+    card, float32: the vocab-local logits on the card within 1e-5 of the
+    largest |logit| of the same ranks' on the CPU, the greedy tokens equal.
+    Tier-1 holds the CPU decode to JAX's (``tests/test_torch_tp_serve.py``)."""
+    from repro_torch.parallel.spawn import run_ranks
+
+    ranks = run_ranks(_tp_decode_card_cpu, 4, args=("cuda:0",))
+    for arch in ("granite-8b", "deepseek-v2-lite-16b"):
+        for r in ranks:
+            card, cpu, t_card, t_cpu = r[arch]
+            assert (card - cpu).abs().max() <= 1e-5 * cpu.abs().max(), arch
+            assert torch.equal(t_card, t_cpu), arch
+        assert torch.equal(ranks[0][arch][2], ranks[1][arch][2])
+
+
+def _tp_ckpt_round_trip(group, rank, device, directory):
+    """One rank: granite's smoke config, fused SGD on packed8, float32, on a
+    2 x 2 grid on the card: 3 steps saving after the second, then a store
+    on a fresh grid restoring it into a fresh state, and the third step
+    resumed from it. Returns (the state at the save, the restored state,
+    the uninterrupted losses, the resumed ones), on the host."""
+    from repro_torch.checkpoint import CheckpointStore, flatten_state
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
+    from repro_torch.core.compressor import make_compressor, with_wire
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.step import build_init_state
+    from repro_torch.launch.train import OPTIMIZERS, train_loop
+    from repro_torch.models.transformer import init_lm_params
+
+    torch.cuda.set_device(device)
+    cfg = smoke_config(get_arch("granite-8b"))
+    spec = specs.infer_param_specs(cfg, 2)[2]
+    kw = dict(n_workers=2, compressor="intsgd8_packed", wire="packed8", fused=True, steps=3,
+              device=device, ckpt_every=2, log_every=100)
+    shape = ShapeConfig("tp-ckpt", 32, 4, "train")
+    saved = {}
+
+    class Keep(CheckpointStore):
+        def save(self, step, tree, extra=None):
+            saved.update({k: v.cpu().clone() for k, v in flatten_state(tree).items()})
+            super().save(step, tree, extra)
+
+    grid = make_debug_mesh(2, 2)
+    _, straight = train_loop(cfg, shape, grid=grid, ckpt=Keep(directory, grid=grid, specs=spec),
+                             **kw)
+    fresh = make_debug_mesh(2, 2)
+    params = specs.tp_shard(cfg, 2, fresh.tp_index).tree(init_lm_params(
+        cfg, generator=torch.Generator().manual_seed(9), device="cpu", tp=2))
+    params = {k: v.to(device) for k, v in params.items()}
+    opt_state, comp_state = build_init_state(
+        params, n_workers=2, compressor=with_wire(make_compressor("intsgd8_packed"), "packed8"),
+        base_opt=OPTIMIZERS["sgd"](), fused=True, grid=fresh)
+    store = CheckpointStore(directory, grid=fresh, specs=spec)
+    state, _, _ = store.restore({"params": params, "opt": opt_state, "comp": comp_state}, step=2)
+    restored = {k: v.cpu() for k, v in flatten_state(state).items()}
+    _, resumed = train_loop(cfg, shape, grid=fresh, ckpt=store, resume=True, **kw)
+    return (saved, restored, [h["loss"] for h in straight], [h["loss"] for h in resumed],
+            str(next(iter(state["params"].values())).device))
+
+
+def test_tp_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A tp = 2 checkpoint on the card (a 2 x 2 grid of gloo ranks): every
+    rank's restored state bit-equal to the one it saved, on the card, and
+    the resumed third step's loss the uninterrupted run's. Tier-1 holds the
+    layout to JAX's both ways (``tests/test_torch_tp_ckpt.py``)."""
+    from repro_torch.parallel.spawn import run_ranks
+
+    ranks = run_ranks(_tp_ckpt_round_trip, 4, args=("cuda:0", str(tmp_path)))
+    for saved, restored, straight, resumed, where in ranks:
+        assert where.startswith("cuda") and saved.keys() == restored.keys()
+        for k, v in saved.items():
+            assert v.dtype == restored[k].dtype and torch.equal(v, restored[k]), k
+        assert len(straight) == 3 and resumed == straight[2:]

@@ -446,16 +446,75 @@ def test_baselines_refuse_tp():
 
 
 def test_checkpoint_refuses_tp(tmp_path):
+    """Checkpoints at tp > 1: what a store refuses (a grid store without the
+    model specs; a train loop on a grid handed a store made off it), and the
+    CLI's --ckpt-dir and --resume under torchrun on a 1 × 2 grid, which
+    saves every 20 steps: the checkpoint holds the global layout, and the
+    resumed step 20 is the uninterrupted run's."""
+    import json
+    import os
+    import re
+    import subprocess
+    import sys
+
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.launch.mesh import Grid
     from repro_torch.launch.train import train_loop
 
-    store = CheckpointStore(str(tmp_path), tp=2, async_writes=False)
-    with pytest.raises(ValueError, match="12.6c"):
-        store.save(1, {"params": {"w": torch.ones(2)}})
-    with pytest.raises(ValueError, match="12.6c"):
-        store.restore({"params": {"w": torch.ones(2)}})
     grid = Grid(n_dp=1, tp=2, dp_index=0, tp_index=0, data_group=None, model_group=None)
-    with pytest.raises(ValueError, match="12.6c"):  # an (elastic) resume at tp > 1
+    with pytest.raises(ValueError, match="specs"):
+        CheckpointStore(str(tmp_path), grid=grid)
+    with pytest.raises(ValueError, match="same grid"):
         train_loop(_cfg("granite-8b", 1, {}), ShapeConfig("tp", SEQ, BATCH, "train"), steps=1,
                    device="cpu", grid=grid, ckpt=CheckpointStore(str(tmp_path)), resume=True)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"), OMP_NUM_THREADS="1")
+    ck = str(tmp_path / "ck")
+
+    def cli(*extra):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--arch",
+               "granite-8b", "--smoke", "--data", "1", "--model", "2", "--steps", "21",
+               "--batch", str(BATCH), "--seq", str(SEQ), "--device", "cpu", "--fused",
+               "--compressor", "intsgd8_packed", "--wire", "packed8", "--ckpt-dir", ck,
+               *extra]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=repo)
+        assert r.returncode == 0, r.stderr[-3000:]
+        return r.stdout
+
+    first = cli()
+    meta = json.load(open(os.path.join(ck, "step_0000000020", "manifest.json")))["arrays"]
+    assert meta["params/embed"]["shape"] == [256, 64]  # whole over the model axis
+    assert meta["opt/mom/layers/attn/wq"]["shape"] == [4, 64, 64]
+    assert meta["comp/.r"]["shape"] == [1]  # one copy a data replica
+    second = cli("--resume")
+    assert "[train] resumed from step 20" in second
+    step20 = re.compile(r"\[train\] step +20 loss \S+")
+    assert step20.search(first).group(0) == step20.search(second).group(0)
+
+
+def test_recurrent_and_encdec_decode_refuse_tp():
+    """The hybrid, ssm and encdec families decode at tp = 1 only: at tp > 1
+    their cache, decode step and serve step raise, naming ROADMAP item
+    12.6e."""
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.step import build_serve_step
+    from repro_torch.models.common import Axes
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step
+
+    grid = Grid(n_dp=1, tp=2, dp_index=0, tp_index=0, data_group=None, model_group=None)
+    shape = ShapeConfig("tp", 16, 2, "decode")
+    for arch in ("zamba2-2.7b", "xlstm-125m", "seamless-m4t-medium"):
+        cfg = smoke_config(get_arch(arch))
+        with pytest.raises(NotImplementedError, match="12.6e"):
+            build_serve_step(cfg, grid, shape, device="cpu")
+        with pytest.raises(NotImplementedError, match="12.6e"):
+            specs.cache_shapes(cfg, 2, 2, 2, 16)
+        if cfg.family == "encdec":
+            continue
+        with pytest.raises(NotImplementedError, match="12.6e"):
+            init_lm_cache(cfg, 2, 16, device="cpu", tp=2, n_shards=2)
+        cache = init_lm_cache(cfg, 2, 16, device="cpu")
+        with pytest.raises(NotImplementedError, match="12.6e"):
+            lm_decode_step({}, cache, torch.zeros(2, dtype=torch.long),
+                           torch.zeros(2, dtype=torch.long), cfg, axes=Axes(tp_size=2))
