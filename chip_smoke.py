@@ -364,8 +364,9 @@ Phases, each of which must pass for the exit code to be 0:
                bytes printed. Then the elastic resume 2 × 2 -> 1 × 2 of
                granite's checkpoint (rank 3 lost: runtime.elastic's plan,
                make_debug_mesh over the two survivors): finite, equal
-               losses. TP decode through launch.step.build_serve_step at
-               published width, bf16: granite-8b at 12 layers (its 36 cut
+               losses. TP decode through launch.step.build_serve_step's
+               prefill (the rank's vocab-local logits, finite)
+               and decode at published width, bf16: granite-8b at 12 layers (its 36 cut
                for time) and deepseek-v2-lite-16b at 4 layers (MLA on 8 of 16 heads,
                moe_ep at decode) with the serve CLI's traffic (4 sequences,
                2 a data replica, max_seq 128, prompts of 4–7 tokens fed
@@ -386,6 +387,27 @@ Phases, each of which must pass for the exit code to be 0:
                gap is under 2e-2 of the largest |logit|. Prints ms a decode step a rank, one step's
                host over card time, the model and data groups' calls a
                step and the peak GiB a rank.
+ 25. TP serving of the hybrid, ssm and encoder-decoder families — four
+               gloo ranks on the 2 × 2 grid (one spawn), phase 24's traffic,
+               bf16, random weights drawn a layer at a time, each through
+               build_serve_step's prefill (vocab-local logits finite) and
+               decode: zamba2-2.7b at 18 layers (two blocks of 9: 40 of 80
+               SSM heads and 16 of 32 shared-attention heads a rank, the
+               shared block's KV used twice), xlstm-125m at its 12 (2 of 4
+               heads a rank), seamless-m4t-medium at its 12 + 12 on 2,048
+               frames a sequence (encdec_prefill of each rank's rows, 8 of
+               16 heads); zamba2 at 9 layers and seamless at 2 + 2 (256
+               frames) sequence-sharded (batch 1, max_seq 64 split 32 a
+               data replica, 48 tokens; each shard's first attention cache
+               holds exactly its own positions). seamless against its tp = 1
+               decode as phase 24 holds granite; zamba2 and xlstm, which
+               compute another function at tp = 2: shards by checksums, TP
+               members' tokens equal, step-0 and float32 logits finite, the
+               gaps to tp = 1 printed; their smoke grids' float32 decode on
+               the card within 1e-4 of the CPU's largest |logit|. The decode
+               paths launch no kernel of ours. Prints ms a decode step a
+               rank, host over card, the groups' calls a step, the prefill's
+               ms and the peak GiB a rank.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -4100,29 +4122,37 @@ F32_LOGIT_TOL = 1e-4  # of the row's largest |logit| at that step
 
 def tp_serve_params(torch, cfg, tp: int, tp_index, device) -> dict:
     """Random bf16 serve params of ``cfg``, global and padded for ``tp``
-    (the MoE router float32), drawn a layer at a time from generators seeded
-    by the leaf's name and layer: uniform ±1/√fan_in, the ``CONSTANT_INIT``
-    leaves filled, the ``ZERO_INIT`` ones zero. With ``tp_index`` only that
+    (the MoE router float32), drawn a layer at a time (a hybrid block, an
+    encoder or decoder layer) from generators seeded by the leaf's name and
+    layer: uniform ±1/√fan_in, the ``CONSTANT_INIT`` leaves filled (the
+    encoder-decoder's LayerNorms and MLP biases by ``encdec._constant``),
+    the ``ZERO_INIT`` ones zero, the mLSTM's ``if_bias`` as
+    ``init_lm_params`` fills it. With ``tp_index`` only that
     rank's slice of each layer is kept, so no rank holds a whole leaf; with
     None the whole tree, of which the ranks' shards are the slices."""
     import zlib
 
     from repro_torch.launch import specs
     from repro_torch.models.common import dense_init
+    from repro_torch.models.encdec import _constant as encdec_constant
     from repro_torch.models.transformer import CONSTANT_INIT, FLOAT32_LEAVES, ZERO_INIT
 
     g, lo, spec = specs.infer_param_specs(cfg, tp)
     out = {}
     for name, shape in g.items():
         dt = torch.float32 if name in FLOAT32_LEAVES else torch.bfloat16
-        lead = 1 if name.startswith("layers/") else 0
+        lead = 1 if name.startswith(("layers/", "enc_layers/", "dec_layers/")) else 0
         dim = None if tp_index is None or spec[name] is None else spec[name] - lead
         leaf = torch.empty(shape if tp_index is None else lo[name], dtype=dt, device=device)
         for i in range(shape[0] if lead else 1):
             sub = shape[lead:]
-            const = CONSTANT_INIT.get(name.rsplit("/", 1)[-1])
+            const = (encdec_constant(name) if cfg.family == "encdec"
+                     else CONSTANT_INIT.get(name.rsplit("/", 1)[-1]))
             if const is not None or name.endswith(ZERO_INIT):
                 t = torch.full(sub, const or 0.0, dtype=dt, device=device)
+            elif name.endswith("cell/if_bias"):  # [-2]·H ++ [3]·H, as init_lm_params
+                t = torch.full(sub, -2.0, dtype=dt, device=device)
+                t[..., sub[-1] // 2:] = 3.0
             else:
                 gen = torch.Generator(device=device).manual_seed(
                     zlib.crc32(f"{name}/{i}".encode()))
@@ -4138,6 +4168,31 @@ def tp_serve_params(torch, cfg, tp: int, tp_index, device) -> dict:
             del t
         out[name] = leaf
     return out
+
+
+def tp_step_fn(cfg):
+    """The family's decode step, ``encdec_decode_step`` or ``lm_decode_step``
+    (the same arguments)."""
+    from repro_torch.models import encdec
+    from repro_torch.models.decode import lm_decode_step
+
+    return encdec.encdec_decode_step if cfg.family == "encdec" else lm_decode_step
+
+
+def tp_cache(torch, cfg, params, b, s, device, dtype, tp, axes, frames=None):
+    """A rank's empty decode cache of ``b`` sequences and ``s`` slots (k and
+    v in ``dtype``, the recurrent states float32); the encoder-decoder's
+    cross cache then filled by ``encdec_prefill`` from ``frames`` with
+    ``dtype`` activations."""
+    from repro_torch.models import encdec
+    from repro_torch.models.decode import init_lm_cache
+
+    if cfg.family != "encdec":
+        return init_lm_cache(cfg, b, s, device=device, dtype=dtype, tp=tp, n_shards=tp)
+    cache = encdec.init_encdec_cache(cfg, b, s, frames.shape[1], device=device, dtype=dtype,
+                                     tp=tp, n_shards=tp)
+    with torch.no_grad():
+        return encdec.encdec_prefill(params, frames.to(device), cache, cfg, dtype, axes)
 
 
 def tp_prompts(cfg, n: int) -> list:
@@ -4180,29 +4235,32 @@ def tp_forced_logits(torch, params, fed, cfg, cache, axes, rows, device):
     :func:`tp_stream` returns them) at float32 activations on ``cache``:
     each step's logits of ``rows`` (vocab-local on a grid), stacked
     (steps, rows, V) on the host."""
-    from repro_torch.models.decode import lm_decode_step
-
+    step = tp_step_fn(cfg)
     out = []
     with torch.no_grad():
         for i, tok in enumerate(fed):
             t = torch.tensor(tok, dtype=torch.int64, device=device)[rows]
-            lg, cache = lm_decode_step(params, cache, t, torch.full_like(t, i), cfg,
-                                       torch.float32, axes=axes)
+            lg, cache = step(params, cache, t, torch.full_like(t, i), cfg, torch.float32,
+                             axes=axes)
             out.append(lg.float().cpu())
     return torch.stack(out)
 
 
 def tp_serve_rank(torch, grid, device, arch, layers, batch, max_seq, prompts, n_new,
-                  fed) -> dict:
+                  fed, frames=None) -> dict:
     """One rank's TP decode of ``arch`` through ``build_serve_step``: its
     shard's checksums, the step-0 vocab-local logits, the greedy streams of
     its rows, ms a step, one step's host over card time, the model and data
     groups' calls a step and the peak; then the float32 decode of tp = 1's
     stream ``fed`` on a float32 cache of the same local shape, every step's
-    vocab-local logits."""
+    vocab-local logits. The encoder-decoder's cross cache is filled from its
+    rows of ``frames`` (``encdec_prefill``, timed) before each decode. Where
+    the batch splits over the data replicas, first ``build_serve_step``'s
+    prefill step on the prompts' shortest length (the encoder-decoder: on
+    the frames): its vocab-local logits' shape, finiteness and ms."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.step import build_serve_step
-    from repro_torch.models.decode import init_lm_cache, lm_decode_step
+    from repro_torch.models import encdec
     from repro_torch.parallel import collectives as coll
 
     cfg = tp_cfg(arch, layers)
@@ -4212,29 +4270,62 @@ def tp_serve_rank(torch, grid, device, arch, layers, batch, max_seq, prompts, n_
     art = build_serve_step(cfg, grid, ShapeConfig("chip-smoke-serve", max_seq, batch, "decode"),
                            device=device)
     params = tp_serve_params(torch, cfg, grid.tp, grid.tp_index, device)
+    step = tp_step_fn(cfg)
+    pre = None
+    if batch >= grid.n_dp:  # a prefill's rows are the batch's split over the replicas
+        if frames is None:
+            t = min(len(p) for p in prompts)
+            batch_in = {"tokens": torch.tensor([p[:t] for p in prompts], device=device)}
+        else:
+            t, batch_in = frames.shape[1], {"frames": frames.to(device)}
+        pre_art = build_serve_step(cfg, grid, ShapeConfig("chip-smoke-prefill", t, batch,
+                                                          "prefill"), device=device)
+        t0 = time.perf_counter()
+        logits = pre_art.steps["prefill"](params, batch_in)
+        torch.cuda.synchronize(device)
+        pre = dict(ms=(time.perf_counter() - t0) * 1e3, shape=tuple(logits.shape),
+                   finite=bool(torch.isfinite(logits).all()), t=t)
+        del logits, batch_in
+    prefill_ms = []
+
+    def served_cache():  # the serve step's own cache, the cross cache filled
+        cache = art.init_cache()
+        if frames is None:
+            return cache
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cache = encdec.encdec_prefill(params, frames[art.rows].to(device), cache, cfg,
+                                          axes=art.axes)
+        torch.cuda.synchronize(device)
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        return cache
+
     first = torch.tensor([p[0] for p in prompts], device=device)[art.rows]
     with torch.no_grad():  # step 0 with float32 activations, and as served (bf16)
-        logits0 = [lm_decode_step(params, art.init_cache(), first, torch.zeros_like(first), cfg,
-                                  getattr(torch, dt), axes=art.axes)[0].cpu()
+        logits0 = [step(params, served_cache(), first, torch.zeros_like(first), cfg,
+                        getattr(torch, dt), axes=art.axes)[0].cpu()
                    for dt in STEP0_DTYPES]
+    cache = served_cache()
     coll.reset_tp_counts()
-    outs, times, cache, _ = tp_stream(torch, art.steps["decode"], params, art.init_cache(),
-                                      prompts, n_new, art.rows, device)
+    outs, times, cache, _ = tp_stream(torch, art.steps["decode"], params, cache, prompts, n_new,
+                                      art.rows, device)
     calls = {k: v / len(times) for k, v in coll.tp_counts().items()}
-    kv_pos = cache.get("layers/kv_pos")
-    kv_pos = None if kv_pos is None else kv_pos[0].clone().cpu()  # before the timed step
+    kv_key = next((k for k in cache if k.endswith("kv_pos")), None)
+    # the first layer's positions, before the timed step
+    kv_pos = None if kv_key is None else cache[kv_key][0].clone().cpu()
     t = torch.tensor([p[0] for p in prompts], device=device)
     host, card = host_card_ms(torch, lambda: art.steps["decode"](
         params, cache, t, torch.full_like(t, max_seq - 1)), reps=3)
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     del cache
-    f32_cache = init_lm_cache(cfg, art.rows.stop - art.rows.start, art.s_local, device=device,
-                              dtype=torch.float32, tp=grid.tp, n_shards=grid.tp)
+    rows = art.rows.stop - art.rows.start
+    f32_cache = tp_cache(torch, cfg, params, rows, art.s_local, device, torch.float32, grid.tp,
+                         art.axes, None if frames is None else frames[art.rows])
     forced = tp_forced_logits(torch, params, fed, cfg, f32_cache, art.axes, art.rows, device)
     out = dict(outs=outs, logits0=logits0, times=times, calls=calls, host=host, card=card,
                sums=params_checksums(torch, params), seq_sharded=art.seq_sharded,
                s_local=art.s_local, rows=(art.rows.start, art.rows.stop), kv_pos=kv_pos,
-               peak=peak, forced=forced)
+               peak=peak, forced=forced, prefill=pre, prefill_ms=prefill_ms)
     del params, f32_cache
     return out
 
@@ -4347,43 +4438,46 @@ def tp_ckpt_serve_rank(group, rank, device, tmp, fed):
     return out
 
 
-def tp1_reference(torch, device, arch, layers, prompts, n_new, max_seq) -> dict:
+def tp1_reference(torch, device, arch, layers, prompts, n_new, max_seq, frames=None) -> dict:
     """The tp = 1 decode of the same global params in this process: each
     sequence's greedy tokens and, at each of its greedy steps, its top-2
     gap over the step's largest |logit|; the step-0 logits; the checksums
     of each model index's slice of the params; the tokens fed at each step
-    and their float32 decode on a float32 cache (every step's logits)."""
+    and their float32 decode on a float32 cache (every step's logits). The
+    encoder-decoder's cross caches are filled from ``frames`` first."""
     from repro_torch.launch import specs
     from repro_torch.models.common import SINGLE, TpShard
-    from repro_torch.models.decode import init_lm_cache, lm_decode_step, tp_greedy
+    from repro_torch.models.decode import tp_greedy
 
     cfg = tp_cfg(arch, layers)
     params = tp_serve_params(torch, cfg, 2, None, device)
+    step_fn = tp_step_fn(cfg)
+    b = len(prompts)
+
+    def cache_of(dtype):
+        return tp_cache(torch, cfg, params, b, max_seq, device, dtype, 1, SINGLE, frames)
+
     first = torch.tensor([p[0] for p in prompts], device=device)
     with torch.no_grad():
-        logits0 = [lm_decode_step(params, init_lm_cache(cfg, len(prompts), max_seq,
-                                                        device=device),
-                                  first, torch.zeros_like(first), cfg,
-                                  getattr(torch, dt))[0].cpu() for dt in STEP0_DTYPES]
-    cache = init_lm_cache(cfg, len(prompts), max_seq, device=device)
-    gaps = {b: [] for b in range(len(prompts))}
+        logits0 = [step_fn(params, cache_of(torch.bfloat16), first, torch.zeros_like(first),
+                           cfg, getattr(torch, dt))[0].cpu() for dt in STEP0_DTYPES]
+    cache = cache_of(torch.bfloat16)
+    gaps = {i: [] for i in range(b)}
 
     def step(p, c, t, pos):
         with torch.no_grad():
-            lg, c = lm_decode_step(p, c, t, pos, cfg)
+            lg, c = step_fn(p, c, t, pos, cfg)
         lg = lg[:, :cfg.vocab]
         top = torch.topk(lg, 2, dim=-1).values
         gap = ((top[:, 0] - top[:, 1]) / lg.abs().amax(dim=-1)).tolist()
-        for b in gaps:
-            gaps[b].append(gap[b])
+        for i in gaps:
+            gaps[i].append(gap[i])
         return tp_greedy(lg), c
 
-    outs, _, _, fed = tp_stream(torch, step, params, cache, prompts, n_new,
-                                slice(0, len(prompts)), device)
+    outs, _, _, fed = tp_stream(torch, step, params, cache, prompts, n_new, slice(0, b), device)
     del cache
-    forced = tp_forced_logits(torch, params, fed, cfg, init_lm_cache(
-        cfg, len(prompts), max_seq, device=device, dtype=torch.float32), SINGLE,
-        slice(0, len(prompts)), device)
+    forced = tp_forced_logits(torch, params, fed, cfg, cache_of(torch.float32), SINGLE,
+                              slice(0, b), device)
     # each rank's shard as a slice of this tree (TpShard, whose inverse is
     # gather_shards), leaf by leaf: its checksums
     spec = specs.infer_param_specs(cfg, 2)[2]
@@ -4395,8 +4489,20 @@ def tp1_reference(torch, device, arch, layers, prompts, n_new, max_seq) -> dict:
     torch.cuda.empty_cache()
     lens = [len(p) for p in prompts]
     # the gap at each greedy token: the steps from the prompt's last on
-    return dict(outs=outs, gaps={b: g[lens[b] - 1:lens[b] - 1 + n_new] for b, g in gaps.items()},
+    return dict(outs=outs, gaps={i: g[lens[i] - 1:lens[i] - 1 + n_new] for i, g in gaps.items()},
                 logits0=logits0, sums=sums, fed=fed, forced=forced)
+
+
+def tp_shard_checks(checks, label, res, tp1) -> None:
+    """Every rank's shard its slice of the tp = 1 params (checksums), and
+    each data replica's TP members' tokens equal."""
+    tp = TP_GRID[1]
+    checks.true(f"{label}: every rank's shard is its slice of the tp = 1 params (checksums)",
+                all(r["sums"] == tp1["sums"][i % tp] for i, r in enumerate(res)))
+    for d in range(TP_GRID[0]):
+        members = res[d * tp:(d + 1) * tp]
+        checks.true(f"{label}: data replica {d}'s {tp} TP members' tokens equal",
+                    all(m["outs"] == members[0]["outs"] for m in members))
 
 
 def tp_serve_checks(torch, checks, label, ranks, key, tp1, n_new, shard_slots=None) -> None:
@@ -4404,15 +4510,10 @@ def tp_serve_checks(torch, checks, label, ranks, key, tp1, n_new, shard_slots=No
     ``tp1`` (:func:`tp1_reference`); with ``shard_slots`` (the
     sequence-sharded decode) the forced stream's error is also printed for
     the steps past the first data replica's slots."""
-    ref, gaps, ref0, ref_sums = tp1["outs"], tp1["gaps"], tp1["logits0"], tp1["sums"]
+    ref, gaps, ref0 = tp1["outs"], tp1["gaps"], tp1["logits0"]
     res = [r[key] for r in ranks]
     tp = TP_GRID[1]
-    checks.true(f"{label}: every rank's shard is its slice of the tp = 1 params (checksums)",
-                all(r["sums"] == ref_sums[i % tp] for i, r in enumerate(res)))
-    for d in range(TP_GRID[0]):
-        members = res[d * tp:(d + 1) * tp]
-        checks.true(f"{label}: data replica {d}'s {tp} TP members' tokens equal",
-                    all(m["outs"] == members[0]["outs"] for m in members))
+    tp_shard_checks(checks, label, res, tp1)
     v = ref0[0].shape[-1] // tp
     for j, dt in enumerate(STEP0_DTYPES):
         scale = ref0[j].abs().max().item()
@@ -4453,11 +4554,33 @@ def tp_serve_checks(torch, checks, label, ranks, key, tp1, n_new, shard_slots=No
             checks.true(f"{label}: sequence {b}'s {len(toks)} greedy tokens equal the tp = 1 "
                         f"stream up to its first near tie (step {n} of {n_new})",
                         toks[:n] == ref[b][:n] and len(toks) == n_new)
-    calls = res[0]["calls"]
     print(f"  {label}: tokens agree with tp = 1 for {agreed} greedy steps a sequence (up to "
           f"each one's first top-2 gap under {TP_LOGIT_TOL:g} of its largest |logit|)",
           flush=True)
+    tp_serve_report(checks, label, res)
+
+
+def tp_serve_report(checks, label, res) -> None:
+    """Each rank's ms a decode step, host over card and peak, the prefill's
+    ms where one ran (its vocab-local logits held finite, of the rank's
+    rows), and the model and data groups' calls a step."""
+    tp = TP_GRID[1]
+    calls = res[0]["calls"]
+    pre = [r["prefill"] for r in res if r["prefill"] is not None]
+    if pre:
+        want = [(r["rows"][1] - r["rows"][0], r["logits0"][0].shape[-1]) for r in res]
+        checks.true(f"{label}: build_serve_step's prefill on every rank: vocab-local logits "
+                    f"{pre[0]['shape']}, finite", len(pre) == len(res) and all(
+                        p["finite"] and p["shape"] == w for p, w in zip(pre, want)))
     for i, r in enumerate(res):
+        pre = r.get("prefill")
+        if pre is not None:
+            print(f"  {label}: rank {divmod(i, tp)}: build_serve_step's prefill of "
+                  f"{pre['t']} positions {pre['ms']:.2f} ms (the first call), vocab-local "
+                  f"logits {pre['shape']}", flush=True)
+        if r.get("prefill_ms"):
+            print(f"  {label}: rank {divmod(i, tp)}: encdec_prefill "
+                  f"{[round(m, 2) for m in r['prefill_ms']]} ms", flush=True)
         print(f"  {label}: rank {divmod(i, tp)}: {len(r['times'])} decode steps, median "
               f"{statistics.median(r['times']):.2f} ms (min {min(r['times']):.2f}, max "
               f"{max(r['times']):.2f}; each synchronized); one step host {r['host']:.2f} ms, "
@@ -4465,6 +4588,38 @@ def tp_serve_checks(torch, checks, label, ranks, key, tp1, n_new, shard_slots=No
               f"{r['peak']:.2f} GiB", flush=True)
     print(f"  {label}: a step: " + ", ".join(f"{k} {v:g}" for k, v in sorted(calls.items()))
           + " (4 processes time-sharing one card, gloo staging through the host)", flush=True)
+
+
+def tp_split_serve_checks(torch, checks, label, ranks, key, tp1) -> None:
+    """The serve checks of a config whose tp = 2 function is not its tp = 1
+    one (``TP_SPLIT``): every rank's shard its slice of the tp = 1 params,
+    the TP members' tokens equal, the step-0 logits and the float32 decode
+    of tp = 1's stream finite; their gaps to tp = 1 printed, not held."""
+    res = [r[key] for r in ranks]
+    tp = TP_GRID[1]
+    tp_shard_checks(checks, label, res, tp1)
+    checks.true(f"{label}: every rank's step-0 logits ({', '.join(STEP0_DTYPES)} activations) "
+                f"and its float32 decode of tp = 1's {len(tp1['fed'])} steps finite",
+                all(bool(torch.isfinite(lg).all()) for r in res for lg in r["logits0"])
+                and all(bool(torch.isfinite(r["forced"]).all()) for r in res))
+    v = tp1["logits0"][0].shape[-1] // tp
+    for j, dt in enumerate(STEP0_DTYPES):
+        want = tp1["logits0"][j]
+        err = max((r["logits0"][j] - want[slice(*r["rows"]), (i % tp) * v:(i % tp + 1) * v])
+                  .abs().max().item() for i, r in enumerate(res))
+        print(f"  {label}: step-0 logits ({dt} activations) against tp = 1's, max abs err "
+              f"{err:.4g} of the largest |logit| {want.abs().max().item():.4g}: printed, not "
+              "held (another function at tp = 2, ROADMAP's reference behaviours)", flush=True)
+    want = tp1["forced"]
+    rel = max(((r["forced"] - want[:, slice(*r["rows"]), (i % tp) * v:(i % tp + 1) * v]).abs()
+               / want[:, slice(*r["rows"])].abs().amax(-1, keepdim=True)).max().item()
+              for i, r in enumerate(res))
+    agreed = [next((j for j, (a, b) in enumerate(zip(toks, tp1["outs"][b_])) if a != b),
+                   len(toks)) for r in res[::tp] for b_, toks in r["outs"].items()]
+    print(f"  {label}: tp = 1's stream decoded on the grid in float32: largest gap "
+          f"{rel:.3g} of the row's largest |logit|; greedy tokens equal to tp = 1's for "
+          f"{agreed} steps a sequence (printed, not held)", flush=True)
+    tp_serve_report(checks, label, res)
 
 
 def tp_ckpt_serve_phase(torch, ops, checks, device) -> collections.Counter:
@@ -4570,6 +4725,178 @@ def tp_ckpt_serve_phase(torch, ops, checks, device) -> collections.Counter:
         checks.true(f"tp-serve-sp: rank {divmod(i, tp)} sequence-sharded, {sp['s_local']} slots, "
                     f"holds positions {got[0] if got else None}..{got[-1] if got else None}",
                     sp["seq_sharded"] and sp["s_local"] == SP_MAX_SEQ // n_dp and got == want)
+    return launches
+
+
+# phase 25: the hybrid, ssm and encoder-decoder decode at tp = 2 on the 2 x 2
+# grid, with phase 24's traffic: (arch, layers): zamba2's 54 layers cut to 18
+# (two blocks of 9, so the shared block's KV cache is used twice), xlstm at
+# its full 12, seamless at its full 12 + 12 on ENCDEC_FRAMES frames a sequence
+SERVE_TP_RECURRENT = (("zamba2-2.7b", 18), ("xlstm-125m", 12), ("seamless-m4t-medium", 12))
+# the sequence-sharded decode (global batch 1, SP_MAX_SEQ slots split over the
+# data replicas, SP_STEPS tokens): zamba2 at one block of 9 layers, seamless at
+# 2 + 2 on ENCDEC_CHECK_FRAMES frames
+SP_RECURRENT = (("zamba2-2.7b", 9), ("seamless-m4t-medium", 2))
+# the smoke grids' float32 decode on the card against the CPU
+SMOKE_DECODE_STEPS, SMOKE_DECODE_TOL = 8, 1e-4
+SMOKE_DECODE_ARCHS = ("zamba2-2.7b", "xlstm-125m")
+
+
+def tp_frames(torch, cfg, n: int, t: int):
+    """``n`` sequences of ``t`` frames of the encoder-decoder's frontend
+    width, on the host (the same on every rank and at tp = 1)."""
+    return torch.randn(n, t, cfg.frontend_dim, generator=torch.Generator().manual_seed(1))
+
+
+def tp_decode_smoke_card_cpu(torch, grid, device) -> dict:
+    """Each ``SMOKE_DECODE_ARCHS`` smoke config's decode at tp = 2 on the
+    grid, float32 activations and cache, ``SMOKE_DECODE_STEPS``
+    teacher-forced steps of a global batch of 4 (this rank's rows), on the
+    card and then on the CPU (the same gloo groups) from the same shard of
+    the same global params: {arch: (largest |card - CPU| logit, largest
+    |CPU logit|, card logits finite)}."""
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.launch import specs
+    from repro_torch.models.common import Axes
+    from repro_torch.models.decode import init_lm_cache, lm_decode_step
+    from repro_torch.models.transformer import init_lm_params
+
+    axes = Axes(group=grid.model_group, tp_size=grid.tp, tp_index=grid.tp_index)
+    rows = slice(2 * grid.dp_index, 2 * grid.dp_index + 2)
+    out = {}
+    for arch in SMOKE_DECODE_ARCHS:
+        cfg = smoke_config(get_arch(arch))
+        shard = specs.tp_shard(cfg, grid.tp, grid.tp_index).tree(init_lm_params(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu", tp=grid.tp))
+        tokens = torch.randint(0, cfg.vocab, (SMOKE_DECODE_STEPS, 4),
+                               generator=torch.Generator().manual_seed(2))
+        runs = []
+        for d in (device, torch.device("cpu")):
+            params = {k: v.to(d) for k, v in shard.items()}
+            cache = init_lm_cache(cfg, 2, SMOKE_DECODE_STEPS, device=d, dtype=torch.float32,
+                                  tp=grid.tp, n_shards=grid.tp)
+            logits = []
+            with torch.no_grad():
+                for i in range(SMOKE_DECODE_STEPS):
+                    lg, cache = lm_decode_step(params, cache, tokens[i, rows].to(d),
+                                               torch.full((2,), i, device=d), cfg,
+                                               torch.float32, axes)
+                    logits.append(lg.cpu())
+            runs.append(torch.stack(logits))
+        card, cpu = runs
+        out[arch] = ((card - cpu).abs().max().item(), cpu.abs().max().item(),
+                     bool(torch.isfinite(card).all()))
+    return out
+
+
+def tp_recurrent_serve_rank(group, rank, device, fed, frames):
+    """One rank of phase 25 on the 2 x 2 grid: the TP decode of each
+    ``SERVE_TP_RECURRENT`` config and each ``SP_RECURRENT`` sequence-sharded
+    one (``fed``: each one's tp = 1 token stream, ``frames``: the
+    encoder-decoder's, by key), its kernel launches over them, then the
+    smoke grids' decode card against CPU."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    grid = make_debug_mesh(*TP_GRID)
+    out = dict(grid=(grid.dp_index, grid.tp_index))
+    ops.reset_launch_counts()
+    for arch, layers in SERVE_TP_RECURRENT:
+        out[arch] = tp_serve_rank(torch, grid, device, arch, layers, SERVE_TP_BATCH,
+                                  SERVE_TP_MAX_SEQ, tp_prompts(get_arch(arch), SERVE_TP_BATCH),
+                                  SERVE_TP_NEW, fed[arch], frames=frames.get(arch))
+    for arch, layers in SP_RECURRENT:
+        key = f"sp {arch}"
+        prompt = tp_prompts(get_arch(arch), 2)[1]
+        out[key] = tp_serve_rank(torch, grid, device, arch, layers, 1, SP_MAX_SEQ, [prompt],
+                                 SP_STEPS - len(prompt) + 1, fed[key], frames=frames.get(key))
+    out["launches"] = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["smoke"] = tp_decode_smoke_card_cpu(torch, grid, device)
+    out["smoke_s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_recurrent_serve_phase(torch, ops, checks, device) -> collections.Counter:
+    """Phase 25: the hybrid, ssm and encoder-decoder TP decode on four gloo
+    ranks of a 2 x 2 grid (one spawn), against the tp = 1 references made
+    first in this process. Returns every rank's launch counts over the
+    serve paths (none of ours)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.parallel.spawn import run_ranks
+
+    n_dp, tp = TP_GRID
+    t0 = time.perf_counter()
+    serve, frames = [], {}
+    for arch, layers in SERVE_TP_RECURRENT:
+        cfg = get_arch(arch)
+        enc = cfg.family == "encdec"
+        depth = f"{layers} + {layers} L, {ENCDEC_FRAMES} frames" if enc else f"{layers} L"
+        serve.append((f"tp-serve {arch} ({depth})", arch, arch, layers,
+                      tp_prompts(cfg, SERVE_TP_BATCH), SERVE_TP_NEW, SERVE_TP_MAX_SEQ))
+        if enc:
+            frames[arch] = tp_frames(torch, cfg, SERVE_TP_BATCH, ENCDEC_FRAMES)
+    for arch, layers in SP_RECURRENT:
+        cfg, key = get_arch(arch), f"sp {arch}"
+        enc = cfg.family == "encdec"
+        depth = (f"{layers} + {layers} L, {ENCDEC_CHECK_FRAMES} frames" if enc
+                 else f"{layers} L")
+        prompt = tp_prompts(cfg, 2)[1]
+        serve.append((f"tp-serve-sp {arch} ({depth})", key, arch, layers, [prompt],
+                      SP_STEPS - len(prompt) + 1, SP_MAX_SEQ))
+        if enc:
+            frames[key] = tp_frames(torch, cfg, 1, ENCDEC_CHECK_FRAMES)
+    tp1 = {key: tp1_reference(torch, device, arch, layers, prompts, n_new, max_seq,
+                              frames=frames.get(key))
+           for _, key, arch, layers, prompts, n_new, max_seq in serve}
+    print(f"tp-serve-recurrent: the tp = 1 references {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_recurrent_serve_rank, n_dp * tp, args=(
+        str(device), {k: v["fed"] for k, v in tp1.items()}, frames), backend="gloo",
+        timeout_s=600)
+    print(f"tp-serve-recurrent: {n_dp} x {tp} grid of gloo ranks on one card in "
+          f"{time.perf_counter() - t0:.1f}s (spawn included; the smoke grids "
+          f"{max(r['smoke_s'] for r in ranks):.1f}s)", flush=True)
+    checks.true(f"tp-serve-recurrent: ranks on grid places {[r['grid'] for r in ranks]}",
+                [r["grid"] for r in ranks] == [divmod(i, tp) for i in range(n_dp * tp)])
+    for label, key, arch, _, _, n_new, max_seq in serve:
+        if arch in TP_SPLIT:
+            tp_split_serve_checks(torch, checks, label, ranks, key, tp1[key])
+        else:
+            tp_serve_checks(torch, checks, label, ranks, key, tp1[key], n_new,
+                            shard_slots=max_seq // n_dp if key.startswith("sp ") else None)
+    for arch, _ in SP_RECURRENT:
+        key = f"sp {arch}"
+        for i, r in enumerate(ranks):
+            sp = r[key]
+            shard = i // tp
+            want = list(range(shard * SP_MAX_SEQ // n_dp,
+                              min(SP_STEPS, (shard + 1) * SP_MAX_SEQ // n_dp)))
+            got = sorted(p for p in sp["kv_pos"].flatten().tolist() if p < 2**30)
+            checks.true(f"tp-serve-sp {arch}: rank {divmod(i, tp)} sequence-sharded, "
+                        f"{sp['s_local']} slots, its first attention's cache holds positions "
+                        f"{got[0] if got else None}..{got[-1] if got else None}",
+                        sp["seq_sharded"] and sp["s_local"] == SP_MAX_SEQ // n_dp
+                        and got == want)
+    for arch in SMOKE_DECODE_ARCHS:
+        errs = [r["smoke"][arch] for r in ranks]
+        worst = max(e / scale for e, scale, _ in errs)
+        checks.true(f"tp-serve-recurrent: {arch} smoke grid, {SMOKE_DECODE_STEPS} float32 "
+                    f"decode steps at tp = 2, card against CPU on every rank: logits within "
+                    f"{worst:.3g} of the largest |logit| <= {SMOKE_DECODE_TOL:g}, finite",
+                    worst <= SMOKE_DECODE_TOL and all(f for _, _, f in errs))
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    checks.true(f"tp-serve-recurrent: the decode paths launch no kernel of ours "
+                f"({dict(launches)})", not any(launches.values()))
     return launches
 
 
@@ -4744,6 +5071,12 @@ def main() -> None:
     for name, c in tp_ckpt_serve_phase(torch, ops, checks, device).items():
         launches[name] += c
     print(f"tp checkpoint and serve phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 25. the hybrid, ssm and encoder-decoder decode on the grid
+    t0 = time.perf_counter()
+    for name, c in tp_recurrent_serve_phase(torch, ops, checks, device).items():
+        launches[name] += c
+    print(f"tp recurrent serve phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

@@ -70,9 +70,13 @@ def tp_shard(cfg, tp: int, tp_index: int) -> TpShard:
 
 # cache leaf name -> (dims without the stacked axes, batch dim, seq dim, model
 # dim), the JAX package's ``_CACHE_BASE``; "h" is the Mamba2 state (B, H, N, P)
-# under "mamba/" and the sLSTM state (B, H, dh) under "blocks/" (the JAX
-# table leaves its rank open and counts a stacked Mamba2 state's layer axes
-# as its own, which 12.6e's hybrid decode will settle)
+# under "mamba/" and the sLSTM state (B, H, dh) under "blocks/", read by its
+# prefix. The JAX table leaves its rank open and so counts a stacked state's
+# layer axes as its own: its data axis lands on the first layer axis and its
+# model axis on the second. Each rank's local state has the same shape and
+# values either way (ROADMAP's reference behaviours); only the global layout
+# of the "h" leaves differs, and the port keeps the one of the state's own
+# batch and head axes
 _CACHE_BASE = {
     "k": (4, 0, 1, 2),
     "v": (4, 0, 1, 2),
@@ -105,11 +109,8 @@ def cache_shapes(cfg, tp: int, n_shards: int, b: int, s: int, s_src: Optional[in
     ``n_shards=tp`` (the encoder-decoder's cross cache of ``s_src``
     positions, ``s`` by default). Built on the meta device: no memory."""
     if cfg.family == "encdec":
-        if tp > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the encdec family's decode at tp = {tp} is ROADMAP item 12.6e "
-                "(not ported yet)")
-        cache = encdec.init_encdec_cache(cfg, b, s, s_src or s, device="meta")
+        cache = encdec.init_encdec_cache(cfg, b, s, s_src or s, device="meta", tp=tp,
+                                         n_shards=n_shards)
     else:
         cache = init_lm_cache(cfg, b, s, device="meta", tp=tp, n_shards=n_shards)
     return {k: tuple(v.shape) for k, v in cache.items()}

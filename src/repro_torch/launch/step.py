@@ -683,15 +683,15 @@ def build_serve_step(cfg: ModelConfig, grid, shape: ShapeConfig, *,
     sequence-sharded, as in the JAX package: every rank takes the whole
     batch, its cache holds ``seq_len // n_dp`` of the slots, and attention
     combines its softmax over the data group (``Axes.sp``); MLA refuses it
-    (``mla.refuse_sequence_shards``). At tp > 1 the hybrid, ssm and encdec
-    families raise, naming ROADMAP item 12.6e."""
+    (``mla.refuse_sequence_shards``). There the recurrent states of the
+    hybrid and ssm families are whole on every rank (they have no
+    sequence), and the encoder-decoder's cross cache is the rank's own copy
+    of every encoder position: ``encdec.encdec_prefill(..., axes=)`` fills
+    it on every rank before the first decode step, as the JAX package's
+    cross attention reads it (no ``axes.sp`` branch)."""
     device = resolve_device(device)
     n_dp, tp = (1, 1) if grid is None else (grid.n_dp, grid.tp)
     dp_index = 0 if grid is None else grid.dp_index
-    if tp > 1 and cfg.family in ("hybrid", "ssm", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's serve step at tp = {tp} is ROADMAP item "
-            "12.6e (not ported yet); serve it at tp = 1")
     seq_sharded = shape.kind == "decode" and shape.global_batch < n_dp
     model = {} if tp == 1 else dict(group=grid.model_group, tp_size=tp,
                                     tp_index=grid.tp_index)
@@ -724,7 +724,7 @@ def build_serve_step(cfg: ModelConfig, grid, shape: ShapeConfig, *,
         def prefill(params, batch):
             local = {k: v[rows] for k, v in batch.items()}
             if cfg.family == "encdec":
-                h = encdec.encode(params, local["frames"], cfg, dtype)[:, -1:]
+                h = encdec.encode(params, local["frames"], cfg, dtype, axes)[:, -1:]
                 logits = (h @ params["lm_head"].to(h.dtype)).to(torch.float32)
             else:
                 h = lm_forward(params, local, cfg, dtype, axes)
@@ -735,14 +735,16 @@ def build_serve_step(cfg: ModelConfig, grid, shape: ShapeConfig, *,
 
     def init_cache():
         if cfg.family == "encdec":
-            return encdec.init_encdec_cache(cfg, b_local, s_local, s_src, device=device)
+            return encdec.init_encdec_cache(cfg, b_local, s_local, s_src, device=device, tp=tp,
+                                            n_shards=tp)
         return init_lm_cache(cfg, b_local, s_local, device=device, tp=tp, n_shards=tp)
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
         tokens, pos = tokens[rows], pos[rows]
         if cfg.family == "encdec":
-            logits, cache = encdec.encdec_decode_step(params, cache, tokens, pos, cfg, dtype)
+            logits, cache = encdec.encdec_decode_step(params, cache, tokens, pos, cfg, dtype,
+                                                      axes)
         else:
             logits, cache = lm_decode_step(params, cache, tokens, pos, cfg, dtype, axes)
         return tp_greedy(logits, axes), cache

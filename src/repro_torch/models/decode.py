@@ -38,16 +38,20 @@ raises ``ValueError`` for it, as the JAX package's does; its decode is
 ``models/encdec.py``'s.
 
 Tensor parallelism (``axes``, the model group of a data × model grid):
-the dense, vlm and moe families decode on the rank's shard of the params
-as the JAX package's ``lm_decode_step`` does inside its ``shard_map``: the
+every family decodes on the rank's shard of the params as the JAX
+package's ``lm_decode_step`` does inside its ``shard_map``: the
 vocab-sharded embedding lookup, the rank's local heads (a GQA cache of
-``kv_local`` heads; MLA's latent cache whole on every rank), the MoE block
-by ``pick_strategy`` (``moe_ep`` when tp divides the experts) and the
-rank's vocab slice of the logits; :func:`tp_greedy` picks the token
-without gathering them. With ``axes.sp`` the GQA cache's sequence is
-sharded over the data group (``attention_decode``). The hybrid and ssm
-families decode at tp = 1 only: at tp > 1 they raise, naming ROADMAP item
-12.6e.
+``kv_local`` heads; MLA's latent cache whole on every rank; the Mamba2 and
+xLSTM states of the rank's ``ssm_heads_loc`` or ``xl_heads_loc`` heads,
+each cell's out projection row-parallel), the MoE block by
+``pick_strategy`` (``moe_ep`` when tp divides the experts) and the rank's
+vocab slice of the logits; :func:`tp_greedy` picks the token without
+gathering them. With ``axes.sp`` the GQA cache's sequence is sharded over
+the data group (``attention_decode``), the hybrid's shared-block cache
+too; its recurrent states, which have no sequence, are whole on every
+sequence shard. At tp > 1 the hybrid and ssm families compute another
+function of the same global params than at tp = 1, as the JAX package's
+do (ROADMAP's reference behaviours).
 """
 from __future__ import annotations
 
@@ -62,8 +66,7 @@ from repro_torch.models.mlp import swiglu_mlp
 from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import init_mamba2_cache, mamba2_decode
 from repro_torch.models.transformer import (
-    SSM_HEAD_DIM, XLSTM_CELLS, _check_ported, _head_dim, _layer_axes, _ssm_heads, _sub,
-    lm_logits, params_from_jax, resolve_dims,
+    XLSTM_CELLS, _check_ported, _layer_axes, _sub, lm_logits, params_from_jax, resolve_dims,
 )
 from repro_torch.models.xlstm import (
     init_mlstm_cache, init_slstm_cache, mlstm_decode, slstm_decode,
@@ -83,15 +86,6 @@ def _check_decode(cfg) -> None:
     _check_ported(cfg)
 
 
-def refuse_recurrent_tp(cfg, tp: int) -> None:
-    """The hybrid and ssm families decode at tp = 1 only (ROADMAP item
-    12.6e)."""
-    if tp > 1 and cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's decode at tp = {tp} is ROADMAP item "
-            "12.6e (not ported yet); decode it at tp = 1")
-
-
 def _stacked(base: Tree, lead: tuple, prefix: str) -> Tree:
     return {f"{prefix}{k}": v.expand(*lead, *v.shape).clone() for k, v in base.items()}
 
@@ -103,21 +97,22 @@ def init_lm_cache(cfg, batch: int, seq: int, *, device, dtype=torch.bfloat16, tp
     the config has a ``kv_lora``, else the GQA KV cache (in ``dtype``); the
     hybrid family's Mamba2 states and the shared block's KV cache; the ssm
     family's mLSTM and sLSTM states. The JAX package's ``init_lm_cache(cfg,
-    tp, n_shards, b_local, s_local)``: with ``n_shards=tp`` the GQA cache
-    holds one rank's ``kv_local`` heads of the heads padded for ``tp``
-    (``batch`` and ``seq`` the rank's rows and slots)."""
+    tp, n_shards, b_local, s_local)``: with ``n_shards=tp`` the cache holds
+    one rank's heads of the heads padded for ``tp`` (the GQA cache's
+    ``kv_local``, the Mamba2 or xLSTM states' local heads; ``batch`` and
+    ``seq`` the rank's rows and slots)."""
     _check_decode(cfg)
-    refuse_recurrent_tp(cfg, tp)
     lead = _layer_axes(cfg)
-    layout = resolve_dims(cfg, tp, n_shards).layout
+    dims = resolve_dims(cfg, tp, n_shards)
+    layout = dims.layout
     kv = dict(n_kv_heads=layout.kv_local, head_dim=layout.head_dim, device=device, dtype=dtype)
     if cfg.family == "hybrid":
-        m = init_mamba2_cache(batch, n_heads=_ssm_heads(cfg), head_dim=SSM_HEAD_DIM,
+        m = init_mamba2_cache(batch, n_heads=dims.ssm_heads_loc, head_dim=dims.ssm_head_dim,
                               d_state=cfg.ssm_state, device=device)
         return {**_stacked(m, lead, "mamba/"),
                 **_stacked(init_cache(batch, seq, **kv), lead[:1], "attn/")}
     if cfg.family == "ssm":
-        heads = dict(n_heads=cfg.n_heads, head_dim=_head_dim(cfg), device=device)
+        heads = dict(n_heads=dims.xl_heads_loc, head_dim=dims.xl_head_dim, device=device)
         cache = {}
         for cell in XLSTM_CELLS:
             init = init_slstm_cache if cell == "s" else init_mlstm_cache
@@ -151,14 +146,18 @@ def _index(tree: Tree, *idx) -> Tree:
     return {k: v[idx] for k, v in tree.items()}
 
 
-def _hybrid_layers(params, cache, x, pos, cfg):
+def _hybrid_layers(params, cache, x, pos, cfg, axes: Axes):
     """The Mamba2 layers, each block followed by the shared block on
-    ``[h, emb0]``."""
+    ``[h, emb0]``; on the rank's heads (Mamba2's and the shared
+    attention's) and d_ff columns."""
     layers, emb0 = _sub(params, "layers/"), x
     mamba, attn = _sub(cache, "mamba/"), _sub(cache, "attn/")
     sp = _sub(params, "shared_attn/")
     nb, per = _layer_axes(cfg)
-    kw = dict(n_heads=_ssm_heads(cfg), head_dim=SSM_HEAD_DIM, d_state=cfg.ssm_state)
+    dims = resolve_dims(cfg, axes.tp_size, axes.tp_size)
+    heads = dims.layout
+    kw = dict(n_heads=dims.ssm_heads_loc, head_dim=dims.ssm_head_dim, d_state=cfg.ssm_state,
+              axes=axes)
     for i in range(nb):
         for j in range(per):
             lp = _index(layers, i, j)
@@ -168,19 +167,20 @@ def _hybrid_layers(params, cache, x, pos, cfg):
         z = rmsnorm(torch.cat([x, emb0], dim=-1), sp["ln"])
         z = z @ sp["w_in"].to(z.dtype)
         a, _ = attention_decode(_sub(sp, "attn/"), z, pos, _index(attn, i),
-                                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                                head_dim=_head_dim(cfg), rope_theta=cfg.rope_theta)
+                                n_heads=heads.q_local, n_kv_heads=heads.kv_local,
+                                head_dim=heads.head_dim, rope_theta=cfg.rope_theta, axes=axes)
         z = z + a
-        z = z + swiglu_mlp(_sub(sp, "mlp/"), rmsnorm(z, sp["ln2"]))
+        z = z + swiglu_mlp(_sub(sp, "mlp/"), rmsnorm(z, sp["ln2"]), axes)
         x = x + z
     return x
 
 
-def _ssm_layers(params, cache, x, cfg):
+def _ssm_layers(params, cache, x, cfg, axes: Axes):
     """The (mLSTM, mLSTM, sLSTM) blocks, each cell behind its RMSNorm and
-    added to the residual."""
+    added to the residual, on the rank's heads."""
     layers, blocks = _sub(params, "layers/"), _sub(cache, "blocks/")
-    kw = dict(n_heads=cfg.n_heads, head_dim=_head_dim(cfg))
+    dims = resolve_dims(cfg, axes.tp_size, axes.tp_size)
+    kw = dict(n_heads=dims.xl_heads_loc, head_dim=dims.xl_head_dim, axes=axes)
     for i in range(_layer_axes(cfg)[0]):
         bp, bc = _index(layers, i), _index(blocks, i)
         for cell, step in zip(XLSTM_CELLS, (mlstm_decode, mlstm_decode, slstm_decode)):
@@ -215,12 +215,11 @@ def lm_decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, pos: torch.T
     Returns ``(logits (B, V/tp) float32, cache)``: at tp > 1 (``axes``)
     the rank's vocab slice, from its shard of the params."""
     _check_decode(cfg)
-    refuse_recurrent_tp(cfg, axes.tp_size)
     x = embed_lookup(params["embed"], tokens[:, None], axes).to(dtype)
     if cfg.family == "hybrid":
-        x = _hybrid_layers(params, cache, x, pos, cfg)
+        x = _hybrid_layers(params, cache, x, pos, cfg, axes)
     elif cfg.family == "ssm":
-        x = _ssm_layers(params, cache, x, cfg)
+        x = _ssm_layers(params, cache, x, cfg, axes)
     else:
         x = _attn_layers(params, cache, x, pos, cfg, axes)
     h = rmsnorm(x, params["ln_f"])

@@ -1,5 +1,5 @@
 """Encoder-decoder transformer (port of ``repro/models/encdec.py``: the
-seamless-m4t backbone), train at any tp and decode at tp = 1.
+seamless-m4t backbone), train and decode at any tp.
 
 Encoder: the audio frontend is a stub, as in the JAX package: the batch
 carries precomputed frame embeddings (B, T_src, frontend_dim), cast to
@@ -44,14 +44,21 @@ The cache is a flat dict of stacked leaves with a leading decoder-layer
 axis: ``self/k``, ``self/v`` (L, B, S, Hkv, dh), ``self/kv_pos`` (L, B,
 S) and ``cross/k``, ``cross/v`` (L, B, S_src, Hkv, dh), ``cross/pos`` (L,
 B, S_src). The JAX package has no engine for this family; a greedy loop
-over :func:`encdec_decode_step` drives it.
+over :func:`encdec_decode_step` drives it (``launch/step.py``'s
+``build_serve_step`` on a grid). At tp > 1 the decode runs the rank's
+heads as the train path does: the vocab-sharded lookup, the self- and
+cross-attention caches of the rank's KV heads, both out projections and
+the MLP row-parallel, and the rank's vocab slice of the logits. With
+``axes.sp`` (a sequence-sharded decode) the self-attention cache's
+sequence is sharded over the data group; the cross attention, as the JAX
+package's, has no such branch: it attends every slot of the shard's own
+cross cache, which :func:`encdec_prefill` fills whole on every shard.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.attention import (
     attention_decode, attention_train, f32_scale, gqa_attend, init_cache,
@@ -60,7 +67,7 @@ from repro_torch.models.common import (
     SINGLE, Axes, HeadLayout, dense_init, embed_lookup, layernorm, rope, tp_cross_entropy,
 )
 from repro_torch.models.mlp import gelu_mlp
-from repro_torch.models.transformer import Dims, _attn_shapes, _head_dim, _sub, resolve_dims
+from repro_torch.models.transformer import Dims, _attn_shapes, _sub, resolve_dims
 
 Tree = Dict[str, torch.Tensor]
 
@@ -254,12 +261,16 @@ def encdec_loss(params: Tree, batch, cfg, dtype=torch.bfloat16,
 # decode
 # ---------------------------------------------------------------------------
 def init_encdec_cache(cfg, batch: int, seq: int, s_src: int, *, device,
-                      dtype=torch.bfloat16) -> Tree:
+                      dtype=torch.bfloat16, tp: int = 1, n_shards: int = 1) -> Tree:
     """An empty decode cache for every decoder layer (the module
     docstring's layout): the self-attention's KV cache of ``seq`` slots,
     every slot empty, and a zero cross-attention cache of ``s_src``
-    encoder positions, both in ``dtype``."""
-    hkv, dh = cfg.n_kv_heads, _head_dim(cfg)
+    encoder positions, both in ``dtype``. With ``tp`` the KV heads are
+    padded for it: all of them with ``n_shards=1``, one rank's with
+    ``n_shards=tp`` (the JAX package's ``init_encdec_cache(cfg, tp,
+    n_shards, ...)``)."""
+    heads = resolve_dims(cfg, tp, n_shards).layout
+    hkv, dh = heads.kv_local, heads.head_dim
     base = {f"self/{k}": v for k, v in init_cache(batch, seq, n_kv_heads=hkv, head_dim=dh,
                                                   device=device, dtype=dtype).items()}
     base.update({f"cross/{k}": torch.zeros(batch, s_src, hkv, dh, dtype=dtype, device=device)
@@ -269,17 +280,18 @@ def init_encdec_cache(cfg, batch: int, seq: int, s_src: int, *, device,
 
 
 def encdec_prefill(params: Tree, frames: torch.Tensor, cache: Tree, cfg,
-                   dtype=torch.bfloat16) -> Tree:
+                   dtype=torch.bfloat16, axes: Axes = SINGLE) -> Tree:
     """Run the encoder on ``frames`` (B, Ts, frontend_dim) and fill the
     cross-attention cache: each decoder layer's K and V of the encoder
-    states, cast to ``dtype``, and their positions 0 ... Ts - 1. As in the
-    JAX package the cross entries are replaced (their S_src becomes Ts);
-    the self-attention cache is kept. Returns the cache."""
-    enc_out = encode(params, frames, cfg, dtype)
+    states (the rank's KV heads over ``axes``), cast to ``dtype``, and
+    their positions 0 ... Ts - 1. As in the JAX package the cross entries
+    are replaced (their S_src becomes Ts); the self-attention cache is
+    kept. Returns the cache."""
+    enc_out = encode(params, frames, cfg, dtype, axes)
     b, ts = enc_out.shape[:2]
     ks, vs = [], []
     for lp in _layers(params, "dec_layers"):
-        k, v = _project_enc_kv(_sub(lp, "cross_attn/"), enc_out, cfg)
+        k, v = _project_enc_kv(_sub(lp, "cross_attn/"), enc_out, cfg, axes)
         ks.append(k.to(dtype))
         vs.append(v.to(dtype))
     pos = torch.arange(ts, dtype=torch.int32, device=enc_out.device).expand(b, ts)
@@ -289,34 +301,39 @@ def encdec_prefill(params: Tree, frames: torch.Tensor, cache: Tree, cfg,
 
 
 def _cross_attention_decode(p, z: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            cfg) -> torch.Tensor:
+                            cfg, axes: Axes = SINGLE) -> torch.Tensor:
     """One query per sequence, z (B, 1, d), over every cached encoder
-    position (k, v: (B, S_src, Hkv, dh)) in float32, no mask: the logits
-    times 1/√dh (float32), ``torch.softmax``, then ``wo`` in z's type."""
-    b, hq, hkv, dh = z.shape[0], cfg.n_heads, cfg.n_kv_heads, _head_dim(cfg)
+    position (k, v: (B, S_src, Hkv, dh), the rank's KV heads) in float32,
+    no mask: the logits times 1/√dh (float32), ``torch.softmax``, then
+    ``wo`` in z's type, row-parallel over ``axes``."""
+    heads = _layout(cfg, axes)
+    b, hq, hkv, dh = z.shape[0], heads.q_local, heads.kv_local, heads.head_dim
     q = (z @ p["wq"].to(z.dtype)).reshape(b, hkv, hq // hkv, dh)
     logits = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32), k.to(torch.float32))
     w = torch.softmax(logits * f32_scale(dh), dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", w, v.to(torch.float32))
-    return o.reshape(b, 1, hq * dh).to(z.dtype) @ p["wo"].to(z.dtype)
+    return axes.psum_tp(o.reshape(b, 1, hq * dh).to(z.dtype) @ p["wo"].to(z.dtype))
 
 
 def encdec_decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, pos: torch.Tensor,
-                       cfg, dtype=torch.bfloat16):
+                       cfg, dtype=torch.bfloat16, axes: Axes = SINGLE):
     """tokens: (B,) ids of this step; pos: (B,) their positions. Each
     decoder layer: causal self-attention against the cache (written at
     ``pos`` in place), cross attention to the prefilled encoder cache, the
-    GELU MLP, each behind its LayerNorm. Returns ``(logits (B, V)
-    float32, cache)``."""
-    x = F.embedding(tokens[:, None], params["embed"]).to(dtype)
-    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=_head_dim(cfg))
+    GELU MLP, each behind its LayerNorm. Returns ``(logits (B, V/tp)
+    float32, cache)``: at tp > 1 (``axes``) the rank's vocab slice, from
+    its shard of the params."""
+    x = embed_lookup(params["embed"], tokens[:, None], axes).to(dtype)
+    heads = _layout(cfg, axes)
+    kw = dict(n_heads=heads.q_local, n_kv_heads=heads.kv_local, head_dim=heads.head_dim,
+              axes=axes)
     selfc, cross = _sub(cache, "self/"), _sub(cache, "cross/")
     for i, lp in enumerate(_layers(params, "dec_layers")):
         a, _ = attention_decode(_sub(lp, "self_attn/"), _ln(x, lp, "ln1"), pos,
                                 {k: v[i] for k, v in selfc.items()}, **kw)
         x = x + a
         x = x + _cross_attention_decode(_sub(lp, "cross_attn/"), _ln(x, lp, "ln_x"),
-                                        cross["k"][i], cross["v"][i], cfg)
-        x = x + gelu_mlp(_sub(lp, "mlp/"), _ln(x, lp, "ln2"))
+                                        cross["k"][i], cross["v"][i], cfg, axes)
+        x = x + gelu_mlp(_sub(lp, "mlp/"), _ln(x, lp, "ln2"), axes)
     x = _ln(x, params, "ln_dec")
     return (x @ params["lm_head"].to(x.dtype)).to(torch.float32)[:, 0], cache

@@ -1,7 +1,7 @@
 """Mamba2 (SSD) block (port of ``repro/models/ssm.py``): the train path
 (``_causal_conv``, ``_ssd_chunk``, ``mamba2_train``), at tp > 1 on the
 rank's heads of a model axis, and the one-token decode with its O(1)
-state (``init_mamba2_cache``, ``mamba2_decode``) at tp = 1.
+state (``init_mamba2_cache``, ``mamba2_decode``), at tp > 1 the same way.
 
 Tensor parallelism, as in the JAX package: the heads (d_inner) are
 sharded over the model axis, ``w_bc`` is replicated, and the out
@@ -175,9 +175,14 @@ def init_mamba2_cache(batch: int, *, n_heads: int, head_dim: int, d_state: int, 
                              device=device)}
 
 
-def mamba2_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int, d_state: int):
+def mamba2_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int, d_state: int,
+                  axes: Axes = SINGLE):
     """One token per sequence. x: (B, 1, d); cache: :func:`init_mamba2_cache`'s,
-    written in place. Returns ``(out (B, 1, d), cache)``."""
+    written in place. Returns ``(out (B, 1, d), cache)``. As in
+    :func:`mamba2_train`, ``n_heads`` are the rank's local heads (its
+    ``w_xz`` slice split in half locally, the gate's norm over its own
+    heads) and the out projection's partial sums are summed over ``axes``'
+    model group."""
     b, n = x.shape[0], d_state
     xz = (x @ p["w_xz"].to(x.dtype))[:, 0]
     xin, z = torch.chunk(xz, 2, dim=-1)
@@ -201,4 +206,4 @@ def mamba2_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int, d_s
     y = y.reshape(b, 1, n_heads * head_dim).to(x.dtype)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)[:, None, :]
     y = rmsnorm(y, p["norm_w"])
-    return y @ p["w_out"].to(x.dtype), cache
+    return axes.psum_tp(y @ p["w_out"].to(x.dtype)), cache

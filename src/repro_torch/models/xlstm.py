@@ -2,7 +2,7 @@
 (``_mlstm_chunk``, ``mlstm_train``, ``_slstm_cell``, ``slstm_train``), at
 tp > 1 on the rank's heads of a model axis, and the one-token decode with
 its O(1) state (``init_mlstm_cache``, ``mlstm_decode``,
-``init_slstm_cache``, ``slstm_decode``) at tp = 1.
+``init_slstm_cache``, ``slstm_decode``), at tp > 1 the same way.
 
 Tensor parallelism, as in the JAX package: the heads are sharded over the
 model axis and each cell's out projection is row-parallel
@@ -300,9 +300,12 @@ def init_mlstm_cache(batch: int, *, n_heads: int, head_dim: int, device):
             "n": torch.zeros(batch, n_heads, head_dim, dtype=torch.float32, device=device)}
 
 
-def mlstm_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int):
+def mlstm_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int,
+                 axes: Axes = SINGLE):
     """x: (B, 1, d); cache: :func:`init_mlstm_cache`'s, written in place.
-    Returns ``(out (B, 1, d), cache)``."""
+    Returns ``(out (B, 1, d), cache)``; ``n_heads`` are the rank's local
+    heads (its ``[i | f]`` slice split at them) and the out projection is
+    row-parallel over ``axes``."""
     b, h, dh = x.shape[0], n_heads, head_dim
     to = lambda w: (x[:, 0] @ w.to(x.dtype)).to(torch.float32)
     # √dh in float32 as a one-element tensor: a true division on the card too
@@ -321,7 +324,7 @@ def mlstm_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int):
     cache["n"].copy_(n)
     denom = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", q, n)), min=1.0)
     y = torch.einsum("bhd,bhde->bhe", q, c) / denom[..., None]
-    return out_proj(p, y.reshape(b, 1, h * dh), x.dtype), cache
+    return out_proj(p, y.reshape(b, 1, h * dh), x.dtype, axes), cache
 
 
 def init_slstm_cache(batch: int, *, n_heads: int, head_dim: int, device):
@@ -330,13 +333,15 @@ def init_slstm_cache(batch: int, *, n_heads: int, head_dim: int, device):
             for k in ("h", "c")}
 
 
-def slstm_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int):
+def slstm_decode(p, x: torch.Tensor, cache, *, n_heads: int, head_dim: int,
+                 axes: Axes = SINGLE):
     """x: (B, 1, d); cache: :func:`init_slstm_cache`'s, written in place.
-    Returns ``(out (B, 1, d), cache)``."""
+    Returns ``(out (B, 1, d), cache)``; ``n_heads`` are the rank's local
+    heads and the out projection is row-parallel over ``axes``."""
     b = x.shape[0]
     zx = slstm_proj(p, x)[:, 0]
     h, c = slstm_cell(zx, cache["h"], cache["c"], p["r_h"].to(torch.float32), n_heads,
                       head_dim)
     cache["h"].copy_(h)
     cache["c"].copy_(c)
-    return out_proj(p, h.reshape(b, 1, n_heads * head_dim), x.dtype), cache
+    return out_proj(p, h.reshape(b, 1, n_heads * head_dim), x.dtype, axes), cache

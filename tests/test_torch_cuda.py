@@ -1359,15 +1359,20 @@ def test_tp_hybrid_and_ssm_smoke_grids_card_against_cpu(dev):
         assert ranks[0][arch] == ranks[1][arch] and ranks[2][arch] == ranks[3][arch]
 
 
+TP_DECODE_ARCHS = ("granite-8b", "deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-125m",
+                   "seamless-m4t-medium")
+
+
 def _tp_decode_card_cpu(group, rank, device):
-    """One rank of a 2 x 2 grid: 6 teacher-forced decode steps of the
-    granite and deepseek smoke configs at tp = 2 (float32 activations and
-    cache) on the card and on the CPU, from the same shard of the same
-    global params: {arch: (card logits, CPU logits, card tokens, CPU
-    tokens)}."""
+    """One rank of a 2 x 2 grid: 6 teacher-forced decode steps of each
+    ``TP_DECODE_ARCHS`` smoke config at tp = 2 (float32 activations and
+    cache; seamless's cross cache prefilled from 16 frames a sequence) on
+    the card and on the CPU, from the same shard of the same global params:
+    {arch: (card logits, CPU logits, card tokens, CPU tokens)}."""
     from repro_torch.configs.base import get_arch, smoke_config
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import encdec
     from repro_torch.models.common import Axes
     from repro_torch.models.decode import init_lm_cache, lm_decode_step, tp_greedy
     from repro_torch.models.transformer import init_lm_params
@@ -1378,20 +1383,33 @@ def _tp_decode_card_cpu(group, rank, device):
     tokens = torch.randint(0, 256, (6, 4), generator=torch.Generator().manual_seed(2))
     rows = slice(2 * grid.dp_index, 2 * grid.dp_index + 2)
     out = {}
-    for arch in ("granite-8b", "deepseek-v2-lite-16b"):
+    for arch in TP_DECODE_ARCHS:
         cfg = smoke_config(get_arch(arch))
-        shard = specs.tp_shard(cfg, 2, grid.tp_index).tree(init_lm_params(
+        enc = cfg.family == "encdec"
+        init = encdec.init_encdec_params if enc else init_lm_params
+        shard = specs.tp_shard(cfg, 2, grid.tp_index).tree(init(
             cfg, generator=torch.Generator().manual_seed(4), device="cpu", tp=2))
         res = []
         for d in (torch.device(device), torch.device("cpu")):
             params = {k: v.to(d) for k, v in shard.items()}
-            cache = init_lm_cache(cfg, 2, 8, device=d, dtype=torch.float32, tp=2, n_shards=2)
+            if enc:
+                frames = torch.randn(4, 16, cfg.frontend_dim,
+                                     generator=torch.Generator().manual_seed(3))[rows]
+                cache = encdec.init_encdec_cache(cfg, 2, 8, 16, device=d, dtype=torch.float32,
+                                                 tp=2, n_shards=2)
+                with torch.no_grad():
+                    cache = encdec.encdec_prefill(params, frames.to(d), cache, cfg,
+                                                  torch.float32, axes)
+                step = encdec.encdec_decode_step
+            else:
+                cache = init_lm_cache(cfg, 2, 8, device=d, dtype=torch.float32, tp=2,
+                                      n_shards=2)
+                step = lm_decode_step
             logits, toks = [], []
             for i in range(tokens.shape[0]):
                 with torch.no_grad():
-                    lg, cache = lm_decode_step(params, cache, tokens[i, rows].to(d),
-                                               torch.full((2,), i, device=d), cfg,
-                                               torch.float32, axes)
+                    lg, cache = step(params, cache, tokens[i, rows].to(d),
+                                     torch.full((2,), i, device=d), cfg, torch.float32, axes)
                 logits.append(lg.cpu())
                 toks.append(tp_greedy(lg, axes).cpu())
             res += [torch.stack(logits), torch.stack(toks)]
@@ -1400,14 +1418,16 @@ def _tp_decode_card_cpu(group, rank, device):
 
 
 def test_tp_decode_step_card_against_cpu(dev):
-    """lm_decode_step at tp = 2 on a 2 x 2 grid of gloo ranks sharing the
-    card, float32: the vocab-local logits on the card within 1e-5 of the
-    largest |logit| of the same ranks' on the CPU, the greedy tokens equal.
-    Tier-1 holds the CPU decode to JAX's (``tests/test_torch_tp_serve.py``)."""
+    """The decode step of every family at tp = 2 (``lm_decode_step``, and
+    seamless's ``encdec_prefill`` + ``encdec_decode_step``) on a 2 x 2 grid
+    of gloo ranks sharing the card, float32: the vocab-local logits on the
+    card within 1e-5 of the largest |logit| of the same ranks' on the CPU,
+    the greedy tokens equal. Tier-1 holds the CPU decode to JAX's
+    (``tests/test_torch_tp_serve.py``, ``test_torch_tp_serve_recurrent.py``)."""
     from repro_torch.parallel.spawn import run_ranks
 
     ranks = run_ranks(_tp_decode_card_cpu, 4, args=("cuda:0",))
-    for arch in ("granite-8b", "deepseek-v2-lite-16b"):
+    for arch in TP_DECODE_ARCHS:
         for r in ranks:
             card, cpu, t_card, t_cpu = r[arch]
             assert (card - cpu).abs().max() <= 1e-5 * cpu.abs().max(), arch

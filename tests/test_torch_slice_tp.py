@@ -493,28 +493,56 @@ def test_checkpoint_refuses_tp(tmp_path):
     assert step20.search(first).group(0) == step20.search(second).group(0)
 
 
-def test_recurrent_and_encdec_decode_refuse_tp():
-    """The hybrid, ssm and encdec families decode at tp = 1 only: at tp > 1
-    their cache, decode step and serve step raise, naming ROADMAP item
-    12.6e."""
+def test_recurrent_and_encdec_decode_refuse_tp(monkeypatch):
+    """The hybrid, ssm and encdec families' cache, decode step and serve
+    step build and run at tp = 2 (ROADMAP item 12.6e) with the shapes the
+    JAX package declares (``cache_shapes`` of the rank's and of the global
+    cache). One process:
+    the model group's sum and max are stood in by identities, so only the
+    shapes are checked here; ``tests/test_torch_tp_serve_recurrent.py``
+    holds the values on four ranks."""
+    import jax
+    from repro.configs import get_arch as jget_arch, smoke_config as jsmoke
+    from repro.launch import specs as jspecs
+
     from repro_torch.launch.mesh import Grid
     from repro_torch.launch.step import build_serve_step
-    from repro_torch.models.common import Axes
-    from repro_torch.models.decode import init_lm_cache, lm_decode_step
+    from repro_torch.models import encdec
+    from repro_torch.models.decode import lm_decode_step
+    from repro_torch.models.transformer import init_lm_params, resolve_dims
+    from repro_torch.parallel import collectives as coll
+
+    monkeypatch.setattr(coll, "psum_tp", lambda x, group: x)
+    monkeypatch.setattr(coll, "pmax_tp", lambda x, group: x)
+
+    def jax_shapes(jcfg, n_shards, b, s):
+        tree = jspecs.cache_shapes(jcfg, 2, n_shards, b, s, s_src=s)
+        return {"/".join(p.key for p in path): tuple(v.shape)
+                for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
     grid = Grid(n_dp=1, tp=2, dp_index=0, tp_index=0, data_group=None, model_group=None)
-    shape = ShapeConfig("tp", 16, 2, "decode")
+    b, s = 2, 16
+    shape = ShapeConfig("tp", s, b, "decode")
     for arch in ("zamba2-2.7b", "xlstm-125m", "seamless-m4t-medium"):
-        cfg = smoke_config(get_arch(arch))
-        with pytest.raises(NotImplementedError, match="12.6e"):
-            build_serve_step(cfg, grid, shape, device="cpu")
-        with pytest.raises(NotImplementedError, match="12.6e"):
-            specs.cache_shapes(cfg, 2, 2, 2, 16)
-        if cfg.family == "encdec":
-            continue
-        with pytest.raises(NotImplementedError, match="12.6e"):
-            init_lm_cache(cfg, 2, 16, device="cpu", tp=2, n_shards=2)
-        cache = init_lm_cache(cfg, 2, 16, device="cpu")
-        with pytest.raises(NotImplementedError, match="12.6e"):
-            lm_decode_step({}, cache, torch.zeros(2, dtype=torch.long),
-                           torch.zeros(2, dtype=torch.long), cfg, axes=Axes(tp_size=2))
+        cfg, jcfg = smoke_config(get_arch(arch)), jsmoke(jget_arch(arch))
+        enc = cfg.family == "encdec"
+        assert specs.cache_shapes(cfg, 2, 1, b, s) == jax_shapes(jcfg, 1, b, s), arch
+        art = build_serve_step(cfg, grid, shape, device="cpu")
+        cache = art.init_cache()
+        local = {k: tuple(v.shape) for k, v in cache.items()}
+        assert art.cache_shapes == local == jax_shapes(jcfg, 2, b, s), arch
+        init = encdec.init_encdec_params if enc else init_lm_params
+        params = specs.tp_shard(cfg, 2, 0).tree(init(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu", tp=2))
+        tokens, pos = torch.arange(b), torch.zeros(b, dtype=torch.long)
+        if enc:
+            frames = torch.randn(b, s, cfg.frontend_dim, generator=torch.Generator().manual_seed(1))
+            cache = encdec.encdec_prefill(params, frames, cache, cfg, axes=art.axes)
+            logits, cache = encdec.encdec_decode_step(params, cache, tokens, pos, cfg,
+                                                      axes=art.axes)
+        else:
+            logits, cache = lm_decode_step(params, cache, tokens, pos, cfg, axes=art.axes)
+        assert logits.shape == (b, resolve_dims(cfg, 2, 2).vocab_loc), arch
+        nxt, cache = art.steps["decode"](params, cache, tokens, pos + 1)
+        assert nxt.shape == (b,) and torch.isfinite(logits).all(), arch
+        assert {k: tuple(v.shape) for k, v in cache.items()} == local, arch

@@ -2,7 +2,8 @@
 
 1. The decode cache's shapes and specs (``specs.cache_shapes``,
    ``cache_pspecs``, ``batch_pspecs``) against the JAX package's, for
-   every decoder-only family at tp in {1, 2}, batch- and sequence-sharded.
+   every decoder-only family and the encoder-decoder at tp in {1, 2},
+   batch- and sequence-sharded.
 2. ``lm_decode_step`` at tp = 2 on the granite-8b and deepseek-v2-lite-16b
    smoke configs (GQA and MLA, the SwiGLU and ``moe_ep``), float32
    activations and cache, 8 teacher-forced steps of a global batch of 4:
@@ -287,7 +288,7 @@ def runs(tmp_path_factory):
 # ---------------------------------------------------------------------------
 
 CACHE_ARCHS = ("granite-8b", "deepseek-v2-lite-16b", "mixtral-8x22b", "h2o-danube-3-4b",
-               "internvl2-2b", "zamba2-2.7b", "xlstm-125m")
+               "internvl2-2b", "zamba2-2.7b", "xlstm-125m", "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("arch", CACHE_ARCHS)
@@ -300,10 +301,6 @@ def test_cache_shapes_and_specs_match_jax(arch, seq_sharded):
 
     jcfg, cfg = jsmoke(jget_arch(arch)), _cfg(arch)
     for tp in (1, 2):
-        if tp > 1 and cfg.family in ("hybrid", "ssm"):
-            with pytest.raises(NotImplementedError, match="12.6e"):
-                specs.cache_shapes(cfg, tp, tp, 2, 8)
-            continue
         for n_shards in (1, tp):
             got = specs.cache_shapes(cfg, tp, n_shards, 2, 8)
             want = {"/".join(p.key for p in path): v for path, v in
