@@ -99,8 +99,9 @@ Phases, each of which must pass for the exit code to be 0:
                (printed only: the fused route keeps no f32 master);
  10. wire    — step 1 of the headline path replayed for one leaf: the
                unpacked word sum equals the sum of the four workers' images;
- 11. ranks   — four real ranks (``repro_torch.parallel.spawn``, one spawn
-               for all corners) sharing the card through a gloo process
+ 11. ranks   — four real ranks (``repro_torch.parallel.spawn``; the
+               first body of the grid phases' one spawn, so it runs after
+               phase 22) sharing the card through a gloo process
                group, each one worker of four corners at full width, seq
                2048, batch 1 per worker, 2 steps: ranks zero1-sgd (SGD /
                IntSGD / packed8, 1 layer: at 2 the script's phases had
@@ -211,8 +212,8 @@ Phases, each of which must pass for the exit code to be 0:
                int_compress, pack_words, unpack_words, fused_unpack_sgd
                and block_norms at the 471,859,200-element layers/m/w_xz,
                against their plain versions and timed;
- 19. xlstm family — xlstm-125m at published width and full depth, 12
-               layers (four (mLSTM, mLSTM, sLSTM) blocks: 71,744,320
+ 19. xlstm family — xlstm-125m at published width, 6 of its 12
+               layers (two (mLSTM, mLSTM, sLSTM) blocks: 55,189,280
                params in 24 leaves, the embedding tied to the head), 4
                workers, 4 steps, seq 2048, IntSGD on packed8, with every
                check of phases 3-8 (launch counts for its 24 leaves, from
@@ -229,7 +230,7 @@ Phases, each of which must pass for the exit code to be 0:
                (printed); the time loop (its backward written by hand) at
                full width against the same loop through autograd, hidden
                states and gradients within 1e-4 of their largest |value|,
-               both timed in turns; the loss at 12 layers, seq 512 (two
+               both timed in turns; the loss at 6 layers, seq 512 (two
                mLSTM chunks, 512 sLSTM steps), float32, on the card against
                the CPU within 1e-3.
  20. encdec family — seamless-m4t-medium at published width and full
@@ -408,6 +409,36 @@ Phases, each of which must pass for the exit code to be 0:
                paths launch no kernel of ours. Prints ms a decode step a
                rank, host over card, the groups' calls a step, the prefill's
                ms and the peak GiB a rank.
+ 26. the paper's other compressors at tp = 2 — xlstm-125m at published
+               width, 6 layers (two (m, m, s) blocks: every stacked leaf has
+               PowerSGD's rank of 2 rows), seq 512, global batch 4, float32
+               params, ZeRO-1 SGD (0.9), lr 0.3 with the 5-step warmup, clip
+               1.0, 3 steps through train_loop on the grid: none,
+               allgather_sgd, qsgd, qsgd on packed8, natsgd, powersgd,
+               signsgd, topk and IntSGD on topk8:1048576. PowerSGD at its
+               default min_compress_size refuses to build there (the sLSTM
+               bias layers/s/cell/b, 6,144 elements globally, 3,072 a
+               shard: the reference fails to build too), checked, and runs
+               at min_compress_size 3,072. Checks: losses finite, the
+               paths' step-0 losses within 1e-5 relative (the exact step),
+               the data replicas of each shard and the replicated leaves
+               across the model group bit-identical after every step (by
+               checksums), the kernels' launches exact; the smoke config at
+               6 layers on the same grid, 3 steps of powersgd and of qsgd
+               on the card and on the CPU from the same params, batches and
+               seeds (counter-PRNG uniforms, the same on both): losses
+               within 1e-3. Prints ms a step a rank, peak GiB a rank and
+               the data group's calls a step.
+
+Phases 11 and 23-26 run in one spawn of four gloo ranks, after phase 22:
+the parent computes every reference first (phase 11's local backend,
+phase 23's step-0 losses at tp = 1, phases 24-25's float32 streams and
+frames, phase 26's refusal), each rank runs the five phase bodies in turn
+(phase 11's corners on the flat group of four, then the grid phases on
+the 2 × 2 grid), freeing its memory between them, and the parent checks
+each phase's results; it prints each phase's seconds inside the ranks (the
+max over ranks), the spawn's start-up (spawn to each rank's first line)
+and the card's free memory before the spawn.
 
 Prints one JSON line of per-kernel numbers (each variant timed at the
 largest leaf, and the launches of the bf16 variants), then the card's name and power
@@ -967,6 +998,7 @@ def block_norms_phase(torch, ops, checks, timings, device):
 # the paper's float baselines: no encode kernel (QSGD on a packed codec
 # packs its levels with n_workers = 1 and unpacks each gathered worker's)
 FLOAT_BASELINES = ("qsgd", "natsgd", "powersgd", "signsgd", "topk")
+UNCOMPRESSED = ("none", "allgather_sgd")
 
 
 def wire_limits(comp: str, wire, n_workers: int, microbatches: int):
@@ -975,7 +1007,7 @@ def wire_limits(comp: str, wire, n_workers: int, microbatches: int):
     range on a top-k gather wire; 0 for a float compressor."""
     from repro_torch.kernels.int_compress import clip_limit
 
-    if comp == "none" or comp in FLOAT_BASELINES:
+    if comp in UNCOMPRESSED or comp in FLOAT_BASELINES:
         return 0, 0
     lim = 127 if wire and wire.startswith("topk8") else clip_limit(8, n_workers * microbatches)
     return lim, n_workers * lim
@@ -997,7 +1029,7 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
     ||Σints_l||² after; on IntDIANA paths only the exact step's, its shift
     form being plain PyTorch). The ZeRO-1 route runs no fused kernel and
     block_norms twice per leaf and step, for ||ĝ_l||² and ||Δx_l||², whatever
-    the compressor; ``none`` runs no integer kernel at all, nor do the float
+    the compressor; ``none`` and ``allgather_sgd`` run no integer kernel at all, nor do the float
     baselines but QSGD on a packed codec (pack per local worker and leaf,
     unpack per gathered worker and leaf). A top-k wire packs without the
     pack kernel. With bf16
@@ -1016,7 +1048,7 @@ def expected_launches(ops, n_leaves: int, steps: int, opt: str, comp: str, wire,
         if wire and wire.startswith("packed"):
             want["pack_words"] = n_local * n_leaves * c
             want["unpack_words"] = n_workers * n_leaves * c
-    elif comp != "none":
+    elif comp not in UNCOMPRESSED:
         want["int_compress"] = microbatches * n_local * n_leaves * c
         if bf16 and comp != "intdiana":
             want_bf16["int_compress"] = microbatches * n_local * n_bf16 * c
@@ -1546,12 +1578,10 @@ def rank_corners(group, rank, corners, device):
     return out
 
 
-def ranks_phase(torch, ops, checks, device) -> dict:
-    """Phase 11: each corner on the local backend at n = 4, then on four
-    real ranks (one spawn for all corners) sharing the card through gloo.
-    Returns the launch counts of both."""
-    from repro_torch.parallel.spawn import run_ranks
-
+def ranks_references(torch, ops, checks, device):
+    """Phase 11's references: each corner on the local backend at n = 4
+    (with every check of ``train_phase``). Returns ``(histories by label,
+    launch counts)``."""
     launches = collections.Counter()
     local = {}
     for label, layers, steps, opt, comp, wire, lr, fused, micro, overlap in RANK_CORNERS:
@@ -1560,19 +1590,17 @@ def ranks_phase(torch, ops, checks, device) -> dict:
             steps=steps, opt=opt, comp=comp, wire=wire, lr=lr, fused=fused,
             microbatches=micro, overlap=overlap)
         launches.update(counts)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    print(f"ranks: before the spawn this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
-          f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the card has "
-          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free", flush=True)
-    t0 = time.perf_counter()
-    ranks = run_ranks(rank_corners, N_WORKERS, args=(RANK_CORNERS, str(device)),
-                      backend="gloo", timeout_s=900)
-    print(f"ranks: {N_WORKERS} gloo ranks on one card, all corners in "
-          f"{time.perf_counter() - t0:.1f}s (spawn included); every payload reached gloo as a CUDA tensor (the port stages "
-          f"none through host memory itself; gloo copies CUDA tensors through the host)",
-          flush=True)
+    return local, launches
+
+
+def ranks_checks(torch, ops, checks, ranks, local, free) -> collections.Counter:
+    """Phase 11's checks on each rank's :func:`rank_corners` result (four
+    real ranks on a flat group sharing the card through gloo) against the
+    local backend. Returns the ranks' launch counts."""
+    launches = collections.Counter()
+    print(f"ranks: {N_WORKERS} gloo ranks on one card; every payload reached gloo as a CUDA "
+          f"tensor (the port stages none through host memory itself; gloo copies CUDA tensors "
+          f"through the host)", flush=True)
     for ci, (label, layers, steps, opt, comp, wire, lr, fused, micro, overlap) in enumerate(
             RANK_CORNERS):
         res = [r[ci] for r in ranks]
@@ -2652,17 +2680,19 @@ def hybrid_family_phase(torch, ops, checks, timings, device):
     return launches, bf16, histories, peaks
 
 
-# phase 19: the xLSTM family at published width and full depth, 4 workers, 4
-# steps, IntSGD on packed8, seq 2048: (label, config, layers, optimizer, lr,
-# route). 12 layers are four (mLSTM, mLSTM, sLSTM) blocks (71,744,320
-# params in 24 leaves, the embedding tied to the head).
+# phase 19: the xLSTM family at published width, 4 workers, 4 steps, IntSGD
+# on packed8, seq 2048: (label, config, layers, optimizer, lr, route). Its 12
+# layers cut to 6 for the script's time (a fused step took 5.7-7.3 s at 12):
+# two (mLSTM, mLSTM, sLSTM) blocks, 55,189,280 params in the same 24 leaves
+# (stacked by block), the embedding tied to the head; phases 22 and 25 decode
+# it at its full 12.
 XLSTM_PATHS = (
-    ("xlstm-fused-sgd", "xlstm-125m", 12, "sgd", 0.3, FUSED_BF16),
-    ("xlstm-zero1-adamw", "xlstm-125m", 12, "adamw", 3e-4, dict(fused=False)),
+    ("xlstm-fused-sgd", "xlstm-125m", 6, "sgd", 0.3, FUSED_BF16),
+    ("xlstm-zero1-adamw", "xlstm-125m", 6, "adamw", 3e-4, dict(fused=False)),
 )
 XLSTM_SEQ = 2048
 XLSTM_LEAVES = 24
-XLSTM_CPU_LAYERS, XLSTM_CPU_SEQ = 12, 512  # two mLSTM chunks, 512 sLSTM steps
+XLSTM_CPU_LAYERS, XLSTM_CPU_SEQ = 6, 512  # two mLSTM chunks, 512 sLSTM steps
 
 
 def slstm_loop_check(torch, checks, zx, r_h, n_heads, dh, grad_out) -> None:
@@ -3855,13 +3885,15 @@ def tp_cfg(arch: str, layers: int):
 
 
 def tp_train(torch, cfg, shape, *, n_workers, comp, wire, steps, lr, fused, opt, dtype, device,
-             grid=None, on_step=None, **ckpt):
+             grid=None, on_step=None, compressor=None, **ckpt):
     """One TP path's ``(params, history)`` through the user entry point:
     ``train_loop`` (``ckpt`` its ``ckpt``, ``ckpt_every`` and ``resume``),
-    or for a frontend config :func:`vlm_loop`."""
+    or for a frontend config :func:`vlm_loop`; ``compressor`` (a name or a
+    ``Compressor``) in place of ``comp``'s registry name."""
     from repro_torch.launch.train import train_loop
 
-    kw = dict(n_workers=n_workers, compressor=compressor_name(comp, wire), wire=wire,
+    kw = dict(n_workers=n_workers, compressor=compressor or compressor_name(comp, wire),
+              wire=wire,
               steps=steps, lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0, opt=opt,
               param_dtype=getattr(torch, dtype), device=device, grid=grid,
               on_step=on_step or (lambda i, p: None))
@@ -3989,16 +4021,14 @@ def tp_rank_paths(group, rank, paths, device):
     return dict(paths=out, smoke=smoke, smoke_s=time.perf_counter() - t0)
 
 
-def tp_phase(torch, ops, checks, device) -> collections.Counter:
-    """Phase 23: each path's step 0 at tp = 1 on the local backend (the
-    same global weights: no config pads at tp = 2), then the paths and the
-    smoke configs card against CPU on four gloo ranks of a 2 x 2 grid (one
-    spawn). Returns every rank's launch counts."""
+def tp_references(torch, ops, device):
+    """Phase 23's tp = 1 references: each path's step 0 on the local
+    backend (the same global weights: no config pads at tp = 2). Returns
+    ``(step-0 losses by label, launch counts)``."""
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.parallel.spawn import run_ranks
 
     launches = collections.Counter()
-    n_dp, tp = TP_GRID
+    n_dp, _ = TP_GRID
     step0 = {}
     for label, arch, layers, steps, opt, comp, wire, lr, fused, dtype in TP_PATHS:
         cfg = tp_cfg(arch, layers)
@@ -4015,16 +4045,17 @@ def tp_phase(torch, ops, checks, device) -> collections.Counter:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    free, total = torch.cuda.mem_get_info()
-    print(f"tp: before the spawn the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free",
-          flush=True)
-    t0 = time.perf_counter()
-    ranks = run_ranks(tp_rank_paths, n_dp * tp, args=(TP_PATHS, str(device)), backend="gloo",
-                      timeout_s=900)
+    return step0, launches
+
+
+def tp_checks(torch, ops, checks, ranks, step0, free) -> collections.Counter:
+    """Phase 23's checks on each rank's :func:`tp_rank_paths` result against
+    the tp = 1 step-0 losses. Returns every rank's launch counts."""
+    launches = collections.Counter()
+    n_dp, tp = TP_GRID
     print(f"tp: {n_dp} x {tp} grid of gloo ranks on one card, {len(TP_PATHS)} paths and the "
-          f"smoke configs in {time.perf_counter() - t0:.1f}s (spawn included; the smoke "
-          f"configs {max(r['smoke_s'] for r in ranks):.1f}s)", flush=True)
+          f"smoke configs (the smoke configs {max(r['smoke_s'] for r in ranks):.1f}s)",
+          flush=True)
     for pi, (label, arch, layers, steps, opt, comp, wire, lr, fused, dtype) in enumerate(
             TP_PATHS):
         res = [r["paths"][pi] for r in ranks]
@@ -4622,19 +4653,11 @@ def tp_split_serve_checks(torch, checks, label, ranks, key, tp1) -> None:
     tp_serve_report(checks, label, res)
 
 
-def tp_ckpt_serve_phase(torch, ops, checks, device) -> collections.Counter:
-    """Phase 24: the checkpoint paths, the elastic resume and the TP decode
-    on four gloo ranks of a 2 x 2 grid (one spawn), then the tp = 1
-    references in this process. Returns every rank's launch counts."""
-    import shutil
-    import tempfile
-
+def tp_ckpt_serve_references(torch, device):
+    """Phase 24's tp = 1 references, made before the spawn (the ranks decode
+    their float32 streams): ``(serve paths, {key: tp1_reference})``."""
     from repro_torch.configs.base import get_arch
-    from repro_torch.parallel.spawn import run_ranks
 
-    launches = collections.Counter()
-    n_dp, tp = TP_GRID
-    # the tp = 1 references first: the ranks decode their float32 streams
     t0 = time.perf_counter()
     sp_prompt = tp_prompts(get_arch("granite-8b"), 2)[1]  # 5 tokens
     serve = [(f"tp-serve {arch} ({layers} L)", arch, arch, layers,
@@ -4645,16 +4668,15 @@ def tp_ckpt_serve_phase(torch, ops, checks, device) -> collections.Counter:
     tp1 = {key: tp1_reference(torch, device, arch, layers, prompts, n_new, max_seq)
            for _, key, arch, layers, prompts, n_new, max_seq in serve}
     print(f"tp-serve: the tp = 1 references {time.perf_counter() - t0:.1f}s", flush=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_", dir=ROOT / "build")
-    t0 = time.perf_counter()
-    try:
-        ranks = run_ranks(tp_ckpt_serve_rank, n_dp * tp, args=(
-            str(device), tmp, {k: v["fed"] for k, v in tp1.items()}), backend="gloo",
-            timeout_s=900)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f"tp-ckpt-serve: {n_dp} x {tp} grid of gloo ranks on one card in "
-          f"{time.perf_counter() - t0:.1f}s (spawn included)", flush=True)
+    return serve, tp1
+
+
+def tp_ckpt_serve_checks(torch, ops, checks, ranks, serve, tp1) -> collections.Counter:
+    """Phase 24's checks on each rank's :func:`tp_ckpt_serve_rank` result:
+    the checkpoint paths, the elastic resume and the TP decode against the
+    tp = 1 references. Returns every rank's launch counts."""
+    launches = collections.Counter()
+    n_dp, tp = TP_GRID
     checks.true(f"tp-ckpt-serve: ranks on grid places {[r['grid'] for r in ranks]}",
                 [r["grid"] for r in ranks] == [divmod(i, tp) for i in range(n_dp * tp)])
     for pi, (label, arch, layers, opt, lr, fused, dtype) in enumerate(CKPT_PATHS):
@@ -4823,15 +4845,11 @@ def tp_recurrent_serve_rank(group, rank, device, fed, frames):
     return out
 
 
-def tp_recurrent_serve_phase(torch, ops, checks, device) -> collections.Counter:
-    """Phase 25: the hybrid, ssm and encoder-decoder TP decode on four gloo
-    ranks of a 2 x 2 grid (one spawn), against the tp = 1 references made
-    first in this process. Returns every rank's launch counts over the
-    serve paths (none of ours)."""
+def tp_recurrent_references(torch, device):
+    """Phase 25's tp = 1 references, made before the spawn: ``(serve paths,
+    the encoder-decoder's frames by key, {key: tp1_reference})``."""
     from repro_torch.configs.base import get_arch
-    from repro_torch.parallel.spawn import run_ranks
 
-    n_dp, tp = TP_GRID
     t0 = time.perf_counter()
     serve, frames = [], {}
     for arch, layers in SERVE_TP_RECURRENT:
@@ -4857,13 +4875,16 @@ def tp_recurrent_serve_phase(torch, ops, checks, device) -> collections.Counter:
            for _, key, arch, layers, prompts, n_new, max_seq in serve}
     print(f"tp-serve-recurrent: the tp = 1 references {time.perf_counter() - t0:.1f}s",
           flush=True)
-    t0 = time.perf_counter()
-    ranks = run_ranks(tp_recurrent_serve_rank, n_dp * tp, args=(
-        str(device), {k: v["fed"] for k, v in tp1.items()}, frames), backend="gloo",
-        timeout_s=600)
-    print(f"tp-serve-recurrent: {n_dp} x {tp} grid of gloo ranks on one card in "
-          f"{time.perf_counter() - t0:.1f}s (spawn included; the smoke grids "
-          f"{max(r['smoke_s'] for r in ranks):.1f}s)", flush=True)
+    return serve, frames, tp1
+
+
+def tp_recurrent_checks(torch, checks, ranks, serve, tp1) -> collections.Counter:
+    """Phase 25's checks on each rank's :func:`tp_recurrent_serve_rank`
+    result against the tp = 1 references. Returns every rank's launch
+    counts over the serve paths (none of ours)."""
+    n_dp, tp = TP_GRID
+    print(f"tp-serve-recurrent: the smoke grids {max(r['smoke_s'] for r in ranks):.1f}s",
+          flush=True)
     checks.true(f"tp-serve-recurrent: ranks on grid places {[r['grid'] for r in ranks]}",
                 [r["grid"] for r in ranks] == [divmod(i, tp) for i in range(n_dp * tp)])
     for label, key, arch, _, _, n_new, max_seq in serve:
@@ -4897,6 +4918,365 @@ def tp_recurrent_serve_phase(torch, ops, checks, device) -> collections.Counter:
         launches.update(r["launches"])
     checks.true(f"tp-serve-recurrent: the decode paths launch no kernel of ours "
                 f"({dict(launches)})", not any(launches.values()))
+    return launches
+
+
+# phase 26: the paper's other compressors on the 2 x 2 grid (ROADMAP item
+# 12.6d): xlstm-125m at published width, 6 layers (two (m, m, s) blocks, so
+# every stacked leaf has PowerSGD's rank of 2 rows), float32, ZeRO-1 SGD, 3
+# steps a path: (label, compressor, wire, make_compressor arguments)
+TP_BASELINE_ARCH, TP_BASELINE_LAYERS = "xlstm-125m", 6
+TP_BASELINE_SEQ, TP_BASELINE_STEPS, TP_BASELINE_LR = 512, 3, 0.3
+# PowerSGD's default min_compress_size refuses this grid (the reference fails
+# to build it): the sLSTM bias layers/s/cell/b is 6,144 elements globally and
+# 3,072 a shard; at 3,072 every leaf the default compresses globally is
+# compressed on its shard too
+TP_POWERSGD_REFUSED, TP_POWERSGD_MIN = "layers/s/cell/b", 3072
+TP_BASELINE_PATHS = (
+    ("tp-baseline none", "none", None, {}),
+    ("tp-baseline allgather_sgd", "allgather_sgd", None, {}),
+    ("tp-baseline qsgd", "qsgd", None, {}),
+    ("tp-baseline qsgd-packed8", "qsgd", "packed8", {}),
+    ("tp-baseline natsgd", "natsgd", None, {}),
+    ("tp-baseline powersgd", "powersgd", None, {"min_compress_size": TP_POWERSGD_MIN}),
+    ("tp-baseline signsgd", "signsgd", None, {}),
+    ("tp-baseline topk", "topk", None, {}),
+    ("tp-baseline intsgd-topk8", "intsgd", "topk8:1048576", {}),
+)
+TP_BASELINE_STEP0_RTOL = 1e-5
+# the smoke config on the grid, card against CPU: (compressor, arguments);
+# both draw their uniforms from the counter PRNG, the same on the card and
+# the CPU
+TP_BASELINE_SMOKE = (("powersgd", {"min_compress_size": 256}), ("qsgd", {}))
+TP_BASELINE_SMOKE_TOL = 1e-3
+
+
+def tp_baseline_smoke(torch, grid, device) -> dict:
+    """Each ``TP_BASELINE_SMOKE`` compressor on xlstm's smoke config at
+    ``TP_BASELINE_LAYERS`` layers, ``TP_BASELINE_STEPS`` steps of
+    ``build_train_step`` on the grid, on the card and then on the CPU (the
+    same gloo groups), from the same params (the global draw on the CPU,
+    this rank's shard), batches and seeds: {compressor: (card losses, CPU
+    losses)}."""
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_config
+    from repro_torch.core.compressor import leaf_seeds, make_compressor
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.launch import specs
+    from repro_torch.launch.step import build_init_state, build_train_step
+    from repro_torch.launch.train import OPTIMIZERS
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.optim.schedules import constant, warmup_wrap
+
+    cfg = dataclasses.replace(smoke_config(get_arch(TP_BASELINE_ARCH)),
+                              n_layers=TP_BASELINE_LAYERS)
+    shape = ShapeConfig("chip-smoke-tp", TP_SMOKE_SEQ, 2 * grid.n_dp, "train")
+    params0 = specs.tp_shard(cfg, grid.tp, grid.tp_index).tree(init_lm_params(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu", tp=grid.tp))
+    data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
+    out = {}
+    for name, kw in TP_BASELINE_SMOKE:
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            comp, base_opt = make_compressor(name, **kw), OPTIMIZERS["sgd"]()
+            art = build_train_step(
+                cfg, shape, n_workers=grid.n_dp, compressor=comp, base_opt=base_opt,
+                lr_schedule=warmup_wrap(constant(TP_BASELINE_LR), 5),
+                param_dtype=torch.float32, clip_norm=1.0, device=dev, grid=grid)
+            params = {k: v.to(dev) for k, v in params0.items()}
+            opt_state, comp_state = build_init_state(params, n_workers=grid.n_dp,
+                                                     compressor=comp, base_opt=base_opt,
+                                                     grid=grid)
+            gen = torch.Generator().manual_seed(0)
+            losses = []
+            for i in range(TP_BASELINE_STEPS):
+                seeds = leaf_seeds(gen, grid.n_dp, len(art.layout.names), dev)
+                fn = art.steps["exact"] if i == 0 else art.steps["compressed"]
+                params, opt_state, comp_state, loss, _ = fn(
+                    params, opt_state, comp_state, i,
+                    {k: v.to(dev) for k, v in data.batch(i, 0).items()}, seeds)
+                losses.append(float(loss))
+            runs.append(losses)
+            del params, opt_state, comp_state
+        out[name] = tuple(runs)
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_baselines_rank(group, rank, device):
+    """One rank of phase 26: each ``TP_BASELINE_PATHS`` path through
+    ``train_loop`` on this rank's shard of the grid, on the shared card;
+    per path the history, the checksums of the params and of the
+    replicated leaves after every step, the kernel launches, the data
+    group's calls and the peak memory; then the smoke config card against
+    CPU."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.compressor import make_compressor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    grid = make_debug_mesh(*TP_GRID)
+    cfg = tp_cfg(TP_BASELINE_ARCH, TP_BASELINE_LAYERS)
+    rep = [k for k, d in specs.infer_param_specs(cfg, grid.tp)[2].items() if d is None]
+    shape = ShapeConfig("chip-smoke", TP_BASELINE_SEQ, 2 * TP_GRID[0], "train")
+    calls = collections.Counter()
+    wrapped = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def counting(name):
+        fn = wrapped[name]
+
+        def call(*a, **kw):  # group is the third argument of both
+            if (kw["group"] if "group" in kw else a[2] if len(a) > 2 else None) is \
+                    grid.data_group:
+                calls[name] += 1
+            return fn(*a, **kw)
+
+        return call
+
+    out = []
+    for name in wrapped:
+        setattr(dist, name, counting(name))
+    try:
+        for label, comp, wire, kw in TP_BASELINE_PATHS:
+            sums, rep_sums, seen = [], [], []
+
+            def on_step(i, p):
+                seen.append(sum(calls.values()))  # before the checksums' own calls
+                sums.append(params_checksums(torch, p))
+                rep_sums.append(params_checksums(torch, {k: p[k] for k in rep}))
+                torch.cuda.empty_cache()  # four ranks share the card
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            calls.clear()
+            params, history = tp_train(
+                torch, cfg, shape, n_workers=grid.n_dp, comp=comp, wire=wire,
+                steps=TP_BASELINE_STEPS, lr=TP_BASELINE_LR, fused=False, opt="sgd",
+                dtype="float32", device=device, grid=grid, on_step=on_step,
+                compressor=make_compressor(comp, **kw) if kw else None)
+            out.append(dict(history=history, checksums=sums, rep_sums=rep_sums,
+                            n_leaves=len(params), launches=ops.launch_counts(),
+                            bf16=ops.bf16_launch_counts(), calls=dict(calls),
+                            step_calls=[b - a for a, b in zip([0] + seen, seen)],
+                            grid=(grid.dp_index, grid.tp_index),
+                            peak=torch.cuda.max_memory_allocated() / 2**30,
+                            reserved=torch.cuda.max_memory_reserved() / 2**30))
+            del params
+    finally:
+        for name, fn in wrapped.items():
+            setattr(dist, name, fn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    smoke = tp_baseline_smoke(torch, grid, device)
+    return dict(paths=out, smoke=smoke, smoke_s=time.perf_counter() - t0)
+
+
+def tp_baselines_refusal(torch, checks) -> None:
+    """PowerSGD at its default min_compress_size on phase 26's grid raises
+    at build, naming the leaf the reference fails on."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.compressor import make_compressor
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.step import build_train_step
+    from repro_torch.launch.train import OPTIMIZERS
+    from repro_torch.optim.schedules import constant
+
+    grid = Grid(n_dp=TP_GRID[0], tp=TP_GRID[1], dp_index=0, tp_index=0, data_group=None,
+                model_group=None)
+    try:
+        build_train_step(tp_cfg(TP_BASELINE_ARCH, TP_BASELINE_LAYERS),
+                         ShapeConfig("chip-smoke", TP_BASELINE_SEQ, 2 * TP_GRID[0], "train"),
+                         n_workers=TP_GRID[0], compressor=make_compressor("powersgd"),
+                         base_opt=OPTIMIZERS["sgd"](), lr_schedule=constant(0.1),
+                         device="cpu", grid=grid)
+        msg = None
+    except NotImplementedError as e:
+        msg = str(e)
+    checks.true(f"tp-baseline powersgd: the default min_compress_size refuses the grid "
+                f"({msg})", msg is not None and repr(TP_POWERSGD_REFUSED) in msg)
+
+
+def tp_baselines_checks(torch, ops, checks, ranks) -> collections.Counter:
+    """Phase 26's checks on each rank's :func:`tp_baselines_rank` result.
+    Returns every rank's launch counts."""
+    launches = collections.Counter()
+    n_dp, tp = TP_GRID
+    steps = TP_BASELINE_STEPS
+    step0 = {}
+    for pi, (label, comp, wire, kw) in enumerate(TP_BASELINE_PATHS):
+        res = [r["paths"][pi] for r in ranks]
+        checks.true(f"{label}: ranks on grid places {[r['grid'] for r in res]}",
+                    [r["grid"] for r in res] == [divmod(i, tp) for i in range(n_dp * tp)])
+        hist = res[0]["history"]
+        step0[label] = hist[0]["loss"]
+        for r in res:
+            checks.true(f"{label}: rank {r['grid']} losses finite "
+                        f"({[h['loss'] for h in r['history']]!r})",
+                        all(math.isfinite(h["loss"]) for h in r["history"]))
+        lim_sum = wire_limits(comp, wire, n_dp, 1)[1]
+        checks.true(f"{label}: max_int <= {lim_sum} on every compressed step, every rank "
+                    f"({[h['max_int'] for h in hist[1:]]})",
+                    all(h["max_int"] <= lim_sum and (h["max_int"] > 0) == (lim_sum > 0)
+                        for r in res for h in r["history"][1:]))
+        for step in range(steps):
+            for t in range(tp):
+                sums = [res[d * tp + t]["checksums"][step] for d in range(n_dp)]
+                checks.true(f"{label}: step {step}: the {n_dp} dp replicas of model shard {t} "
+                            f"bit-identical ({len(sums[0])} leaves' checksums)",
+                            all(x == sums[0] for x in sums))
+            for d in range(n_dp):
+                sums = [res[d * tp + t]["rep_sums"][step] for t in range(tp)]
+                checks.true(f"{label}: step {step}: data replica {d}'s {len(sums[0])} "
+                            f"replicated leaves bit-identical across the model group",
+                            all(x == sums[0] for x in sums))
+        want, _, want_bf16 = expected_launches(
+            ops, res[0]["n_leaves"], steps, "sgd", comp, wire, fused=False, microbatches=1,
+            n_local=1, param_dtype="float32", n_workers=n_dp)
+        for r in res:
+            ok = all(r["launches"][k] == want[k] and r["bf16"][k] == want_bf16[k]
+                     for k in want)
+            checks.true(f"{label}: rank {r['grid']} launches {r['launches']} (expected "
+                        f"{want})", ok)
+            launches.update(r["launches"])
+        for r in res:
+            print(f"  {label}: rank {r['grid']}: step ms "
+                  f"{[round(h['ms'], 1) for h in r['history']]}, peak {r['peak']:.2f} GiB "
+                  f"({r['reserved']:.2f} reserved), the data group's calls by step "
+                  f"{r['step_calls']} ({dict(sorted(r['calls'].items()))} in all) (4 processes "
+                  f"time-sharing one card, gloo staging through the host: not a transport "
+                  f"speed)", flush=True)
+        print(f"  {label}: losses {[h['loss'] for h in hist]!r}, max_int "
+              f"{[h['max_int'] for h in hist]}", flush=True)
+    first = next(iter(step0.values()))
+    worst = max(abs(v - first) / abs(first) for v in step0.values())
+    checks.true(f"tp-baseline: the {len(step0)} paths' step-0 losses (the exact step) within "
+                f"{worst:.3g} <= {TP_BASELINE_STEP0_RTOL:g} relative of each other",
+                worst <= TP_BASELINE_STEP0_RTOL)
+    for name, _ in TP_BASELINE_SMOKE:
+        for r, (dp_i, tp_i) in zip(ranks, (divmod(i, tp) for i in range(n_dp * tp))):
+            card, cpu = r["smoke"][name]
+            gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+            checks.true(f"tp-baseline smoke {TP_BASELINE_ARCH} ({TP_BASELINE_LAYERS} L) {name}: "
+                        f"rank ({dp_i}, {tp_i}) losses on the card {card!r}, on the CPU "
+                        f"{cpu!r}, largest relative gap {gap:.3g} < {TP_BASELINE_SMOKE_TOL:g}",
+                        all(math.isfinite(x) for x in card) and gap < TP_BASELINE_SMOKE_TOL)
+    print(f"tp-baseline: the smoke grids {max(r['smoke_s'] for r in ranks):.1f}s", flush=True)
+    return launches
+
+
+# phases 11 and 23-26 in one spawn, in this order: (key, label printed)
+GRID_PHASES = (("11", "ranks phase"), ("23", "tensor parallelism phase"),
+               ("24", "tp checkpoint and serve phase"), ("25", "tp recurrent serve phase"),
+               ("26", "tp baselines phase"))
+# the spawn's limit: the sum of the four spawns it replaced (900 + 900 + 900 +
+# 600 s) and phase 26's 600
+GRID_TIMEOUT_S = 3900
+
+
+def grid_rank(group, rank, device, tmp, fed24, fed25, frames25):
+    """One rank of phases 11 and 23-26: phase 11's corners on the flat
+    group of four, then the grid phases on the 2 x 2 grid, in turn, its
+    memory freed between them; each body's result and seconds, and the
+    wall-clock time of this function's first line."""
+    t_first = time.time()
+    # cuBLAS's deterministic workspace (phase 24's checkpoint runs' deterministic
+    # algorithms), read when the process makes its first cuBLAS handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    bodies = {"11": lambda: rank_corners(group, rank, RANK_CORNERS, device),
+              "23": lambda: tp_rank_paths(group, rank, TP_PATHS, device),
+              "24": lambda: tp_ckpt_serve_rank(group, rank, device, tmp, fed24),
+              "25": lambda: tp_recurrent_serve_rank(group, rank, device, fed25, frames25),
+              "26": lambda: tp_baselines_rank(group, rank, device)}
+    out = dict(t_first=t_first, seconds={})
+    for key, _ in GRID_PHASES:
+        t0 = time.perf_counter()
+        out[key] = bodies[key]()
+        out["seconds"][key] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def grid_phases(torch, ops, checks, device) -> dict:
+    """Phases 11 and 23-26: every reference in this process first (phase
+    11's local backend, the grid phases' tp = 1 runs), then one spawn of
+    four gloo ranks running the five phase bodies in turn
+    (:func:`grid_rank`), then each phase's checks. Returns each phase's
+    launch counts by key."""
+    import shutil
+    import tempfile
+
+    from repro_torch.parallel.spawn import run_ranks
+
+    n_dp, tp = TP_GRID
+    refs_s = {}
+    t0 = time.perf_counter()
+    local11, launches11 = ranks_references(torch, ops, checks, device)
+    refs_s["11"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step0, launches23 = tp_references(torch, ops, device)
+    refs_s["23"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve24, tp1_24 = tp_ckpt_serve_references(torch, device)
+    refs_s["24"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve25, frames25, tp1_25 = tp_recurrent_references(torch, device)
+    refs_s["25"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp_baselines_refusal(torch, checks)
+    refs_s["26"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    print(f"grid phases: before the spawn this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the card has "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_", dir=ROOT / "build")
+    t_spawn = time.time()
+    try:
+        ranks = run_ranks(grid_rank, n_dp * tp, args=(
+            str(device), tmp, {k: v["fed"] for k, v in tp1_24.items()},
+            {k: v["fed"] for k, v in tp1_25.items()}, frames25), backend="gloo",
+            timeout_s=GRID_TIMEOUT_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spawn_s = time.time() - t_spawn
+    start = [r["t_first"] - t_spawn for r in ranks]
+    inside = {key: max(r["seconds"][key] for r in ranks) for key, _ in GRID_PHASES}
+    print(f"grid phases: one spawn of {n_dp * tp} gloo ranks on one card, {spawn_s:.1f}s; "
+          f"start-up (spawn to each rank's first line) {[round(x, 1) for x in start]} s; "
+          f"inside the ranks (the max over ranks) "
+          f"{ {k: round(v, 1) for k, v in inside.items()} } s", flush=True)
+    phase_checks = {
+        "11": lambda res: ranks_checks(torch, ops, checks, res, local11, free),
+        "23": lambda res: tp_checks(torch, ops, checks, res, step0, free),
+        "24": lambda res: tp_ckpt_serve_checks(torch, ops, checks, res, serve24, tp1_24),
+        "25": lambda res: tp_recurrent_checks(torch, checks, res, serve25, tp1_25),
+        "26": lambda res: tp_baselines_checks(torch, ops, checks, res),
+    }
+    ref_launches = {"11": launches11, "23": launches23}
+    launches = {}
+    for key, label in GRID_PHASES:
+        t0 = time.perf_counter()
+        in_ranks = phase_checks[key]([r[key] for r in ranks])
+        checks_s = time.perf_counter() - t0
+        launches[key] = ref_launches.get(key, collections.Counter()) + in_ranks
+        print(f"{label}: {refs_s[key] + inside[key] + checks_s:.1f}s ({refs_s[key]:.1f}s "
+              f"of references here, {inside[key]:.1f}s inside the ranks, {checks_s:.1f}s of "
+              f"checks); the four ranks' launches {dict(+in_ranks)}", flush=True)
+    print(f"grid phases: {time.time() - t_spawn + sum(refs_s.values()):.1f}s in all (the "
+          f"spawn's start-up {max(start):.1f}s)", flush=True)
     return launches
 
 
@@ -4963,11 +5343,8 @@ def main() -> None:
     wire_phase(torch, checks, device)
     print(f"wire phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 11. four real ranks (gloo) sharing the card, against the local backend
-    t0 = time.perf_counter()
-    for name, c in ranks_phase(torch, ops, checks, device).items():
-        launches[name] += c
-    print(f"ranks phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    # 11. four real ranks (gloo) sharing the card, against the local
+    # backend: in the grid phases' spawn, first in its ranks (below)
 
     # 12. a one-rank NCCL group: int32 and int8 payloads, and a ZeRO-1 path
     t0 = time.perf_counter()
@@ -5060,23 +5437,14 @@ def main() -> None:
         launches[name] += c
     print(f"recurrent and encdec decode phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 23. tensor parallelism on a 2 x 2 grid of gloo ranks sharing the card
-    t0 = time.perf_counter()
-    for name, c in tp_phase(torch, ops, checks, device).items():
-        launches[name] += c
-    print(f"tensor parallelism phase: {time.perf_counter() - t0:.1f}s", flush=True)
-
-    # 24. checkpoints and the elastic resume on the grid, and TP serving
-    t0 = time.perf_counter()
-    for name, c in tp_ckpt_serve_phase(torch, ops, checks, device).items():
-        launches[name] += c
-    print(f"tp checkpoint and serve phase: {time.perf_counter() - t0:.1f}s", flush=True)
-
-    # 25. the hybrid, ssm and encoder-decoder decode on the grid
-    t0 = time.perf_counter()
-    for name, c in tp_recurrent_serve_phase(torch, ops, checks, device).items():
-        launches[name] += c
-    print(f"tp recurrent serve phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    # 11 and 23-26, one spawn of four gloo ranks sharing the card: 11 the
+    # ranks on a flat group against the local backend, then on a 2 x 2 grid
+    # 23 tensor parallelism, 24 checkpoints, the elastic resume and TP
+    # serving, 25 the hybrid, ssm and encoder-decoder decode, 26 the paper's
+    # other compressors
+    for counts in grid_phases(torch, ops, checks, device).values():
+        for name, c in counts.items():
+            launches[name] += c
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 

@@ -45,7 +45,13 @@ holds it under ``build_train_step(...).arg_structs[1:3]`` at the same
     package's ``zero1_state_specs``);
   * every compressor entry carries a leading data axis of n_dp: the
     per-worker entries their rows, the replicated ones (α's state,
-    IntDIANA's global shift) each data replica's copy.
+    IntDIANA's global shift, PowerSGD's Q) each data replica's copy;
+  * PowerSGD's Q (cols, rank) is gathered along its rows where its param
+    is sharded past its rows, else kept whole: model rank 0's copy, as
+    the JAX package's ``np.asarray`` holds it, though each model rank's
+    own Q differs once a step has run (a param sharded on its rows, such
+    as ``embed``), so a resumed PowerSGD run at tp > 1 differs from the
+    uninterrupted one on those leaves, in both packages.
 
 Rank (0, 0) writes. ``restore`` reads the global array and keeps this
 rank's model slice and its own rows; a replicated compressor entry is read
@@ -69,6 +75,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.compressor import PowerSGD
 from repro_torch.parallel import collectives as coll
 
 Arrays = Dict[str, torch.Tensor]
@@ -137,9 +144,11 @@ def rank_rows(key: str) -> bool:
 def model_dim(key: str, ndim: int, specs: Dict[str, Optional[int]]) -> Optional[int]:
     """The dimension of the train-state leaf ``key`` (of ``ndim`` dims)
     that the model axis shards in the global layout: 1 for a ZeRO-1 row
-    (its columns), else its param's spec (``key`` ends in the param's
-    name) after the rows' axis if it has one; None for a replicated leaf
-    or a scalar (AdamW's count, α's state, blockwise α's per-leaf r)."""
+    (its columns), PowerSGD's Q's rows where its param is sharded past its
+    rows (``PowerSGD.q_model_dim``), else its param's spec (``key`` ends in
+    the param's name) after the rows' axis if it has one; None for a
+    replicated leaf or a scalar (AdamW's count, α's state, blockwise α's
+    per-leaf r)."""
     parts = key.split("/")
     if parts[0] == "opt" and rank_rows(key):
         return 1
@@ -147,6 +156,8 @@ def model_dim(key: str, ndim: int, specs: Dict[str, Optional[int]]) -> Optional[
                  if n in specs), None)
     if name is None or specs[name] is None:
         return None
+    if parts[:2] == ["comp", "q"]:  # PowerSGD's Q (cols, rank)
+        return PowerSGD.q_model_dim(specs[name])
     dim = specs[name] + (1 if rank_rows(key) else 0)
     return dim if dim < ndim else None
 

@@ -785,7 +785,8 @@ class PowerSGD(Compressor):
     P̂ = QR(P).Q, Qn = mean_i M_iᵀ·P̂, approximation P̂·Qnᵀ, Qn the next Q.
     Smaller leaves are sent as a float mean. The means are summed in worker
     order on every backend. State ``{"q": {leaf: (cols, rank)}
-    (replicated), "err": {leaf: (n_local, *shape)} f32 or None}``. The
+    (replicated over the workers), "err": {leaf: (n_local, *shape)} f32 or
+    None}``; at tp > 1 each rank's Q is its shard's (:meth:`q_model_dim`). The
     local backend holds each local worker's g + e (in the error-feedback
     tree itself) for the second pass."""
 
@@ -794,8 +795,23 @@ class PowerSGD(Compressor):
     ef: bool = True
     min_compress_size: int = 4096  # small tensors stay uncompressed
 
+    def compresses(self, shape) -> bool:
+        """Whether a leaf of ``shape`` is sent as a rank-``rank`` product."""
+        return len(shape) >= 2 and math.prod(shape) >= self.min_compress_size
+
     def _is_matrix(self, x: torch.Tensor) -> bool:
-        return x.dim() >= 2 and x.numel() >= self.min_compress_size
+        return self.compresses(x.shape)
+
+    @staticmethod
+    def q_model_dim(param_spec):
+        """The dimension of Q (cols, rank) that the model axis shards, for
+        a param sharded on ``param_spec`` (None: replicated): 0 when the
+        param is sharded past its rows, so each shard has its own cols;
+        else None (the JAX package's ``_comp_state_shapes`` compares the
+        global and the local Q). A param sharded on its rows has a Q of the
+        same shape on every shard, which the JAX package's spec calls
+        replicated, yet each shard's next Q is its own M_localᵀ·P̂_local."""
+        return 0 if param_spec is not None and param_spec >= 1 else None
 
     def init(self, params, n_workers: int = 1):
         q = {k: initial_q((p.shape[0], p.numel() // p.shape[0]), self.rank).to(p.device)

@@ -54,13 +54,18 @@ partial gradients are summed over the model group
 factor, ||Δx_l||² for α) is summed over the model group, a replicated
 leaf's counted once (``_global_reduce_leaf_sq``); α's d and each d_l are
 the global padded counts (``specs.global_tree_dims``); max_int and the
-bit width are maxed over the model group. IntSGD on the dense and packed
-wires, blockwise α, IntDIANA and Heuristic IntSGD run at tp > 1; the
-other compressors raise (ROADMAP item 12.6d).
+bit width are maxed over the model group. Every compressor runs at
+tp > 1, as in the JAX package's TP step, on the rank's shards with the
+data group as its workers: QSGD's norm and SignSGD's scale are the
+shard's own, TopK keeps k of each shard, IntSGD on a gather wire selects
+K within each shard, and PowerSGD's Q is the shard's own (cols, rank).
+PowerSGD refuses to build where the JAX package's step fails
+(``_check_tp_compressor``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -68,8 +73,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.comm import CommCtx
 from repro_torch.core.compressor import (
-    Compressor, HeuristicIntSGD, IntDIANA, IntSGD, aggregate_exact, max_over_workers,
-    new_peak, wire_bits, with_wire,
+    Compressor, PowerSGD, aggregate_exact, max_over_workers, new_peak, wire_bits, with_wire,
 )
 from repro_torch.core.stats import DxStats, TreeDims, local_dx_stats, scale_dx_stats
 from repro_torch.kernels import ops
@@ -535,7 +539,7 @@ def build_train_step(
             raise ValueError("pass the grid or a group, not both: the grid's data group "
                              "carries the workers")
         group = grid.data_group
-        _check_tp_compressor(compressor, tp)
+        _check_tp_compressor(compressor, cfg, tp)
     if group is None:
         ctx = CommCtx(n_workers=n_workers, overlap=overlap, bucket_words=bucket_words)
     else:
@@ -585,20 +589,23 @@ def build_train_step(
                          layout=layout)
 
 
-def _check_tp_compressor(compressor: Compressor, tp: int) -> None:
-    """At tp > 1 only the compressors held to the JAX package's TP step run:
-    IntSGD on a dense or packed wire (either α rule), IntDIANA and
-    Heuristic IntSGD."""
-    if tp == 1:
+def _check_tp_compressor(compressor: Compressor, cfg: ModelConfig, tp: int) -> None:
+    """Every compressor runs at tp > 1 on the rank's shards, as in the JAX
+    package's TP step, but PowerSGD where that step fails at build: a leaf
+    that is a matrix of at least ``min_compress_size`` elements globally
+    but not on its shard (JAX's ``_comp_state_shapes`` then maps its
+    global Q against the shard's None)."""
+    if tp == 1 or not isinstance(compressor, PowerSGD):
         return
-    wf = getattr(compressor, "wire_format", None)
-    psum_wire = wf is not None and getattr(wf, "transport", "psum") == "psum"
-    if not (isinstance(compressor, (IntSGD, IntDIANA, HeuristicIntSGD)) and psum_wire):
-        on = f" on the {wf.name} wire" if wf is not None else ""
-        raise NotImplementedError(
-            f"compressor {compressor.name!r}{on} at tp = {tp} is not ported yet (tensor "
-            "parallelism runs IntSGD on dense and packed wires, IntDIANA and Heuristic "
-            "IntSGD; the other compressors at tp > 1 are ROADMAP item 12.6d)")
+    g_shapes, l_shapes, _ = specs_mod.infer_param_specs(cfg, tp)
+    for k, g in g_shapes.items():
+        if compressor.compresses(g) and not compressor.compresses(l_shapes[k]):
+            raise NotImplementedError(
+                f"PowerSGD at tp = {tp}: leaf {k!r} is a matrix of {math.prod(g)} elements "
+                f"globally but of {math.prod(l_shapes[k])} on its shard, below "
+                f"min_compress_size = {compressor.min_compress_size}; the JAX package's TP "
+                "step fails to build here (its global Q has no local counterpart): lower "
+                "min_compress_size below the shard's size or raise it above the global one")
 
 
 def _check_group_wire(compressor: Compressor) -> None:

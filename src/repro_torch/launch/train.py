@@ -58,7 +58,10 @@ synthetic token data does not carry: drive it with
 ``--resume`` starts from its latest step.
 
 ``--model M`` (tensor parallelism; every family the synthetic token data
-drives, so zamba2 and xlstm too, not seamless) runs under
+drives, so zamba2 and xlstm too, not seamless; every compressor, but
+PowerSGD where a leaf is a matrix of ``min_compress_size`` elements
+globally and not on its shard, which raises as the JAX package fails
+there) runs under
 ``torchrun`` on a ``--data`` × ``--model`` grid of ranks
 (``launch.mesh.make_debug_mesh``): the world size is data · model, each
 rank holds its shard of the model axis, and ``--data`` (or ``--workers``)
@@ -86,7 +89,7 @@ import torch
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs.base import ShapeConfig, get_arch, ported_archs, smoke_config
 from repro_torch.core.compressor import (
-    compressor_names, leaf_seeds, make_compressor, with_wire,
+    Compressor, compressor_names, leaf_seeds, make_compressor, with_wire,
 )
 from repro_torch.data.synthetic import SyntheticLMData
 from repro_torch.launch import specs
@@ -113,7 +116,7 @@ def train_loop(
     shape: ShapeConfig,
     *,
     n_workers: int = 1,
-    compressor: str = "intsgd8_packed",
+    compressor="intsgd8_packed",
     steps: int,
     lr: float = 0.3,
     log_every: int = 5,
@@ -135,8 +138,10 @@ def train_loop(
     grid=None,
 ):
     """Train ``cfg`` for ``steps`` steps (step 0 exact, the rest compressed)
-    on synthetic data, on the ZeRO-1 route or, with ``fused=True``, the
-    fused one; the n workers simulated in turn, or one per rank of a
+    with ``compressor`` (a registry name, or a ``Compressor`` with options of
+    its own, such as PowerSGD's ``min_compress_size``) on synthetic data,
+    on the ZeRO-1 route or, with ``fused=True``, the fused one; the n
+    workers simulated in turn, or one per rank of a
     ``torch.distributed`` ``group`` (every rank draws the same weights,
     batches and encode seeds and uses its own share; only rank 0 prints).
     Weights come from a ``torch.Generator`` seeded with ``seed`` on the
@@ -190,7 +195,7 @@ def train_loop(
             raise ValueError(f"{n_workers} workers on a grid of {grid.n_dp} dp replicas")
     if opt not in OPTIMIZERS:
         raise ValueError(f"optimizer {opt!r}; options {sorted(OPTIMIZERS)}")
-    comp = make_compressor(compressor)
+    comp = compressor if isinstance(compressor, Compressor) else make_compressor(compressor)
     if wire is not None:
         wf = make_wire_format(wire)
         if compressor in WIDTH_FROM_WIRE:

@@ -68,6 +68,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.compressor import PowerSGD
 from repro_torch.core.scaling import AlphaState
 from repro_torch.models.attention import attention_train
 from repro_torch.models.common import (
@@ -592,7 +593,10 @@ def comp_state_from_jax(state_of_numpy, device, rank=None, shard: Optional[TpSha
     is the error-feedback tree itself, stacked. The float baselines' (and
     Heuristic IntSGD's, QSGD's, NatSGD's) is empty. With ``shard``, every
     per-leaf tensor is the rank's slice over the model axis (α's state is
-    replicated)."""
+    replicated), PowerSGD's Q along its own model dimension
+    (``PowerSGD.q_model_dim``: its rows where the param is sharded past
+    its rows; else the global array's copy, which is model rank 0's where
+    the JAX devices' buffers differ)."""
     if isinstance(state_of_numpy, tuple) and not state_of_numpy:
         return ()
     if not isinstance(state_of_numpy, dict):
@@ -609,7 +613,11 @@ def comp_state_from_jax(state_of_numpy, device, rank=None, shard: Optional[TpSha
                 "ef": stacked(state_of_numpy["ef"])}
     if set(state_of_numpy) == {"q", "err"}:
         err = state_of_numpy["err"]
-        return {"q": first(_drop_none(state_of_numpy["q"])),
+        q = params_from_jax(_drop_none(state_of_numpy["q"]), device, lead=1)
+        q_shard = None if shard is None else dataclasses.replace(
+            shard, specs={k: PowerSGD.q_model_dim(shard.specs[k]) for k in q})
+        return {"q": {k: (v if q_shard is None else q_shard.take(k, v, 1))[0].clone()
+                      for k, v in q.items()},
                 "err": None if err is None else stacked(err)}
     if "alpha" not in state_of_numpy:  # an error-feedback tree
         return stacked(state_of_numpy)

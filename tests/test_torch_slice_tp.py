@@ -46,8 +46,16 @@ step's learning rate.
 The reference's factor: from the same global params and batch, the exact
 SGD update (momentum 0, lr 1, no clip) on 1 × 2 over the one on 1 × 1 is 2
 within 1e-2 for every leaf, in both packages.
+
+Every compressor of the JAX package's TP step builds at tp = 2 (the
+paper's baselines and IntSGD on a gather wire are held to JAX's step in
+``tests/test_torch_tp_baselines.py`` and
+``tests/test_torch_tp_baselines_reduce.py``); the one refusal left is
+PowerSGD where the reference fails to build, which this file's JAX
+subprocess pins on the reference's side.
 """
 import dataclasses
+import math
 import pickle
 import types
 
@@ -205,6 +213,19 @@ for tp in (1, 2):
 out["factor"] = dict(params0=flat(params0),
                      ratio={{k: float(np.linalg.norm(updates[2][k]) / np.linalg.norm(updates[1][k]))
                             for k in updates[1]}})
+# PowerSGD at its default min_compress_size on granite smoke at 2 layers, 2 x 2:
+# the reference fails to build (a leaf that is a matrix globally but not on its
+# shard: _comp_state_shapes maps its global Q against the shard's None)
+from repro.core.compressor import PowerSGD
+try:
+    jstep.build_train_step(dataclasses.replace(smoke_config(get_arch("granite-8b")), n_layers=2),
+                           jax.make_mesh((2, 2), ("data", "model")),
+                           ShapeConfig("tp", {seq}, {batch}, "train"), compressor=PowerSGD(),
+                           base_opt=sgd(momentum=0.9), lr_schedule=constant(0.1),
+                           param_dtype=jnp.float32, donate=False)
+    out["powersgd_build"] = None
+except Exception as e:
+    out["powersgd_build"] = type(e).__name__
 pickle.dump(out, open(path, "wb"))
 print("JAX_SLICE_TP_OK")
 """
@@ -427,22 +448,76 @@ def test_reference_gradient_is_tp_times_the_single_device_one(runs):
         assert abs(got - ratio[k]) < 1e-2, (k, got, ratio[k])
 
 
-def test_baselines_refuse_tp():
+def test_baselines_refuse_tp(runs):
+    """What stays refused at tp > 1 (ROADMAP item 12.6d): PowerSGD where
+    the JAX package's TP step fails to build, a leaf that is a matrix of
+    at least ``min_compress_size`` elements globally but not on its shard
+    (granite smoke at 2 layers and the default 4,096: ``layers/attn/wk``
+    has 4,096 elements globally and 2,048 on a shard). The port raises
+    ``NotImplementedError`` naming the leaf, its sizes and the option; the
+    reference raises an ``AttributeError`` in ``_comp_state_shapes``
+    (pinned in this file's JAX subprocess). The hybrid family builds at
+    tp = 2 (its leaves sharded by head)."""
     from repro_torch.launch.mesh import Grid
 
+    ref = runs[0]
+    assert ref["powersgd_build"] == "AttributeError"
     grid = Grid(n_dp=1, tp=2, dp_index=0, tp_index=0, data_group=None, model_group=None)
     kw = dict(n_workers=1, base_opt=sgd(), lr_schedule=constant(0.1), device="cpu", grid=grid)
     shape = ShapeConfig("tp", SEQ, BATCH, "train")
-    cfg = _cfg("granite-8b", 1, {})
-    for name, extra in (("qsgd", {}), ("powersgd", {}), ("none", {}),
-                        ("intsgd", {"bits": 8, "wire": "topk8:16"})):
-        with pytest.raises(NotImplementedError, match="12.6d"):
-            build_train_step(cfg, shape, compressor=make_compressor(name, **extra), **kw)
-    # the hybrid family builds at tp = 2 (its leaves sharded by head)
+    with pytest.raises(NotImplementedError,
+                       match=r"'layers/attn/wk' .* 4096 elements globally but of 2048 .* "
+                             r"min_compress_size = 4096"):
+        build_train_step(_cfg("granite-8b", 2, {}), shape, compressor=make_compressor(
+            "powersgd"), **kw)
+    # at 4 layers every leaf is a matrix on its shard too, and it builds
+    build_train_step(_cfg("granite-8b", 4, {}), shape, compressor=make_compressor("powersgd"),
+                     **kw)
     art = build_train_step(_cfg("zamba2-2.7b", 4, {}), shape,
                            compressor=make_compressor("intsgd8_packed"), **kw)
     assert art.layout.tp == 2 and "layers/m/w_xz" not in art.layout.rep
     assert {"layers/m/w_bc", "shared_attn/w_in"} <= art.layout.rep
+
+
+# every compressor the JAX package's TP step runs, by make_compressor name
+# and arguments (the steps themselves: tests/test_torch_tp_baselines.py and
+# tests/test_torch_tp_baselines_reduce.py)
+TP_BUILDS = {
+    "none": ("none", {}), "allgather_sgd": ("allgather_sgd", {}), "qsgd": ("qsgd", {}),
+    "qsgd-packed8": ("qsgd", {"wire": "packed8"}), "natsgd": ("natsgd", {}),
+    "powersgd-256": ("powersgd", {"min_compress_size": 256}), "signsgd": ("signsgd", {}),
+    "topk": ("topk", {}), "intsgd-topk8": ("intsgd", {"bits": 8, "wire": "topk8:16"}),
+    "intsgd-topk16": ("intsgd", {"bits": 16, "wire": "topk16:16"}),
+}
+
+
+@pytest.mark.parametrize("name", list(TP_BUILDS))
+def test_every_baseline_builds_at_tp_2(name):
+    """Each compressor builds on granite smoke at 2 layers on a 1 × 2 grid
+    and inits its state on the rank's shard: the error-feedback trees
+    param-shaped per local leaf, PowerSGD's Q (cols, rank) of the shard."""
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.step import build_init_state
+
+    comp_name, extra = TP_BUILDS[name]
+    grid = Grid(n_dp=1, tp=2, dp_index=0, tp_index=0, data_group=None, model_group=None)
+    cfg = _cfg("granite-8b", 2, {})
+    comp = make_compressor(comp_name, **extra)
+    art = build_train_step(cfg, ShapeConfig("tp", SEQ, BATCH, "train"), n_workers=1,
+                           compressor=comp, base_opt=sgd(), lr_schedule=constant(0.1),
+                           device="cpu", grid=grid)
+    assert art.layout.tp == 2
+    local = specs.infer_param_specs(cfg, 2)[1]
+    params = {k: torch.zeros(s) for k, s in local.items()}
+    _, state = build_init_state(params, n_workers=1, compressor=comp, base_opt=sgd(),
+                                grid=grid)
+    ef = {"topk": state, "signsgd": state, "powersgd": state.get("err") if state else None,
+          "intsgd": state.get("ef") if isinstance(state, dict) else None}.get(comp_name)
+    if ef is not None:
+        assert {k: tuple(v.shape[1:]) for k, v in ef.items()} == local
+    if comp_name == "powersgd":
+        assert {k: tuple(q.shape) for k, q in state["q"].items()} == {
+            k: (math.prod(s) // s[0], 2) for k, s in local.items() if comp.compresses(s)}
 
 
 def test_checkpoint_refuses_tp(tmp_path):
