@@ -349,19 +349,20 @@ Phases, each of which must pass for the exit code to be 0:
                build_train_step's exact step on the grid on the card and on
                the CPU from the same params, batch and seeds: losses within
                1e-2 (bf16) and 1e-3 (float32). Prints each rank's ms a step
-               and peak GiB, the all-to-all's ms and the psum_tp calls a
-               step.
+               and peak GiB (granite's and deepseek's with phase 24's
+               checkpoint saved), the all-to-all's ms and the psum_tp calls
+               a step.
  24. checkpoints and TP serving on the grid — four gloo ranks on the 2 × 2
                grid again (one spawn). Checkpoints in the JAX package's
                global layout (CheckpointStore(grid=, specs=)), with
-               PyTorch's deterministic algorithms on: granite-8b at 2
-               layers, bf16, fused SGD packed8, and deepseek-v2-lite-16b at
-               1 layer, float32, ZeRO-1 AdamW packed8, seq 2048, each an
-               uninterrupted 3-step train_loop that saves after its second
-               step, then a fresh grid (new process groups) resuming it
-               for the third: that step's loss and every rank's params'
-               checksums equal the uninterrupted run's, both runs' kernel
-               launches exact; s to host, to disk and to restore and the
+               PyTorch's deterministic algorithms on: phase 23's granite-8b
+               (2 layers, bf16, fused SGD packed8) and deepseek-v2-lite-16b
+               (1 layer, float32, ZeRO-1 AdamW packed8) runs at seq 2048 are
+               the uninterrupted 3-step train_loops, deterministic, that
+               save after their second step; a fresh grid (new process
+               groups) resumes each for the third: that step's loss and
+               every rank's params' checksums equal the uninterrupted
+               run's, both runs' kernel launches exact; s to host, to disk and to restore and the
                bytes printed. Then the elastic resume 2 × 2 -> 1 × 2 of
                granite's checkpoint (rank 3 lost: runtime.elastic's plan,
                make_debug_mesh over the two survivors): finite, equal
@@ -429,14 +430,38 @@ Phases, each of which must pass for the exit code to be 0:
                seeds (counter-PRNG uniforms, the same on both): losses
                within 1e-3. Prints ms a step a rank, peak GiB a rank and
                the data group's calls a step.
+ 27. pipeline parallelism — granite-8b's decoder layer at published width
+               (d 4096, 32 heads, GQA 8, d_ff 14336), 8 layers, float32, 2
+               a stage on the flat group of four ranks as the stage group,
+               6 microbatches of (1, 512) tokens' hidden states through
+               ``parallel.pp.pipeline_forward`` with the port's
+               ``transformer._layer``, then the backward of Σ out² on every
+               rank. The parent computes the sequential 8-layer stack per
+               microbatch and its gradients on the card first (the same
+               seeded layers), frees the card and leaves them in files the
+               ranks read. Checks: the last stage's output within rtol 1e-4
+               and atol 1e-5 (the reference test's), every stage's
+               parameter gradients and stage 0's input gradient within
+               1e-4 of the leaf's largest |gradient| (float32 sums in
+               another order: the SDPA backward's atomics), stages 0-2's
+               outputs zeros, one ring send a tick each way. Prints ms of
+               the forward and of the backward, the bubble fraction, the
+               ring bytes a tick and the peak GiB a rank. Four processes
+               share one card through gloo: not a transport speed.
 
-Phases 11 and 23-26 run in one spawn of four gloo ranks, after phase 22:
+The dry run (``python -m repro_torch.launch.dryrun --all``: every runnable
+cell's per-rank argument bytes on the data 16 × model 16 layout, on meta
+tensors) runs once after phase 22, in this process (no card touched); every
+cell must give a line without an error.
+
+Phases 11 and 23-27 run in one spawn of four gloo ranks, after the dry run:
 the parent computes every reference first (phase 11's local backend,
 phase 23's step-0 losses at tp = 1, phases 24-25's float32 streams and
-frames, phase 26's refusal), each rank runs the five phase bodies in turn
-(phase 11's corners on the flat group of four, then the grid phases on
-the 2 × 2 grid), freeing its memory between them, and the parent checks
-each phase's results; it prints each phase's seconds inside the ranks (the
+frames, phase 26's refusal, phase 27's sequential stack), each rank runs
+the six phase bodies in turn (phase 11's corners on the flat group of
+four, then the grid phases on the 2 × 2 grid, then phase 27 on the flat
+group), freeing its memory between them, and the parent checks each
+phase's results; it prints each phase's seconds inside the ranks (the
 max over ranks), the spawn's start-up (spawn to each rank's first line)
 and the card's free memory before the spawn.
 
@@ -449,6 +474,7 @@ repository.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -2117,8 +2143,6 @@ def pin_check(torch, ops, checks, device) -> collections.Counter:
     (2 layers, 3 steps) in turns: pinned, free, free, pinned. Printed, not
     held (the runs differ by noise alone if the pin costs nothing). Returns
     the launch counts."""
-    import contextlib
-
     import repro_torch.models.attention as attention
 
     pinned = attention.sdpa_kernel
@@ -3947,15 +3971,20 @@ def tp_smoke_card_cpu(torch, grid, device) -> dict:
     return out
 
 
-def tp_rank_paths(group, rank, paths, device):
+def tp_rank_paths(group, rank, paths, device, tmp):
     """One rank of phase 23: each path (``tp_train``) on this rank's shard of
     the grid, on the shared card; per path the history, the params'
     checksums after every step, the kernel launches, the model axis's
     calls, the all-to-all's time, the MoE dropped pairs and the peak
-    memory; then the smoke configs card against CPU."""
+    memory; then the smoke configs card against CPU. A ``CKPT_PATHS`` path
+    is also phase 24's uninterrupted run: deterministic, saving a
+    checkpoint under ``tmp`` after its second step (the store's seconds and
+    bytes in its result)."""
     import torch
+    from repro_torch.checkpoint import CheckpointStore
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
+    from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import moe
     from repro_torch.parallel import collectives as coll
@@ -3999,10 +4028,18 @@ def tp_rank_paths(group, rank, paths, device):
             coll.reset_tp_counts()
             a2a_s.clear()
             dropped.clear()
-            params, history = tp_train(
-                torch, cfg, shape, n_workers=grid.n_dp, comp=comp, wire=wire, steps=steps,
-                lr=lr, fused=fused, opt=opt, dtype=dtype, device=device, grid=grid,
-                on_step=on_step)
+            ckpt = {}
+            if label in CKPT_PATHS:
+                ckpt = dict(ckpt=CheckpointStore(
+                    os.path.join(tmp, arch), grid=grid,
+                    specs=specs.infer_param_specs(cfg, grid.tp)[2]), ckpt_every=CKPT_STEPS - 1)
+            with deterministic(torch) if ckpt else contextlib.nullcontext():
+                params, history = tp_train(
+                    torch, cfg, shape, n_workers=grid.n_dp, comp=comp, wire=wire, steps=steps,
+                    lr=lr, fused=fused, opt=opt, dtype=dtype, device=device, grid=grid,
+                    on_step=on_step, **ckpt)
+            if ckpt:
+                ckpt["ckpt"].close()
             drops = torch.stack(dropped).sum(0).tolist() if dropped else [0, 0]
             out.append(dict(history=history, checksums=sums, n_leaves=len(params),
                             launches=ops.launch_counts(), bf16=ops.bf16_launch_counts(),
@@ -4010,7 +4047,8 @@ def tp_rank_paths(group, rank, paths, device):
                             dropped=drops, grid=(grid.dp_index, grid.tp_index),
                             dtypes=sorted({str(p.dtype) for p in params.values()}),
                             peak=torch.cuda.max_memory_allocated() / 2**30,
-                            reserved=torch.cuda.max_memory_reserved() / 2**30))
+                            reserved=torch.cuda.max_memory_reserved() / 2**30,
+                            stats=dict(ckpt["ckpt"].stats) if ckpt else None))
             del params
     finally:
         coll.exchange_tp, moe.dispatch_indices = exchange, dispatch_indices
@@ -4122,13 +4160,10 @@ def tp_checks(torch, ops, checks, ranks, step0, free) -> collections.Counter:
     return launches
 
 
-# phase 24: checkpoints and the elastic resume on the 2 x 2 grid, and TP serving:
-# (label, arch, layers, optimizer, lr, fused, param type), IntSGD on packed8
-CKPT_PATHS = (
-    ("tp-ckpt granite-fused-sgd-bf16", "granite-8b", 2, "sgd", 0.3, True, "bfloat16"),
-    ("tp-ckpt deepseek-zero1-adamw", "deepseek-v2-lite-16b", 1, "adamw", 3e-4, False,
-     "float32"),
-)
+# phase 24: checkpoints and the elastic resume on the 2 x 2 grid, and TP serving.
+# The TP_PATHS paths checkpointed: phase 23's run of each is the uninterrupted
+# one (deterministic, saving after its second step), so phase 24 resumes it
+CKPT_PATHS = ("tp granite-fused-sgd-bf16", "tp deepseek-zero1-adamw")
 CKPT_STEPS = 3  # the uninterrupted run; the checkpoint after its second step
 ELASTIC_FAILED = (3,)  # the lost rank: data replica 1 retires whole
 # (arch, layers): granite's 36 layers cut to 12 to keep the script's phases
@@ -4361,32 +4396,30 @@ def tp_serve_rank(torch, grid, device, arch, layers, batch, max_seq, prompts, n_
     return out
 
 
-def tp_ckpt_rank(torch, ops, grid, device, tmp) -> list:
-    """Each ``CKPT_PATHS`` path on this rank (:func:`tp_ckpt_path`), with
-    PyTorch's deterministic algorithms on."""
-    out = []
-    # a resumed step can equal the uninterrupted one only if the step is
-    # deterministic: the memory-efficient SDPA backward otherwise splits the
-    # keys and sums dQ with atomics (granite's bf16 params differed run to run
-    # on an H100; warn_only keeps the split). Uninitialized memory is
-    # left unfilled: every buffer here is written before it is read
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic algorithms on, for a checkpointed run: a
+    resumed step can equal the uninterrupted one only if the step is
+    deterministic (the memory-efficient SDPA backward otherwise splits the
+    keys and sums dQ with atomics: granite's bf16 params differed run to run
+    on an H100; warn_only keeps the split). Uninitialized memory is left
+    unfilled: every buffer here is written before it is read."""
     fill = torch.utils.deterministic.fill_uninitialized_memory
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
-        for path in CKPT_PATHS:
-            out.append(tp_ckpt_path(torch, ops, grid, device, tmp, *path))
+        yield
     finally:
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = fill
-    return out
 
 
-def tp_ckpt_path(torch, ops, grid, device, tmp, label, arch, layers, opt, lr, fused, dtype):
-    """One ``CKPT_PATHS`` path on this rank: the uninterrupted run of
-    ``CKPT_STEPS`` steps saving after its second, then a fresh grid (new
-    process groups) resuming that checkpoint for the last step; for the
-    fused path, after it, the elastic resume onto the survivors' 1 x 2
+def tp_ckpt_path(torch, ops, grid, device, tmp, path, straight):
+    """One ``CKPT_PATHS`` path (``path``, its ``TP_PATHS`` entry) on this
+    rank, deterministic: phase 23's uninterrupted run of ``CKPT_STEPS``
+    steps (``straight``, its result), which saved after its second,
+    resumed on a fresh grid (new process groups) for the last step; for
+    the fused path, after it, the elastic resume onto the survivors' 1 x 2
     grid. The losses, the params' checksums after every step, the launches
     of both runs and the store's seconds and bytes."""
     from repro_torch.checkpoint import CheckpointStore
@@ -4395,34 +4428,36 @@ def tp_ckpt_path(torch, ops, grid, device, tmp, label, arch, layers, opt, lr, fu
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.runtime.elastic import plan_after_failures
 
+    _, arch, layers, _, opt, comp, wire, lr, fused, dtype = path
     cfg = tp_cfg(arch, layers)
     spec = specs.infer_param_specs(cfg, grid.tp)[2]
     shape = ShapeConfig("chip-smoke", TP_SEQ, 2 * grid.n_dp, "train")
     d = os.path.join(tmp, arch)
-    res = dict(label=label)
-    kw = dict(comp="intsgd", wire="packed8", steps=CKPT_STEPS, lr=lr, fused=fused, opt=opt,
+    res = dict(straight=dict(
+        history=straight["history"], sums=straight["checksums"], launches=straight["launches"],
+        bf16=straight["bf16"], stats=straight["stats"], n_leaves=straight["n_leaves"]))
+    kw = dict(comp=comp, wire=wire, steps=CKPT_STEPS, lr=lr, fused=fused, opt=opt,
               dtype=dtype, device=device, ckpt_every=CKPT_STEPS - 1)
-    for run, g in (("straight", grid), ("resumed", make_debug_mesh(*TP_GRID))):
-        sums = []
+    g, sums = make_debug_mesh(*TP_GRID), []
 
-        def on_step(i, p):
-            sums.append(params_checksums(torch, p))
-            torch.cuda.empty_cache()  # four ranks share the card
+    def on_step(i, p):
+        sums.append(params_checksums(torch, p))
+        torch.cuda.empty_cache()  # four ranks share the card
 
-        gc.collect()
-        torch.cuda.empty_cache()
-        store = CheckpointStore(d, grid=g, specs=spec)
-        ops.reset_launch_counts()
-        params, hist = tp_train(torch, cfg, shape, n_workers=g.n_dp, grid=g,
-                                on_step=on_step, ckpt=store, resume=run == "resumed", **kw)
-        store.close()
-        res[run] = dict(history=hist, sums=sums, launches=ops.launch_counts(),
-                        bf16=ops.bf16_launch_counts(), stats=dict(store.stats),
-                        n_leaves=len(params))
-        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = CheckpointStore(d, grid=g, specs=spec)
+    ops.reset_launch_counts()
+    params, hist = tp_train(torch, cfg, shape, n_workers=g.n_dp, grid=g, on_step=on_step,
+                            ckpt=store, resume=True, **kw)
+    store.close()
+    res["resumed"] = dict(history=hist, sums=sums, launches=ops.launch_counts(),
+                          bf16=ops.bf16_launch_counts(), stats=dict(store.stats),
+                          n_leaves=len(params))
+    del params
     if fused:  # the elastic resume 2 x 2 -> 1 x 2 of this checkpoint
         plan = plan_after_failures(dp=grid.n_dp, tp=grid.tp, failed_devices=ELASTIC_FAILED,
-                                   global_batch=shape.global_batch, wire="packed8")
+                                   global_batch=shape.global_batch, wire=wire)
         alive = [r for r in range(grid.n_dp * grid.tp)
                  if r // grid.tp not in plan.retired_replicas]
         small = make_debug_mesh(plan.n_dp, plan.tp, ranks=alive)
@@ -4440,13 +4475,12 @@ def tp_ckpt_path(torch, ops, grid, device, tmp, label, arch, layers, opt, lr, fu
     return res
 
 
-def tp_ckpt_serve_rank(group, rank, device, tmp, fed):
-    """One rank of phase 24 on the 2 x 2 grid: the checkpoint paths, then
-    the TP decode of each ``SERVE_TP`` config and the sequence-sharded
-    decode (``fed``: each one's tp = 1 token stream, by key)."""
-    # cuBLAS's deterministic workspace (the checkpoint runs' deterministic
-    # algorithms), read when the process first makes a cuBLAS handle
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+def tp_ckpt_serve_rank(group, rank, device, tmp, fed, paths23):
+    """One rank of phase 24 on the 2 x 2 grid: the checkpoint paths
+    resumed from phase 23's runs (``paths23``, its results in ``TP_PATHS``
+    order), then the TP decode of each ``SERVE_TP`` config and the
+    sequence-sharded decode (``fed``: each one's tp = 1 token stream, by
+    key)."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops
@@ -4455,8 +4489,11 @@ def tp_ckpt_serve_rank(group, rank, device, tmp, fed):
     device = torch.device(device)
     torch.cuda.set_device(device)
     grid = make_debug_mesh(*TP_GRID)
-    out = dict(grid=(grid.dp_index, grid.tp_index), ckpt=tp_ckpt_rank(torch, ops, grid, device,
-                                                                       tmp))
+    labels = [p[0] for p in TP_PATHS]
+    with deterministic(torch):
+        ckpt = [tp_ckpt_path(torch, ops, grid, device, tmp, TP_PATHS[labels.index(label)],
+                             paths23[labels.index(label)]) for label in CKPT_PATHS]
+    out = dict(grid=(grid.dp_index, grid.tp_index), ckpt=ckpt)
     for arch, layers in SERVE_TP:
         out[arch] = tp_serve_rank(torch, grid, device, arch, layers, SERVE_TP_BATCH,
                                   SERVE_TP_MAX_SEQ, tp_prompts(get_arch(arch), SERVE_TP_BATCH),
@@ -4679,18 +4716,21 @@ def tp_ckpt_serve_checks(torch, ops, checks, ranks, serve, tp1) -> collections.C
     n_dp, tp = TP_GRID
     checks.true(f"tp-ckpt-serve: ranks on grid places {[r['grid'] for r in ranks]}",
                 [r["grid"] for r in ranks] == [divmod(i, tp) for i in range(n_dp * tp)])
-    for pi, (label, arch, layers, opt, lr, fused, dtype) in enumerate(CKPT_PATHS):
+    paths = {p[0]: p for p in TP_PATHS}
+    for pi, path in enumerate(CKPT_PATHS):
+        _, arch, layers, _, opt, comp, wire, lr, fused, dtype = paths[path]
+        label = f"tp-ckpt {path.split(' ', 1)[1]}"
         res = [r["ckpt"][pi] for r in ranks]
         n_leaves = res[0]["straight"]["n_leaves"]
         want3, _, want3_bf16 = expected_launches(
-            ops, n_leaves, CKPT_STEPS, opt, "intsgd", "packed8", fused=fused, microbatches=1,
+            ops, n_leaves, CKPT_STEPS, opt, comp, wire, fused=fused, microbatches=1,
             n_local=1, param_dtype=dtype, n_workers=n_dp)
         want1, want1_bf16 = (
             {k: a[k] - b[k] for k in a} for a, b in zip(
-                expected_launches(ops, n_leaves, 2, opt, "intsgd", "packed8", fused=fused,
+                expected_launches(ops, n_leaves, 2, opt, comp, wire, fused=fused,
                                   microbatches=1, n_local=1, param_dtype=dtype,
                                   n_workers=n_dp)[::2],
-                expected_launches(ops, n_leaves, 1, opt, "intsgd", "packed8", fused=fused,
+                expected_launches(ops, n_leaves, 1, opt, comp, wire, fused=fused,
                                   microbatches=1, n_local=1, param_dtype=dtype,
                                   n_workers=n_dp)[::2]))
         for r, (dp_i, tp_i) in zip(res, (divmod(i, tp) for i in range(n_dp * tp))):
@@ -4711,7 +4751,8 @@ def tp_ckpt_serve_checks(torch, ops, checks, ranks, serve, tp1) -> collections.C
                          for k in want)
                 checks.true(f"{label}: rank ({dp_i}, {tp_i}) {run} launches "
                             f"{r[run]['launches']} (expected {want})", ok)
-                launches.update(r[run]["launches"])
+            # the uninterrupted run's launches are phase 23's
+            launches.update(r["resumed"]["launches"])
         st, rs = res[0]["straight"]["stats"], [r["resumed"]["stats"] for r in res]
         checks.true(f"{label}: the writer's {st.get('bytes', 0):.0f} bytes saved and every "
                     f"rank restored", st.get("bytes", 0) > 0 and all("restore_s" in s for s in rs))
@@ -5024,13 +5065,15 @@ def tp_baselines_rank(group, rank, device):
     rep = [k for k, d in specs.infer_param_specs(cfg, grid.tp)[2].items() if d is None]
     shape = ShapeConfig("chip-smoke", TP_BASELINE_SEQ, 2 * TP_GRID[0], "train")
     calls = collections.Counter()
-    wrapped = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+    # each call counted by name, with its group's place among its arguments
+    group_arg = {"all_reduce": 2, "all_gather": 2, "all_to_all_single": 4}
+    wrapped = {name: getattr(dist, name) for name in group_arg}
 
     def counting(name):
-        fn = wrapped[name]
+        fn, at = wrapped[name], group_arg[name]
 
-        def call(*a, **kw):  # group is the third argument of both
-            if (kw["group"] if "group" in kw else a[2] if len(a) > 2 else None) is \
+        def call(*a, **kw):
+            if (kw["group"] if "group" in kw else a[at] if len(a) > at else None) is \
                     grid.data_group:
                 calls[name] += 1
             return fn(*a, **kw)
@@ -5171,18 +5214,214 @@ def tp_baselines_checks(torch, ops, checks, ranks) -> collections.Counter:
     return launches
 
 
-# phases 11 and 23-26 in one spawn, in this order: (key, label printed)
+# phase 27: pipeline parallelism on the flat group of four ranks as the stage
+# group (ROADMAP item 7): granite-8b's decoder layer at published width
+PP_ARCH, PP_LAYERS, PP_STAGES, PP_MICRO, PP_SEQ = "granite-8b", 8, 4, 6, 512
+PP_SEED = 2700
+PP_RTOL, PP_ATOL = 1e-4, 1e-5  # the last stage's output (the reference test's)
+# a gradient leaf's largest |error| over its largest |gradient|: float32 sums
+# of 3,072 tokens' terms in another order (the SDPA backward's atomic dQ sums)
+# differ by ~1e-7 of the leaf's scale; a microbatch or a layer missed or
+# counted twice moves it by O(1)
+PP_GRAD_TOL = 1e-4
+
+
+def pp_layer_fn(torch, cfg, device):
+    """The port's decoder layer at SINGLE axes on (1, PP_SEQ, d) states."""
+    from repro_torch.models.common import SINGLE
+    from repro_torch.models.transformer import _layer, resolve_dims
+
+    dims = resolve_dims(cfg, 1, 1)
+    positions = torch.arange(PP_SEQ, device=device).expand(1, PP_SEQ)
+    return lambda lp, h: _layer(lp, h, positions, cfg, dims, SINGLE)
+
+
+def pp_layer(torch, cfg, layer, device):
+    """Layer ``layer``'s float32 params, drawn on the card from its own seed
+    (so a rank draws its stage's layers alone): norms ones, matrices
+    N(0, 1/fan_in)."""
+    from repro_torch.launch import specs
+
+    gen = torch.Generator(device=device).manual_seed(PP_SEED + layer)
+    out = {}
+    for name, shape in sorted(specs.param_shapes(cfg).items()):
+        if not name.startswith("layers/"):
+            continue
+        shape = shape[1:]
+        if len(shape) == 1:
+            out[name[len("layers/"):]] = torch.ones(shape, device=device)
+        else:
+            out[name[len("layers/"):]] = torch.randn(
+                shape, generator=gen, device=device) / math.sqrt(shape[0])
+    return out
+
+
+def pp_inputs(torch, cfg, device):
+    gen = torch.Generator(device=device).manual_seed(PP_SEED - 1)
+    return torch.randn((PP_MICRO, 1, PP_SEQ, cfg.d_model), generator=gen, device=device)
+
+
+def pp_references(torch, device, tmp):
+    """Phase 27's reference on the card: the sequential 8-layer stack a
+    microbatch at a time, the gradients of Σ out² summed last microbatch
+    first (the pipeline's backward order); each stage's gradient rows, the
+    outputs and the input gradient written to ``tmp`` for the ranks, the
+    card freed."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch(PP_ARCH)
+    layer_fn = pp_layer_fn(torch, cfg, device)
+    layers = [pp_layer(torch, cfg, i, device) for i in range(PP_LAYERS)]
+    for lp in layers:
+        for v in lp.values():
+            v.requires_grad_(True)
+    x = pp_inputs(torch, cfg, device)
+    outs, g_x, grads = [None] * PP_MICRO, torch.zeros_like(x), None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for m in reversed(range(PP_MICRO)):
+        xm = x[m].clone().requires_grad_(True)
+        h = xm
+        for lp in layers:
+            h = layer_fn(lp, h)
+        outs[m] = h.detach()
+        leaves = [v for lp in layers for v in lp.values()]
+        gs = torch.autograd.grad((h ** 2).sum(), [xm, *leaves])
+        g_x[m] = gs[0]
+        grads = list(gs[1:]) if grads is None else [a.add_(b) for a, b in zip(grads, gs[1:])]
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    names = list(layers[0])
+    per = PP_LAYERS // PP_STAGES
+    for s in range(PP_STAGES):
+        rows = {k: torch.stack([grads[(s * per + j) * len(names) + i] for j in range(per)]).cpu()
+                for i, k in enumerate(names)}
+        ref = {"grads": rows}
+        if s == 0:
+            ref["g_x"] = g_x.cpu()
+        if s == PP_STAGES - 1:
+            ref["out"] = torch.stack(outs).cpu()
+        torch.save(ref, os.path.join(tmp, f"pp_stage{s}.pt"))
+    print(f"pipeline: the sequential reference ({PP_LAYERS} layers, {PP_MICRO} microbatches, "
+          f"forward and backward) {seq_s:.2f}s on the card", flush=True)
+    del layers, x, outs, g_x, grads, leaves, gs, h, xm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pp_rank(group, rank, device, tmp):
+    """One rank of phase 27: its stage's layers through ``pipeline_forward``
+    on the flat group, the backward of Σ out² (zeros on stages 0-2, which
+    take part all the same), each held here to the reference's file."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.pp import pipeline_forward
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = get_arch(PP_ARCH)
+    per = PP_LAYERS // PP_STAGES
+    mine = [pp_layer(torch, cfg, rank * per + j, device) for j in range(per)]
+    stage = {k: torch.stack([lp[k] for lp in mine]).requires_grad_(True) for k in mine[0]}
+    del mine
+    x = pp_inputs(torch, cfg, device).requires_grad_(True)
+    layer_fn = pp_layer_fn(torch, cfg, device)
+    coll.reset_tp_counts()
+    out = {}
+    for rep in range(2):  # the first call warms the allocator and the kernels
+        for v in [x, *stage.values()]:
+            v.grad = None
+        torch.cuda.synchronize()
+        coll.barrier(group)
+        t0 = time.perf_counter()
+        y = pipeline_forward(layer_fn, stage, x, group=group, n_stages=PP_STAGES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (y ** 2).sum().backward()
+        torch.cuda.synchronize()
+        out.setdefault("fwd_ms", []).append((t1 - t0) * 1e3)
+        out.setdefault("bwd_ms", []).append((time.perf_counter() - t1) * 1e3)
+    out["ring_calls"] = coll.tp_counts().get("ppermute_ring", 0)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    path = os.path.join(tmp, f"pp_stage{rank}.pt")
+    ref = torch.load(path)
+    os.remove(path)
+    gaps = {}
+    for k, v in stage.items():
+        want = ref["grads"][k].to(device)
+        gaps[k] = ((v.grad - want).abs().max().item(), want.abs().max().item(),
+                   bool(torch.equal(v.grad, want)))
+    out["grad_gaps"] = gaps
+    if rank == 0:
+        want = ref["g_x"].to(device)
+        out["gx_gap"] = ((x.grad - want).abs().max().item(), want.abs().max().item(),
+                         bool(torch.equal(x.grad, want)))
+    else:
+        out["gx_zero"] = int(torch.count_nonzero(x.grad))
+    if rank == PP_STAGES - 1:
+        want = ref["out"].to(device)
+        out["out_gap"] = (y - want).abs().max().item()
+        out["out_within"] = bool(torch.isclose(y, want, rtol=PP_RTOL, atol=PP_ATOL).all())
+        out["out_equal"] = bool(torch.equal(y, want))
+    else:
+        out["out_nonzero"] = int(torch.count_nonzero(y))
+    return out
+
+
+def pp_checks(torch, checks, ranks) -> collections.Counter:
+    """Phase 27's checks on each rank's :func:`pp_rank` result; the phase
+    launches no kernel of ours."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.parallel.pp import bubble_fraction
+
+    d = get_arch(PP_ARCH).d_model
+    ticks = PP_MICRO + PP_STAGES - 1
+    last = ranks[-1]
+    checks.true(f"pipeline: the last stage's output within rtol {PP_RTOL}, atol {PP_ATOL} of "
+                f"the sequential stack (max_abs_err {last['out_gap']}, bit-equal "
+                f"{last['out_equal']})", last["out_within"])
+    for s, r in enumerate(ranks[:-1]):
+        checks.true(f"pipeline: stage {s}'s output zeros", r["out_nonzero"] == 0)
+    for s, r in enumerate(ranks):
+        for k, (err, scale, equal) in r["grad_gaps"].items():
+            checks.true(f"pipeline: stage {s} gradient {k}: max_abs_err {err:.3g} of "
+                        f"max |grad| {scale:.3g} (tol {PP_GRAD_TOL} of it; bit-equal {equal})",
+                        err <= PP_GRAD_TOL * scale)
+        checks.true(f"pipeline: stage {s}: {r['ring_calls']} ring sends over 2 runs "
+                    f"(one a tick each way: {4 * ticks})", r["ring_calls"] == 4 * ticks)
+    err, scale, equal = ranks[0]["gx_gap"]
+    checks.true(f"pipeline: stage 0's input gradient: max_abs_err {err:.3g} of max |grad| "
+                f"{scale:.3g} (tol {PP_GRAD_TOL} of it; bit-equal {equal})",
+                err <= PP_GRAD_TOL * scale)
+    for s, r in enumerate(ranks[1:], 1):
+        checks.true(f"pipeline: stage {s}'s input gradient zeros", r["gx_zero"] == 0)
+    fwd = [[round(t, 1) for t in r["fwd_ms"]] for r in ranks]
+    bwd = [[round(t, 1) for t in r["bwd_ms"]] for r in ranks]
+    print(f"pipeline: {PP_LAYERS} layers of {PP_ARCH} (d {d}), {PP_LAYERS // PP_STAGES} a stage "
+          f"on {PP_STAGES} gloo ranks sharing one card (not a transport speed), {PP_MICRO} "
+          f"microbatches of (1, {PP_SEQ}); forward ms {fwd}, backward ms {bwd} (cold, warm) a "
+          f"rank; bubble fraction {bubble_fraction(PP_MICRO, PP_STAGES):.3f}; ring bytes a tick "
+          f"{PP_SEQ * d * 4:,}; peak GiB a rank {[round(r['peak_gib'], 2) for r in ranks]}",
+          flush=True)
+    return collections.Counter()
+
+
+# phases 11 and 23-27 in one spawn, in this order: (key, label printed)
 GRID_PHASES = (("11", "ranks phase"), ("23", "tensor parallelism phase"),
                ("24", "tp checkpoint and serve phase"), ("25", "tp recurrent serve phase"),
-               ("26", "tp baselines phase"))
+               ("26", "tp baselines phase"), ("27", "pipeline phase"))
 # the spawn's limit: the sum of the four spawns it replaced (900 + 900 + 900 +
-# 600 s) and phase 26's 600
-GRID_TIMEOUT_S = 3900
+# 600 s), phase 26's 600 and phase 27's 300
+GRID_TIMEOUT_S = 4200
 
 
 def grid_rank(group, rank, device, tmp, fed24, fed25, frames25):
-    """One rank of phases 11 and 23-26: phase 11's corners on the flat
-    group of four, then the grid phases on the 2 x 2 grid, in turn, its
+    """One rank of phases 11 and 23-27: phase 11's corners on the flat
+    group of four, then the grid phases on the 2 x 2 grid, then phase 27
+    on the flat group, in turn, its
     memory freed between them; each body's result and seconds, and the
     wall-clock time of this function's first line."""
     t_first = time.time()
@@ -5192,10 +5431,12 @@ def grid_rank(group, rank, device, tmp, fed24, fed25, frames25):
     import torch
 
     bodies = {"11": lambda: rank_corners(group, rank, RANK_CORNERS, device),
-              "23": lambda: tp_rank_paths(group, rank, TP_PATHS, device),
-              "24": lambda: tp_ckpt_serve_rank(group, rank, device, tmp, fed24),
+              "23": lambda: tp_rank_paths(group, rank, TP_PATHS, device, tmp),
+              "24": lambda: tp_ckpt_serve_rank(group, rank, device, tmp, fed24,
+                                               out["23"]["paths"]),
               "25": lambda: tp_recurrent_serve_rank(group, rank, device, fed25, frames25),
-              "26": lambda: tp_baselines_rank(group, rank, device)}
+              "26": lambda: tp_baselines_rank(group, rank, device),
+              "27": lambda: pp_rank(group, rank, device, tmp)}
     out = dict(t_first=t_first, seconds={})
     for key, _ in GRID_PHASES:
         t0 = time.perf_counter()
@@ -5207,14 +5448,23 @@ def grid_rank(group, rank, device, tmp, fed24, fed25, frames25):
 
 
 def grid_phases(torch, ops, checks, device) -> dict:
-    """Phases 11 and 23-26: every reference in this process first (phase
-    11's local backend, the grid phases' tp = 1 runs), then one spawn of
-    four gloo ranks running the five phase bodies in turn
-    (:func:`grid_rank`), then each phase's checks. Returns each phase's
-    launch counts by key."""
+    """Phases 11 and 23-27: every reference in this process first (phase
+    11's local backend, the grid phases' tp = 1 runs, phase 27's sequential
+    stack), then one spawn of four gloo ranks running the six phase bodies
+    in turn (:func:`grid_rank`), then each phase's checks, in a temporary
+    directory under ``build/`` removed after. Returns each phase's launch
+    counts by key."""
     import shutil
     import tempfile
 
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_grid_", dir=ROOT / "build")
+    try:
+        return _grid_phases(torch, ops, checks, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _grid_phases(torch, ops, checks, device, tmp) -> dict:
     from repro_torch.parallel.spawn import run_ranks
 
     n_dp, tp = TP_GRID
@@ -5234,6 +5484,9 @@ def grid_phases(torch, ops, checks, device) -> dict:
     t0 = time.perf_counter()
     tp_baselines_refusal(torch, checks)
     refs_s["26"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pp_references(torch, device, tmp)
+    refs_s["27"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5242,15 +5495,11 @@ def grid_phases(torch, ops, checks, device) -> dict:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the card has "
           f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free", flush=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_", dir=ROOT / "build")
     t_spawn = time.time()
-    try:
-        ranks = run_ranks(grid_rank, n_dp * tp, args=(
-            str(device), tmp, {k: v["fed"] for k, v in tp1_24.items()},
-            {k: v["fed"] for k, v in tp1_25.items()}, frames25), backend="gloo",
-            timeout_s=GRID_TIMEOUT_S)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = run_ranks(grid_rank, n_dp * tp, args=(
+        str(device), tmp, {k: v["fed"] for k, v in tp1_24.items()},
+        {k: v["fed"] for k, v in tp1_25.items()}, frames25), backend="gloo",
+        timeout_s=GRID_TIMEOUT_S)
     spawn_s = time.time() - t_spawn
     start = [r["t_first"] - t_spawn for r in ranks]
     inside = {key: max(r["seconds"][key] for r in ranks) for key, _ in GRID_PHASES}
@@ -5264,6 +5513,7 @@ def grid_phases(torch, ops, checks, device) -> dict:
         "24": lambda res: tp_ckpt_serve_checks(torch, ops, checks, res, serve24, tp1_24),
         "25": lambda res: tp_recurrent_checks(torch, checks, res, serve25, tp1_25),
         "26": lambda res: tp_baselines_checks(torch, ops, checks, res),
+        "27": lambda res: pp_checks(torch, checks, res),
     }
     ref_launches = {"11": launches11, "23": launches23}
     launches = {}
@@ -5278,6 +5528,34 @@ def grid_phases(torch, ops, checks, device) -> dict:
     print(f"grid phases: {time.time() - t_spawn + sum(refs_s.values()):.1f}s in all (the "
           f"spawn's start-up {max(start):.1f}s)", flush=True)
     return launches
+
+
+def dryrun_phase(checks) -> None:
+    """``python -m repro_torch.launch.dryrun --all`` in this process (its
+    ``main``, the output captured; meta tensors: no memory, no kernel, no
+    card): a line for every runnable cell, none with an error, printed as
+    a table."""
+    import io
+
+    from repro_torch.configs.base import runnable_cells
+    from repro_torch.launch import dryrun
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun.main(["--all"])
+    lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+    want = [(a, s) for a, s, runnable in runnable_cells() if runnable]
+    checks.true(f"dry run: a line for each of the {len(want)} runnable cells ({len(lines)} "
+                f"lines)", [(x["arch"], x["shape"]) for x in lines] == want)
+    for x in lines:
+        if "error" in x:
+            checks.true(f"dry run {x['arch']} {x['shape']}: {x['error']}", False)
+            continue
+        groups = ", ".join(f"{k} {v:.3f}" for k, v in x["gib_per_rank"].items())
+        print(f"  dry run {x['arch']} {x['shape']} ({x['grid']['ranks']} ranks): {groups} GiB a "
+              f"rank; arguments {x['args_gib_per_rank']:.3f} of {x['card_gib']:.2f} GiB "
+              f"({x['card']}; activations not counted) fit {x['args_fit_card']}; model FLOPs "
+              f"a chip {x['model_flops_per_chip']:.4g}", flush=True)
 
 
 def main() -> None:
@@ -5437,11 +5715,16 @@ def main() -> None:
         launches[name] += c
     print(f"recurrent and encdec decode phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 11 and 23-26, one spawn of four gloo ranks sharing the card: 11 the
+    # the dry run: every runnable cell's per-rank argument bytes
+    t0 = time.perf_counter()
+    dryrun_phase(checks)
+    print(f"dry run phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 11 and 23-27, one spawn of four gloo ranks sharing the card: 11 the
     # ranks on a flat group against the local backend, then on a 2 x 2 grid
     # 23 tensor parallelism, 24 checkpoints, the elastic resume and TP
     # serving, 25 the hybrid, ssm and encoder-decoder decode, 26 the paper's
-    # other compressors
+    # other compressors, then on the flat group 27 pipeline parallelism
     for counts in grid_phases(torch, ops, checks, device).values():
         for name, c in counts.items():
             launches[name] += c

@@ -51,6 +51,11 @@ class ModelConfig:
     remat_policy: str = "full"
     source: str = ""
 
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k (the ssm and hybrid families, a window)."""
+        return self.family in ("ssm", "hybrid") or self.window is not None
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -60,17 +65,25 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
 
 
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# in the JAX package's registry order (the order of its cells)
 _ARCH_MODULES = {
-    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
-    "granite-8b": "granite_8b",
-    "h2o-danube-3-4b": "h2o_danube_3_4b",
-    "internvl2-2b": "internvl2_2b",
-    "minitron-4b": "minitron_4b",
-    "mixtral-8x22b": "mixtral_8x22b",
     "qwen2.5-32b": "qwen2_5_32b",
-    "seamless-m4t-medium": "seamless_m4t_medium",
-    "xlstm-125m": "xlstm_125m",
+    "granite-8b": "granite_8b",
+    "minitron-4b": "minitron_4b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
     "zamba2-2.7b": "zamba2_2_7b",
+    "internvl2-2b": "internvl2_2b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "xlstm-125m": "xlstm_125m",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 
@@ -85,6 +98,20 @@ def get_arch(name: str) -> ModelConfig:
     return importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}"
     ).CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise ValueError(f"unknown shape {name!r}; options {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def runnable_cells() -> list:
+    """All 40 (arch, shape, runnable) cells; long_500k runs only where the
+    arch is subquadratic (a full-attention arch skips it, as in the JAX
+    package)."""
+    return [(a, s, s != "long_500k" or get_arch(a).subquadratic)
+            for a in _ARCH_MODULES for s in SHAPES]
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:

@@ -19,7 +19,9 @@ The model axis (tensor parallelism) has no local backend: its primitives
 group of a data × model grid of ranks (``launch/mesh.py``) and raise
 without one. :func:`psum_tp` is the JAX package's ``psum`` inside its
 step's ``shard_map`` (``check_vma=False``), whose transpose is again a
-``psum``: its backward sums the cotangents over the group too.
+``psum``: its backward sums the cotangents over the group too. The stage
+axis's ring send (:func:`ppermute_ring`, for ``parallel/pp.py``) likewise
+takes a stage group and raises without one.
 
 The integer-only guard carries over: gradient payloads summed here must be
 integer transport words — the paper's floatless wire is structural. On a
@@ -40,7 +42,7 @@ from repro_torch.kernels.ref import wrap_int
 Tree = Dict[str, torch.Tensor]
 # the integer lane types gloo and NCCL both sum
 GROUP_WIRE_DTYPES = (torch.int8, torch.int32)
-# elements per all_gather of the rank-ordered float mean
+# elements per exchange and gather of the rank-ordered float mean
 ORDERED_GATHER_CHUNK = 1 << 24
 
 
@@ -240,9 +242,9 @@ def pmean_tree(worker_trees: Iterable[Tree], n: int, group=None, *,
     """Float mean over the n workers. Locally the f32 sum runs in worker
     order. On a group it is ``all_reduce(SUM)/n`` in the library's order —
     what the uncompressed baseline pays every step — unless ``ordered``:
-    then each leaf is gathered and summed in rank order, one leaf at a time,
-    bit-identical to the local backend (the exact step 0, where one ULP
-    would move every later integer image; n× the bytes, once per run)."""
+    then each leaf is summed in rank order by :func:`_ordered_sum`, one
+    chunk at a time, bit-identical to the local backend (the exact step 0,
+    where one ULP would move every later integer image)."""
     if group is None:
         acc = None
         count = 0
@@ -266,17 +268,42 @@ def pmean_tree(worker_trees: Iterable[Tree], n: int, group=None, *,
     for k, v in tree.items():
         flat = v.reshape(-1)
         acc = torch.empty(flat.shape, dtype=torch.float32, device=flat.device)
-        # in chunks, so that n copies of one chunk (not of a whole leaf) are
+        # in chunks, so that n pieces of one chunk (not of a whole leaf) are
         # alive at a time; the sum is elementwise, so chunking changes no bit
         for off in range(0, flat.numel(), ORDERED_GATHER_CHUNK):
-            parts = _gather_leaf(flat[off:off + ORDERED_GATHER_CHUNK], n, group)
-            part_acc = acc[off:off + ORDERED_GATHER_CHUNK]
-            part_acc.copy_(parts[0])
-            for part in parts[1:]:
-                part_acc.add_(part.to(torch.float32))
-            del parts
+            acc[off:off + ORDERED_GATHER_CHUNK] = _ordered_sum(
+                flat[off:off + ORDERED_GATHER_CHUNK], n, group)
         out[k] = (acc / n).reshape(v.shape)
     return out
+
+
+def _ordered_sum(v: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The ranks' flat ``v`` summed in float32 in rank order, on every rank,
+    by exchange and gather: ``v`` is padded to n equal pieces, an
+    all-to-all hands rank r the r-th piece of every rank's ``v``, rank r
+    adds those n pieces in rank order, and the summed pieces are
+    all-gathered. Every element is still ``v_0 + v_1 + ... + v_{n-1}``
+    added left to right, as the local backend adds it; a rank receives
+    2(n - 1)/n of ``v``'s bytes, where a gather of every rank's ``v``
+    brings n - 1 times them."""
+    size = v.numel()
+    per = -(-size // n)
+    if size == n * per:
+        send = v.contiguous()
+    else:
+        send = torch.zeros(n * per, dtype=v.dtype, device=v.device)
+        send[:size] = v
+    pieces = torch.empty_like(send)
+    dist.all_to_all_single(pieces, send, group=group)
+    del send
+    pieces = pieces.view(n, per)
+    part = pieces[0].to(torch.float32, copy=True)
+    for piece in pieces[1:]:
+        part.add_(piece.to(torch.float32))
+    del pieces
+    summed = torch.empty((n, per), dtype=torch.float32, device=v.device)
+    dist.all_gather(list(summed.unbind(0)), part, group=group)
+    return summed.view(-1)[:size]
 
 
 def _check_size(n: int, group) -> None:
@@ -340,8 +367,9 @@ def all_gather_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # calls of the model-axis primitives since the last reset: "psum_tp" and
 # "psum_tp_backward" (one all-reduce each), "all_to_all_tp" and
-# "all_to_all_tp_backward", "pmax_tp"; and of the sequence-sharded decode's
-# data-group reductions, "psum_sp" and "pmax_sp"
+# "all_to_all_tp_backward", "pmax_tp"; of the sequence-sharded decode's
+# data-group reductions, "psum_sp" and "pmax_sp"; and of the pipeline's ring
+# sends over the stage group, "ppermute_ring" (either direction)
 _TP_COUNTS: Dict[str, int] = {}
 
 
@@ -496,3 +524,30 @@ def all_to_all_tp(x: torch.Tensor, group) -> torch.Tensor:
         raise ValueError(f"all_to_all_tp: dim 0 is {x.shape[0]}, the group has "
                          f"{dist.get_world_size(group)} ranks")
     return _AllToAllTp.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# the stage axis (pipeline parallelism)
+# ---------------------------------------------------------------------------
+def ppermute_ring(x: torch.Tensor, group, *, shift: int = 1) -> torch.Tensor:
+    """The pipeline's ring send over the stage group (the JAX package's
+    ``ppermute_ring``), outside autograd (the pipeline's backward runs the
+    inverse ring itself): rank r sends ``x`` to rank (r + shift) mod n and
+    returns what rank (r - shift) mod n sent, of the same shape and type.
+    One ``all_to_all_single`` whose only nonzero splits are the two
+    neighbours', so only ``x``'s bytes move, by the same call on gloo (which
+    takes card tensors in it; its ``send``/``recv`` does not) and NCCL.
+    There is no local backend: without a group it raises."""
+    if group is None:
+        raise ValueError(
+            "ppermute_ring over the stage axis needs the stage group of ranks; the local "
+            "backend simulates data-parallel workers only and holds no pipeline stages")
+    _count("ppermute_ring")
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    flat = x.detach().contiguous().view(-1)
+    out = torch.empty_like(flat)
+    send, recv = [0] * n, [0] * n
+    send[(r + shift) % n] = recv[(r - shift) % n] = flat.numel()
+    dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send,
+                           group=group)
+    return out.view(x.shape)

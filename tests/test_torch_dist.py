@@ -6,7 +6,8 @@ n-worker backend and against the JAX package's 4-device mesh.
    saturated packed8 fields and int32 words that wrap mod 2^32, int8 dense
    lanes at their extremes, a float payload refused, the bucketed wire equal
    to the serial one (dense8 and packed8, a ragged tail, several bucket
-   sizes), pmax, pmax_global, the rank-ordered gathers and means.
+   sizes), pmax, pmax_global, the rank-ordered gathers and means (the mean's
+   exchange and gather on ragged, multi-chunk, tiny and bf16 leaves).
 2. Three train steps of granite-8b (smoke widths, 2 layers, seq 32, global
    batch 4) on 4 ranks against the local backend at n = 4, same seed: bit
    for bit on the losses, every rank's params after every step, α, max_int,
@@ -117,11 +118,24 @@ def _float_tree(seed):
             for k, s in (("x", (9, 7)), ("y", (13,)))}
 
 
+def _edge_tree(seed):
+    """Leaves the rank-ordered mean pads to 4 equal pieces: a ragged one (not
+    a multiple of 4), one over a chunk at the default chunk size (its last
+    chunk 3 elements), one of fewer elements than ranks, and a bf16 one."""
+    rng = np.random.default_rng(seed)
+    shapes = {"ragged": (17, 59), "multi": (coll.ORDERED_GATHER_CHUNK + 3,), "tiny": (3,),
+              "bf16": (7, 9)}
+    out = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+           for k, s in shapes.items()}
+    out["bf16"] = out["bf16"].to(torch.bfloat16)
+    return out
+
+
 BUCKETS = (1, 64, 1000, 1 << 16)
 WIRES = {"dense8": DenseInt(8), "packed8": PackedInt(8)}
 
 
-def _collectives(group, rank, images, words, floats):
+def _collectives(group, rank, images, words, floats, edges):
     """Every collective on the group (or, with group None, the local
     backend over all n workers)."""
     mine = (lambda xs: [xs[rank]]) if group is not None else (lambda xs: xs)
@@ -146,6 +160,12 @@ def _collectives(group, rank, images, words, floats):
     coll.ORDERED_GATHER_CHUNK = 5  # a leaf gathered in ragged chunks
     out["pmean_ordered_chunked"] = ctx.pmean(mine(floats), ordered=True)
     coll.ORDERED_GATHER_CHUNK = chunk
+    out["pmean_ordered_edges"] = ctx.pmean(mine(edges), ordered=True)
+    # the small leaves over several chunks of 64 ("multi" would take 2^18)
+    coll.ORDERED_GATHER_CHUNK = 64
+    small = [{k: v for k, v in e.items() if k != "multi"} for e in edges]
+    out["pmean_ordered_edges_chunk64"] = ctx.pmean(mine(small), ordered=True)
+    coll.ORDERED_GATHER_CHUNK = chunk
     out["pmean"] = ctx.pmean(mine(floats))
     out["gather"] = ctx.all_gather(mine(floats))
     out["loss"] = ctx.mean_scalars(t["y"][0] for t in mine(floats))
@@ -158,8 +178,9 @@ def _collectives(group, rank, images, words, floats):
 def collectives_run():
     images, words = _images(), _wrap_words()
     floats = [_float_tree(20 + w) for w in range(N)]
-    ranks = run_ranks(_collectives, N, args=(images, words, floats))
-    return ranks, _collectives(None, 0, images, words, floats), images
+    edges = [_edge_tree(30 + w) for w in range(N)]
+    ranks = run_ranks(_collectives, N, args=(images, words, floats, edges))
+    return ranks, _collectives(None, 0, images, words, floats, edges), images
 
 
 def test_packed8_saturated_fields_and_int32_words_wrap_across_ranks(collectives_run):
@@ -219,6 +240,19 @@ def test_pmax_gathers_and_means_in_rank_order(collectives_run):
         # the library's float order: equal up to reassociation
         for k, v in r["pmean"].items():
             torch.testing.assert_close(v, local["pmean"][k], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("chunk", ["default", "chunk64"])
+def test_ordered_mean_pads_ragged_multi_chunk_and_tiny_leaves(collectives_run, chunk):
+    ranks, local, _ = collectives_run
+    key = "pmean_ordered_edges" + ("" if chunk == "default" else "_chunk64")
+    want = {k: v for k, v in local["pmean_ordered_edges"].items() if k in local[key]}
+    assert _equal_trees(local[key], want)  # the local sum is not chunked
+    assert want["bf16"].dtype == torch.float32 and want["ragged"].numel() > 64
+    if chunk == "default":
+        assert want["multi"].numel() > coll.ORDERED_GATHER_CHUNK
+    for r in ranks:
+        assert _equal_trees(r[key], want), key
 
 
 # ---------------------------------------------------------------------------
