@@ -1373,9 +1373,178 @@ def compressed_ms(history) -> float:
     return statistics.median(r["ms"] for r in history[2:])
 
 
-def wire_phase(torch, checks, device):
+# the headline step's packed8 words a worker sends (PERF.md §2)
+HEADLINE_WIRE_BYTES = 1_275_105_280
+# each audit's seconds, by label, for the phase line at the end
+AUDIT_SECONDS = {}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def recorder_first_use(torch) -> float:
+    """Seconds of the recorder's first use in this process, on a one-op
+    function: the dispatch mode imports ``torch._dynamo`` (and sympy) once
+    a process, a cost no audit should carry."""
+    from repro_torch.analysis.trace import record
+
+    t0 = time.perf_counter()
+    record(lambda x: x + 1, torch.ones(1))
+    return time.perf_counter() - t0
+
+
+def audit_summary(rep, seconds, trace=None, audit_s=None) -> dict:
+    """One static audit's numbers (``analysis.schedule.FullReport`` of a
+    recorded step), plain data: what an ``audit`` line prints and what a
+    rank sends back; with the ``trace``, its matmul nodes and how many the
+    autograd engine's device thread ran; ``seconds`` in all, ``audit_s`` of
+    them the audit after the recording."""
+    t, s, a = rep.traffic, rep.schedule, rep.audit
+    nodes = [] if trace is None else trace.nodes
+    mm = [n.index for n in nodes if n.kind == "op" and n.op in ("mm", "addmm", "bmm")]
+    off = set(() if trace is None else trace.off_thread)
+    wire = [n for n in nodes if n.kind == "collective" and n.axis == "data"
+            and any(lf.kind == "i" for lf in n.leaves)]
+    return {
+        "ok": rep.ok, "rules": sorted({v.rule for v in rep.violations}),
+        "violations": [str(v) for v in rep.violations][:8],
+        "int_wire_ops": a.stats["int_wire_ops"], "clips_checked": a.stats["clips_checked"],
+        "wire_bytes": [t.observed_bytes, None if t.plan is None else t.plan.coll_bytes],
+        "wire_collectives": [t.observed_eqns, None if t.plan is None else t.plan.n_eqns],
+        "wire_leaves": [t.observed_leaves, None if t.plan is None else t.plan.n_leaves],
+        "hidden_fraction": s.hidden_fraction,
+        "interleavable_fraction": s.interleavable_fraction,
+        "n_serialized": s.n_serialized, "backward_flops": s.backward_flops,
+        "nodes": a.stats["nodes"], "kernel_nodes": a.stats["kernel_calls"],
+        "mm_nodes": len(mm), "mm_nodes_off_thread": sum(i in off for i in mm),
+        "wire_async_calls": sum(n.stats["async_calls"] for n in wire),
+        "seconds": seconds, "audit_s": audit_s,
+    }
+
+
+def audit_checks(checks, label, summ, card, *, want_bytes=None, want_hidden=False,
+                 device_thread=False) -> None:
+    """Print an audit's line (beside the card's name and power limit) and
+    hold it: the full audit passes, a clip was found on the wire, the wire's
+    bytes and counts equal the declared transport's."""
+    AUDIT_SECONDS[label] = summ["seconds"]
+    print("audit " + json.dumps({"audit": label, **summ, "card": card}), flush=True)
+    checks.true(f"audit {label}: W/P/T clean ({summ['violations']})", summ["ok"])
+    checks.true(f"audit {label}: {summ['int_wire_ops']} integer wire leaves, "
+                f"{summ['clips_checked']} clips checked (>= 1)",
+                summ["int_wire_ops"] >= 1 and summ["clips_checked"] >= 1)
+    if want_bytes is not None:
+        checks.true(f"audit {label}: wire bytes {summ['wire_bytes'][0]} == {want_bytes} a "
+                    f"worker per image", summ["wire_bytes"][0] == want_bytes)
+    if want_hidden:
+        checks.true(f"audit {label}: hidden fraction {summ['hidden_fraction']} > 0 (image 0's "
+                    f"reduce unordered with image 1's backward)", summ["hidden_fraction"] > 0)
+    if device_thread:
+        checks.true(f"audit {label}: {summ['mm_nodes_off_thread']} of {summ['mm_nodes']} "
+                    f"matmul nodes recorded in the autograd engine's device thread (> 0)",
+                    summ["mm_nodes_off_thread"] > 0)
+
+
+def audit_recorded(torch, checks, label, art, args, card, device, **kw) -> None:
+    """Record ``art``'s compressed step on ``args`` (on their device, the
+    kernels launched) and run the full W/P/T audit against its spec."""
+    from repro_torch.analysis.schedule import full_audit
+    from repro_torch.analysis.trace import record
+
+    t0 = time.perf_counter()
+    out, trace = record(art.steps["compressed"], *args)
+    del out
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rep = full_audit(trace, art.audit_spec)
+    t2 = time.perf_counter()
+    audit_checks(checks, label, audit_summary(rep, t2 - t0, trace, t2 - t1), card,
+                 device_thread=device.type == "cuda", **kw)
+
+
+def zero1_ring_audit(torch, checks, device, card) -> None:
+    """Audit (b): granite-8b at published width, 2 layers, AdamW on the
+    ZeRO-1 route, IntSGD packed8, M = 2 microbatches, overlap ``ring``: one
+    exact step, then the compressed step recorded and audited. Image 0's
+    reduce must come out unordered with image 1's backward (hidden fraction
+    above 0) and no P001."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.compressor import leaf_seeds, make_compressor
+    from repro_torch.data.synthetic import SyntheticLMData
+    from repro_torch.launch.step import build_init_state, build_train_step
+    from repro_torch.launch.train import OPTIMIZERS
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.optim.schedules import constant, warmup_wrap
+
+    micro = 2
+    cfg = dataclasses.replace(get_arch("granite-8b"), n_layers=2)
+    shape = ShapeConfig("chip-smoke", 2048, N_WORKERS * micro, "train")
+    comp = make_compressor("intsgd8_packed")
+    base_opt = OPTIMIZERS["adamw"]()
+    art = build_train_step(
+        cfg, shape, n_workers=N_WORKERS, compressor=comp, base_opt=base_opt,
+        lr_schedule=warmup_wrap(constant(3e-4), 5), param_dtype=torch.float32, fused=False,
+        clip_norm=1.0, microbatches=micro, overlap="ring", device=device)
+    params = init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                            device=device)
+    opt_state, comp_state = build_init_state(params, n_workers=N_WORKERS, compressor=comp,
+                                             base_opt=base_opt)
+    data = SyntheticLMData(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
+    seed_gen = torch.Generator().manual_seed(0)
+    seeds0 = leaf_seeds(seed_gen, N_WORKERS, len(params), device, micro)
+    seeds1 = leaf_seeds(seed_gen, N_WORKERS, len(params), device, micro)
+    p1, o1, cs1, _, _ = art.steps["exact"](params, opt_state, comp_state, 0,
+                                            data.batch(0, 0, device=device), seeds0)
+    del params, opt_state, comp_state
+    audit_recorded(torch, checks, "zero1-ring-m2", art,
+                   (p1, o1, cs1, 1, data.batch(1, 0, device=device), seeds1), card, device,
+                   want_hidden=True)
+    del p1, o1, cs1
+    torch.cuda.empty_cache()
+
+
+def static_audit_phase(checks, card) -> None:
+    """Audit (d): ``build_train_step(verify="static")`` for granite-8b at
+    published width and full depth (the headline route: AdamW, IntSGD
+    packed8, fused, float32 params, 4 workers, seq 2048), recorded on the
+    meta device in this process: no card is touched. Prints its T001
+    bytes."""
+    import torch
+    from repro_torch.analysis.wire_audit import WireAuditError
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.compressor import make_compressor
+    from repro_torch.launch.step import build_train_step
+    from repro_torch.launch.train import OPTIMIZERS
+    from repro_torch.optim.schedules import constant
+
+    cfg = get_arch("granite-8b")
+    label = f"static granite-8b {cfg.n_layers} L (meta)"
+    t0 = time.perf_counter()
+    try:
+        art = build_train_step(
+            cfg, ShapeConfig("chip-smoke", 2048, N_WORKERS, "train"), n_workers=N_WORKERS,
+            compressor=make_compressor("intsgd8_packed"), base_opt=OPTIMIZERS["adamw"](),
+            lr_schedule=constant(3e-4), param_dtype=torch.float32, fused=True, clip_norm=1.0,
+            device="meta", verify="static")
+    except WireAuditError as e:
+        checks.true(f"audit {label}: {e}", False)
+        return
+    summ = audit_summary(art.static_report, time.perf_counter() - t0)
+    print(f"audit static: granite-8b {cfg.n_layers} L on meta, T001 bytes "
+          f"{summ['wire_bytes'][0]} observed, {summ['wire_bytes'][1]} declared ({card})",
+          flush=True)
+    audit_checks(checks, label, summ, card)
+
+
+def wire_phase(torch, checks, device, card):
     """Step 1 of the headline path replayed for one leaf: the unpacked word
-    sum equals the sum of the four workers' images."""
+    sum equals the sum of the four workers' images; then the whole step 1
+    recorded and audited (audit (a), :func:`audit_recorded`)."""
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.core.comm import CommCtx
     from repro_torch.core.compressor import leaf_seeds, make_compressor
@@ -1406,7 +1575,7 @@ def wire_phase(torch, checks, device):
     seed_gen = torch.Generator().manual_seed(0)  # train_loop's seed stream
     seeds0 = leaf_seeds(seed_gen, N_WORKERS, n_leaves, device)
     seeds1 = leaf_seeds(seed_gen, N_WORKERS, n_leaves, device)
-    p1, _, cs1, _, _ = art.steps["exact"](
+    p1, o1, cs1, _, _ = art.steps["exact"](
         params, fused_state_init(base_opt, params), comp.init(params, N_WORKERS), 0,
         data.batch(0, 0, device=device), seeds0,
     )
@@ -1429,7 +1598,12 @@ def wire_phase(torch, checks, device):
                  int_sum[leaf].to(torch.int64), isum)
     checks.true(f"wire: step 1 {leaf}: |sum| <= {lim_sum} and some field nonzero",
                 int(isum.abs().max()) <= lim_sum and bool(isum.any()))
-    del p1, images, words_sum, int_sum, isum
+    del images, words_sum, int_sum, isum
+    torch.cuda.empty_cache()
+    # (a) the same step 1 recorded through the CUDA kernels and audited
+    audit_recorded(torch, checks, "headline", art, (p1, o1, cs1, 1, b1, seeds1), card,
+                   device, want_bytes=HEADLINE_WIRE_BYTES)
+    del p1, o1, cs1, b1
     torch.cuda.empty_cache()
 
 
@@ -1541,6 +1715,34 @@ RANK_CORNERS = (
     ("ranks zero1-intsgd-topk8", 1, 2, "sgd", "intsgd", "topk8:1048576", 0.3, False, 1, "off"),
 )
 CHECKSUM_CHUNK = 1 << 24
+# the corner whose compressed step 1 each rank records and audits (audit (c))
+AUDITED_CORNER = "ranks fused-sgd-ring"
+
+
+def recording_build(build, box):
+    """``build_train_step`` whose compressed step records and audits its
+    first call (on this rank, on its group), the summary into ``box``."""
+    def wrapped(*a, **kw):
+        art = build(*a, **kw)
+        step = art.steps["compressed"]
+
+        def first_recorded(*args):
+            if box:
+                return step(*args)
+            from repro_torch.analysis.schedule import full_audit
+            from repro_torch.analysis.trace import record
+
+            t0 = time.perf_counter()
+            out, trace = record(step, *args)
+            t1 = time.perf_counter()
+            rep = full_audit(trace, art.audit_spec)
+            t2 = time.perf_counter()
+            box.append(audit_summary(rep, t2 - t0, trace, t2 - t1))
+            return out
+
+        return dataclasses.replace(art, steps={**art.steps, "compressed": first_recorded})
+
+    return wrapped
 
 
 def params_checksums(torch, params) -> list:
@@ -1570,6 +1772,7 @@ def rank_corners(group, rank, corners, device):
     import torch
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
     from repro_torch.launch.train import train_loop
 
     device = torch.device(device)
@@ -1589,13 +1792,23 @@ def rank_corners(group, rank, corners, device):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        params, history = train_loop(
-            cfg, shape, n_workers=N_WORKERS, compressor=compressor_name(comp, wire),
-            wire=wire, steps=steps, lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0,
-            microbatches=micro, opt=opt, device=device, group=group, overlap=overlap,
-            on_step=on_step,
-        )
+        audit, build = [], train_mod.build_train_step
+        if label == AUDITED_CORNER:
+            first_use = recorder_first_use(torch)
+            train_mod.build_train_step = recording_build(build, audit)
+        try:
+            params, history = train_loop(
+                cfg, shape, n_workers=N_WORKERS, compressor=compressor_name(comp, wire),
+                wire=wire, steps=steps, lr=lr, log_every=1, seed=0, fused=fused, clip_norm=1.0,
+                microbatches=micro, opt=opt, device=device, group=group, overlap=overlap,
+                on_step=on_step,
+            )
+        finally:
+            train_mod.build_train_step = build
+        if audit:
+            audit[0]["first_use_s"] = first_use
         out.append(dict(history=history, checksums=sums, n_leaves=len(params),
+                        audit=audit[0] if audit else None,
                         launches=ops.launch_counts(), shifts=ops.shift_launch_counts(),
                         peak=torch.cuda.max_memory_allocated() / 2**30,
                         reserved=torch.cuda.max_memory_reserved() / 2**30))
@@ -1619,10 +1832,11 @@ def ranks_references(torch, ops, checks, device):
     return local, launches
 
 
-def ranks_checks(torch, ops, checks, ranks, local, free) -> collections.Counter:
+def ranks_checks(torch, ops, checks, ranks, local, free, card) -> collections.Counter:
     """Phase 11's checks on each rank's :func:`rank_corners` result (four
     real ranks on a flat group sharing the card through gloo) against the
-    local backend. Returns the ranks' launch counts."""
+    local backend, and each rank's audit (c) of the audited corner's step
+    1. Returns the ranks' launch counts."""
     launches = collections.Counter()
     print(f"ranks: {N_WORKERS} gloo ranks on one card; every payload reached gloo as a CUDA "
           f"tensor (the port stages none through host memory itself; gloo copies CUDA tensors "
@@ -1657,6 +1871,12 @@ def ranks_checks(torch, ops, checks, ranks, local, free) -> collections.Counter:
         print(f"  {label}: the {N_WORKERS} ranks' reserved peaks sum to "
               f"{sum(r['reserved'] for r in res):.1f} GiB of the {free / 2**30:.2f} GiB free "
               f"before the spawn (each rank's CUDA context comes on top)", flush=True)
+        if label == AUDITED_CORNER:
+            for rank, r in enumerate(res):
+                checks.true(f"{label}: rank {rank} recorded its step 1", r["audit"] is not None)
+                if r["audit"] is not None:
+                    audit_checks(checks, f"{label} rank {rank} (gloo)", r["audit"], card,
+                                 device_thread=True)
         for rank, r in enumerate(res):
             ok = all(r["launches"][k] == want[k] and r["shifts"][k] == want_shift[k] for k in want)
             checks.true(f"{label}: rank {rank} launches {r['launches']} (expected {want}), "
@@ -5447,7 +5667,7 @@ def grid_rank(group, rank, device, tmp, fed24, fed25, frames25):
     return out
 
 
-def grid_phases(torch, ops, checks, device) -> dict:
+def grid_phases(torch, ops, checks, device, card) -> dict:
     """Phases 11 and 23-27: every reference in this process first (phase
     11's local backend, the grid phases' tp = 1 runs, phase 27's sequential
     stack), then one spawn of four gloo ranks running the six phase bodies
@@ -5459,12 +5679,12 @@ def grid_phases(torch, ops, checks, device) -> dict:
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_grid_", dir=ROOT / "build")
     try:
-        return _grid_phases(torch, ops, checks, device, tmp)
+        return _grid_phases(torch, ops, checks, device, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _grid_phases(torch, ops, checks, device, tmp) -> dict:
+def _grid_phases(torch, ops, checks, device, tmp, card) -> dict:
     from repro_torch.parallel.spawn import run_ranks
 
     n_dp, tp = TP_GRID
@@ -5508,7 +5728,7 @@ def _grid_phases(torch, ops, checks, device, tmp) -> dict:
           f"inside the ranks (the max over ranks) "
           f"{ {k: round(v, 1) for k, v in inside.items()} } s", flush=True)
     phase_checks = {
-        "11": lambda res: ranks_checks(torch, ops, checks, res, local11, free),
+        "11": lambda res: ranks_checks(torch, ops, checks, res, local11, free, card),
         "23": lambda res: tp_checks(torch, ops, checks, res, step0, free),
         "24": lambda res: tp_ckpt_serve_checks(torch, ops, checks, res, serve24, tp1_24),
         "25": lambda res: tp_recurrent_checks(torch, checks, res, serve25, tp1_25),
@@ -5574,6 +5794,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     checks = Checks()
     t_start = time.perf_counter()
+    card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -5617,9 +5838,17 @@ def main() -> None:
     cross_route_phase(checks, histories)
 
     # 10. step 1 replayed for one leaf: unpack(sum of words) == sum of images
+    print(f"recorder first use: {recorder_first_use(torch):.1f}s (imports, once a process; "
+          f"{card})", flush=True)
     t0 = time.perf_counter()
-    wire_phase(torch, checks, device)
+    wire_phase(torch, checks, device, card)
     print(f"wire phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # the static audits: (a) ran in the wire phase, (b) the ZeRO-1 ring
+    # route here, (c) in the grid phases' spawn, (d) after the dry run
+    t0 = time.perf_counter()
+    zero1_ring_audit(torch, checks, device, card)
+    print(f"zero1 ring audit phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 11. four real ranks (gloo) sharing the card, against the local
     # backend: in the grid phases' spawn, first in its ranks (below)
@@ -5719,15 +5948,20 @@ def main() -> None:
     t0 = time.perf_counter()
     dryrun_phase(checks)
     print(f"dry run phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    static_audit_phase(checks, card)
+    print(f"static audit phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 11 and 23-27, one spawn of four gloo ranks sharing the card: 11 the
     # ranks on a flat group against the local backend, then on a 2 x 2 grid
     # 23 tensor parallelism, 24 checkpoints, the elastic resume and TP
     # serving, 25 the hybrid, ssm and encoder-decoder decode, 26 the paper's
     # other compressors, then on the flat group 27 pipeline parallelism
-    for counts in grid_phases(torch, ops, checks, device).values():
+    for counts in grid_phases(torch, ops, checks, device, card).values():
         for name, c in counts.items():
             launches[name] += c
+    print(f"audits: {sum(AUDIT_SECONDS.values()):.1f}s in all (recording and auditing; "
+          f"{ {k: round(v, 2) for k, v in AUDIT_SECONDS.items()} }) on {card}", flush=True)
 
     print(f"all phases: {time.perf_counter() - t_start:.1f}s", flush=True)
 
@@ -5761,10 +5995,6 @@ def main() -> None:
               f"launches x (ms - bound) = {excess:.1f} ms", flush=True)
     if checks.failed:
         fail("; ".join(checks.failed))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

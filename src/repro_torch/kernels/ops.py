@@ -12,6 +12,12 @@ Dispatch is by the device of the first tensor:
   * on the CPU it runs the kernel's plain PyTorch version (the role Pallas
     ``interpret=True`` plays in the JAX package).
 
+A tensor on the meta device takes the plain version too, which there
+computes shapes only: the static audit records a step on meta
+(:mod:`repro_torch.analysis`) and touches no card. While a step is recorded
+each call is one kernel node of the trace (``analysis.trace``), on the card
+and on the CPU alike.
+
 ``launches`` on each wrapper counts the kernel launches, and only those, so
 a run can show that its main path went through the kernels;
 ``shift_launches`` counts those of them that carried an IntDIANA shift, and
@@ -24,6 +30,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.analysis import trace as _trace
 from repro_torch.kernels import block_norms as _bn
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import int_compress as _ic
@@ -33,16 +40,23 @@ from repro_torch.kernels import wire_pack as _wp
 class KernelOp:
     """One CUDA kernel behind a device-dispatching call."""
 
-    def __init__(self, name: str, cuda: Callable, plain: Callable, source: str):
+    def __init__(self, name: str, cuda: Callable, plain: Callable, source: str,
+                 writes: tuple = ()):
         self.name = name
         self.cuda = cuda
         self.plain = plain
         self.source = source  # path of the CUDA source within the package
+        self.writes = writes  # keyword tensors the kernel writes in place
         self.launches = 0
         self.shift_launches = 0  # of those, launches with an IntDIANA shift
         self.bf16_launches = 0  # of those, launches of the bf16 variant
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
+        if _trace.ACTIVE is not None:
+            return _trace.ACTIVE.kernel(self, self._dispatch, x, args, kwargs)
+        return self._dispatch(x, *args, **kwargs)
+
+    def _dispatch(self, x: torch.Tensor, *args, **kwargs):
         if x.device.type == "cuda":
             out = self.cuda(x, *args, **kwargs)
             self.launches += 1
@@ -51,7 +65,7 @@ class KernelOp:
             if any(t.dtype == torch.bfloat16 for t in (x, *args) if isinstance(t, torch.Tensor)):
                 self.bf16_launches += 1
             return out
-        if x.device.type == "cpu":
+        if x.device.type in ("cpu", "meta"):
             return self.plain(x, *args, **kwargs)
         raise ValueError(f"{self.name}: no kernel for device {x.device}")
 
@@ -61,7 +75,7 @@ class KernelOp:
 
 int_compress = KernelOp(
     "int_compress", _ic.int_compress_cuda, _ic.int_compress_plain,
-    "csrc/int_compress.cu",
+    "csrc/int_compress.cu", writes=("amax",),
 )
 pack_words = KernelOp(
     "pack_words", _wp.pack_words_cuda, _wp.pack_words_plain, "csrc/wire_pack.cu",

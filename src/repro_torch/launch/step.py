@@ -66,7 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -111,12 +111,23 @@ class Layout:
     axes: Axes = SINGLE
     rep: frozenset = frozenset()
     rep_mask: Optional[torch.Tensor] = None
+    # each local leaf's element count, in ``names`` order (the integer image
+    # the codec packs: the static audit's transport declaration)
+    leaf_sizes: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class StepArtifacts:
     steps: Dict[str, Callable]  # "exact" (step 0) and "compressed"
     layout: Layout
+    # the wire contract the static auditor proves a recorded step against
+    # (``analysis.wire_audit.WireSpec``; None for the float-wire baselines)
+    audit_spec: Any = None
+    # which -> (the step built on the meta device, its meta arguments): what
+    # ``verify="static"`` records
+    meta_step: Optional[Callable] = None
+    # the passing ``analysis.schedule.FullReport`` of ``verify="static"``
+    static_report: Any = None
 
 
 def _loss_fn_for(cfg: ModelConfig):
@@ -504,6 +515,7 @@ def build_train_step(
     overlap: str = "off",
     bucket_words: int = bucketing.DEFAULT_BUCKET_WORDS,
     grid=None,
+    verify: Optional[str] = "off",
 ) -> StepArtifacts:
     """The exact (step-0) and compressed train steps of ``cfg`` with
     ``n_workers`` data-parallel workers: simulated in turn on one device, or
@@ -518,7 +530,18 @@ def build_train_step(
     the integer wire in buckets of ``bucket_words`` words. With ``grid`` (a
     ``launch.mesh.Grid``, in place of ``group``) the step runs on this
     rank's shard of a data × model grid: ``n_workers`` is the number of dp
-    replicas, the params the rank's shard (``specs.tp_shard``)."""
+    replicas, the params the rank's shard (``specs.tp_shard``).
+
+    ``verify="static"`` records the compressed step once on the meta device
+    (the local backend's ``n_workers`` workers, arguments built as the dry
+    run builds them: no card is touched) and runs the full W/P/T static
+    audit (``analysis.schedule.full_audit``) against the step's
+    ``audit_spec``, raising ``WireAuditError`` on any violation (the
+    passing report is ``static_report``); a route whose step cannot run on
+    meta raises naming the op. The default ``"off"`` (or None) records
+    nothing."""
+    if verify not in (None, "off", "static"):
+        raise ValueError(f"verify must be 'off' or 'static', got {verify!r}")
     device = resolve_device(device)
     # float32 matmuls in full float32 on the card (no TF32), as in the JAX
     # package: the bf16 forward is the train path's only reduced precision
@@ -575,6 +598,7 @@ def build_train_step(
         cfg=cfg, ctx=ctx, dims=specs_mod.global_tree_dims(cfg, tp), names=names,
         device=device, tp=tp, axes=axes, rep=rep,
         rep_mask=None if tp == 1 else torch.tensor([k in rep for k in names], device=device),
+        leaf_sizes=tuple(math.prod(shapes[k]) for k in names),
     )
 
     def make(exact):
@@ -585,8 +609,72 @@ def build_train_step(
             param_dtype=param_dtype,
         )
 
-    return StepArtifacts(steps={"compressed": make(False), "exact": make(True)},
-                         layout=layout)
+    # the wire contract the static auditor proves a recorded step against
+    # (float-wire baselines have no codec and no spec). n_accum is the
+    # number of IMAGES that ride the wire per step: M when the compressor
+    # pipelines its integer images, else 1 (an f32 accumulation, one image)
+    wf = getattr(compressor, "wire_format", None)
+    audit_spec = None
+    if wf is not None:
+        from repro_torch.analysis.wire_audit import spec_for_step
+
+        n_images = microbatches if compressor.fused_capable else 1
+        audit_spec = spec_for_step(layout, wf, n_accum=n_images, fused=fused)
+
+    def meta_step(which: str = "compressed"):
+        if grid is not None and tp > 1:
+            raise NotImplementedError(
+                f"the static audit records a step on the meta device with the local "
+                f"backend, which holds no model shards: a step at tp = {tp} is audited on "
+                "its ranks (record it with repro_torch.analysis.trace.record)")
+        twin = build_train_step(
+            cfg, shape, n_workers=n_workers, compressor=compressor, base_opt=base_opt,
+            lr_schedule=lr_schedule, param_dtype=param_dtype, fused=fused,
+            clip_norm=clip_norm, microbatches=microbatches, device="meta",
+            overlap=overlap, bucket_words=bucket_words)
+        return twin.steps[which], _meta_args(twin.layout, shape, compressor, base_opt,
+                                             fused=fused, microbatches=microbatches,
+                                             param_dtype=param_dtype, exact=which == "exact")
+
+    artifacts = StepArtifacts(steps={"compressed": make(False), "exact": make(True)},
+                              layout=layout, audit_spec=audit_spec, meta_step=meta_step)
+    if verify == "static":
+        if audit_spec is None:
+            raise ValueError(
+                "verify='static' needs an integer wire to prove; compressor "
+                f"{type(compressor).__name__} has no wire_format")
+        from repro_torch.analysis.schedule import verify_step
+
+        report = verify_step(artifacts)
+        report.raise_if_failed()
+        artifacts = dataclasses.replace(artifacts, static_report=report)
+    return artifacts
+
+
+def _meta_args(layout: Layout, shape: ShapeConfig, compressor: Compressor,
+               base_opt: Optimizer, *, fused: bool, microbatches: int, param_dtype,
+               exact: bool):
+    """A step's arguments on the meta device, built as ``launch/dryrun.py``
+    builds them: the params (``param_dtype``, the model's float32 leaves
+    float32), the state from ``build_init_state``, step 1, the global batch
+    of ``inputs.input_specs`` and the encode seeds; no memory, no card."""
+    from repro_torch.launch.inputs import input_specs
+    from repro_torch.models.transformer import FLOAT32_LEAVES
+
+    meta = torch.device("meta")
+    _, shapes, _ = specs_mod.infer_param_specs(layout.cfg, layout.tp)
+    params = {k: torch.empty(shapes[k], device=meta,
+                             dtype=torch.float32 if k in FLOAT32_LEAVES else param_dtype)
+              for k in layout.names}
+    n = layout.ctx.n
+    opt_state, comp_state = build_init_state(params, n_workers=n, compressor=compressor,
+                                             base_opt=base_opt, fused=fused)
+    batch = {k: torch.zeros(s, dtype=d, device=meta)
+             for k, (s, d) in input_specs(layout.cfg, shape, "train").items()}
+    pipelined = microbatches > 1 and compressor.fused_capable
+    seeds = torch.zeros(((microbatches,) if pipelined else ()) + (n, len(params)),
+                        dtype=torch.int32, device=meta)
+    return params, opt_state, comp_state, 0 if exact else 1, batch, seeds
 
 
 def _check_tp_compressor(compressor: Compressor, cfg: ModelConfig, tp: int) -> None:

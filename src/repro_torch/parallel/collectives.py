@@ -37,6 +37,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import trace as _trace
 from repro_torch.kernels.ref import wrap_int
 
 Tree = Dict[str, torch.Tensor]
@@ -167,6 +168,7 @@ def _all_reduce_copies(tree: Tree, group, op=dist.ReduceOp.SUM, *,
     return Pending(works, lambda: out)
 
 
+@_trace.collective("psum", "data", data="worker_words", size=group_size)
 def psum_wire_words(worker_words: Iterable[Tree], group=None, *,
                     async_op: bool = False, inplace: bool = False):
     """The integer all-reduce of the workers' word planes: locally the
@@ -189,6 +191,7 @@ def psum_wire_words(worker_words: Iterable[Tree], group=None, *,
     return pending if async_op else pending.wait()
 
 
+@_trace.collective("psum", "data", data="worker_buckets", size=group_size)
 def psum_wire_words_bucketed(worker_buckets: Iterable[List[torch.Tensor]], group=None, *,
                              async_op: bool = False, inplace: bool = False):
     """The bucketed integer all-reduce (``overlap="ring"``): each worker's
@@ -207,6 +210,7 @@ def psum_wire_words_bucketed(worker_buckets: Iterable[List[torch.Tensor]], group
     return pending if async_op else pending.wait()
 
 
+@_trace.collective("all_gather", "data", data="worker_buckets", size=group_size)
 def allgather_wire_words(worker_buckets: Iterable[List[torch.Tensor]], n: int, group=None, *,
                          async_op: bool = False):
     """The integer all-gather of a gather codec's payload (values and the
@@ -237,6 +241,7 @@ def allgather_wire_words(worker_buckets: Iterable[List[torch.Tensor]], n: int, g
     return pending if async_op else pending.wait()
 
 
+@_trace.collective("pmean", "data", data="worker_trees", size=group_size)
 def pmean_tree(worker_trees: Iterable[Tree], n: int, group=None, *,
                ordered: bool = False) -> Tree:
     """Float mean over the n workers. Locally the f32 sum runs in worker
@@ -319,6 +324,7 @@ def _gather_leaf(v: torch.Tensor, n: int, group) -> List[torch.Tensor]:
     return out
 
 
+@_trace.collective("all_gather", "data", data="worker_trees", size=group_size)
 def all_gather_tree(worker_trees: Iterable[Tree], n: int, group=None) -> Tree:
     """Each leaf gathered over the n workers: a leading worker axis of size
     n, worker order (the JAX package's ``all_gather_flat`` per leaf)."""
@@ -332,6 +338,7 @@ def all_gather_tree(worker_trees: Iterable[Tree], n: int, group=None) -> Tree:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+@_trace.collective("pmax", "data", data="worker_trees", size=group_size)
 def pmax_tree(worker_trees: Iterable[Tree], group=None) -> Tree:
     """Elementwise max over the workers (``lax.pmax`` per leaf)."""
     if group is not None:
@@ -346,6 +353,7 @@ def pmax_tree(worker_trees: Iterable[Tree], group=None) -> Tree:
     return acc
 
 
+@_trace.collective("all_gather", "data", data="rows", size=group_size)
 def all_gather_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
     """The ZeRO-1 param all-gather (``all_gather_concat`` over flat rows in
     the JAX package): every worker's row concatenated in worker order, flat
@@ -425,17 +433,25 @@ class _PsumTp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         _count("psum_tp_backward")
-        out = g.contiguous().clone()
-        dist.all_reduce(out, group=ctx.group)
-        return out, None
+        return _psum_cotangent(g, ctx.group), None
 
 
+@_trace.collective("psum", "model", data="g", size=group_size)
+def _psum_cotangent(g: torch.Tensor, group) -> torch.Tensor:
+    """:class:`_PsumTp`'s backward sum over the model group."""
+    out = g.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+@_trace.collective("psum", "model", data="x", size=group_size)
 def psum_tp(x: torch.Tensor, group) -> torch.Tensor:
     """The model group's sum of ``x``, differentiable (see :class:`_PsumTp`)."""
     _need_group(group, "psum_tp")
     return _PsumTp.apply(x, group)
 
 
+@_trace.collective("pmax", "model", data="x", size=group_size)
 def pmax_tp(x: torch.Tensor, group) -> torch.Tensor:
     """The model group's elementwise max of ``x``, outside autograd (the JAX
     package stops the gradient there: a stabilizer only)."""
@@ -446,6 +462,7 @@ def pmax_tp(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+@_trace.collective("psum", "seq", data="x", size=group_size)
 def psum_sp(x: torch.Tensor, group) -> torch.Tensor:
     """The data group's sum of ``x``, outside autograd: the
     sequence-sharded decode's softmax sums over the KV shards (the JAX
@@ -457,6 +474,7 @@ def psum_sp(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+@_trace.collective("pmax", "seq", data="x", size=group_size)
 def pmax_sp(x: torch.Tensor, group) -> torch.Tensor:
     """The data group's elementwise max of ``x``, outside autograd (the
     sequence-sharded decode's softmax max)."""
@@ -467,6 +485,7 @@ def pmax_sp(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+@_trace.collective("all_gather", "model", data="x", size=group_size)
 def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order, on
     every rank (a checkpoint's model shards made whole for its writer)."""
@@ -482,6 +501,7 @@ def all_agree(x: torch.Tensor, group) -> bool:
     return bool(torch.equal(hi, x) and torch.equal(lo, x))
 
 
+@_trace.collective("psum", "model", data="tree", size=group_size)
 def psum_tp_tree(tree: Tree, group) -> Tree:
     """Each leaf summed over the model group, outside autograd: the
     replicated leaves' gradients (each rank holds a partial one) and the
@@ -490,6 +510,7 @@ def psum_tp_tree(tree: Tree, group) -> Tree:
     return _all_reduce_copies(tree, group).wait()
 
 
+@_trace.collective("all_to_all", "model", data="x", size=group_size)
 def exchange_tp(x: torch.Tensor, group) -> torch.Tensor:
     """The model group's all-to-all along dim 0: ``x`` is (tp, ...), row j
     goes to rank j, and row j of the result came from rank j. Its own
@@ -516,6 +537,7 @@ class _AllToAllTp(torch.autograd.Function):
         return exchange_tp(g, ctx.group), None
 
 
+@_trace.collective("all_to_all", "model", data="x", size=group_size)
 def all_to_all_tp(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable all-to-all over the model group along dim 0 (``x`` is
     (tp, ...): row j is sent to rank j)."""
@@ -529,6 +551,7 @@ def all_to_all_tp(x: torch.Tensor, group) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the stage axis (pipeline parallelism)
 # ---------------------------------------------------------------------------
+@_trace.collective("ppermute", "stage", data="x", size=group_size)
 def ppermute_ring(x: torch.Tensor, group, *, shift: int = 1) -> torch.Tensor:
     """The pipeline's ring send over the stage group (the JAX package's
     ``ppermute_ring``), outside autograd (the pipeline's backward runs the

@@ -59,6 +59,10 @@ def select_topk(a: torch.Tensor, k: int) -> torch.Tensor:
     n = a.numel()
     if k >= n:
         sel = torch.arange(n, device=a.device)
+    elif a.device.type == "meta":
+        # shapes only (the static audit's recording): the selection holds
+        # exactly k indices of ``a`` whatever its values
+        sel = torch.topk(a, k, sorted=False).indices
     else:
         t = torch.topk(a, k, sorted=False).values.min()
         gt = a > t
